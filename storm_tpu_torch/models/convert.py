@@ -1,0 +1,114 @@
+"""Parameters: seeded initialization, weight-only int8 quantization, and
+carrying the JAX package's parameter trees across.
+
+Trees are nested dicts and lists with array leaves, laid out as the JAX
+package lays them out: dense ``w`` is (in, out), convolution kernels are
+HWIO (the module transposes them to OIHW). :func:`quantize_params` is the
+numpy copy of ``storm_tpu/infer/engine.py:quantize_params`` and produces
+bit-identical ``{"__q", "__s"}`` leaves; :func:`dequantize_params` and
+:func:`prepare_params` follow the same file's serving preparation.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from storm_tpu_torch.device import resolve_device
+from storm_tpu_torch.models.registry import ModelDef
+
+
+def _map(fn: Callable[[Any, tuple], Any], tree, path: tuple = ()):
+    """Apply ``fn(leaf, path)`` to every leaf; a ``{"__q", "__s"}`` dict
+    is one leaf. ``path`` holds the dict keys and list indices above it."""
+    if isinstance(tree, dict) and "__q" not in tree:
+        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(tree, path)
+
+
+def _is_qleaf(x) -> bool:
+    return isinstance(x, dict) and "__q" in x
+
+
+def init_params(model: ModelDef, seed: int = 0):
+    """Seeded float32 numpy parameters for ``model`` (JAX layout)."""
+    return model.init(np.random.RandomState(seed))
+
+
+def quantize_params(params, min_ndim: int = 2):
+    """Float tree -> the same tree with every float leaf of rank >=
+    ``min_ndim`` replaced by ``{"__q": int8, "__s": f32}``: symmetric
+    per-output-channel (last axis) scales, ``np.rint``, clip at +-127.
+    That covers dense weights and also the CLS token, the position
+    embedding and the patch-embedding kernel."""
+    def quant(leaf, _path):
+        leaf = np.asarray(leaf)
+        if leaf.ndim < min_ndim or leaf.dtype.kind not in "fV":
+            return leaf  # V: bfloat16 shows as void-kind
+        w = np.asarray(leaf, np.float32)
+        axes = tuple(range(w.ndim - 1))
+        scale = np.max(np.abs(w), axis=axes) / 127.0
+        scale = np.maximum(scale, 1e-12).astype(np.float32)
+        q = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+        return {"__q": q, "__s": scale}
+
+    return _map(quant, params)
+
+
+def _tensor(a, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t if dtype is None else t.to(dtype)
+
+
+def dequantize_params(qparams, dtype: torch.dtype, keep_dense: bool = False):
+    """Numpy tree from :func:`quantize_params` -> tree of tensors.
+    Quantized leaves become ``q.to(dtype) * s.to(dtype)``, except, with
+    ``keep_dense``, 2-D leaves under a ``"w"`` key (dense weights), which
+    stay ``{"__q": int8, "__s": f32}`` for the w8a16 kernel. Float leaves
+    are converted as they are."""
+    def deq(leaf, path):
+        if not _is_qleaf(leaf):
+            return _tensor(leaf)
+        q, s = _tensor(leaf["__q"]), _tensor(leaf["__s"])
+        if keep_dense and q.dim() == 2 and path and path[-1] == "w":
+            return {"__q": q, "__s": s}
+        return q.to(dtype) * s.to(dtype)
+
+    return _map(deq, qparams)
+
+
+def prepare_params(params, weights: str, dtype: torch.dtype):
+    """Numpy float32 tree (JAX layout) -> the tensor tree a module is
+    built from, for ``weights`` "float" (every float32 leaf cast to the
+    compute dtype) or "int8_fused" (quantized; dense weights stay int8,
+    every other quantized leaf is dequantized in the compute dtype, and
+    the rest — biases and norm parameters — cast to it)."""
+    if weights == "int8":
+        raise NotImplementedError(
+            "weights='int8' (dequantize every weight up front) is not ported "
+            "yet; see ROADMAP.md 'PyTorch/H100 port', int8 weights and the "
+            "uint8 wire. Use 'int8_fused' or 'float'.")
+    if weights not in ("float", "int8_fused"):
+        raise ValueError(f"weights must be float|int8_fused, got {weights!r}")
+
+    f32 = _map(lambda leaf, _p: np.asarray(leaf, np.float32), params)
+    if weights == "float":
+        return _map(lambda leaf, _p: _tensor(leaf, dtype), f32)
+    tree = dequantize_params(quantize_params(f32), dtype, keep_dense=True)
+    return _map(lambda t, _p: t if _is_qleaf(t) else t.to(dtype), tree)
+
+
+def from_jax_params(params, model: ModelDef, *, weights: str = "float",
+                    dtype: torch.dtype = torch.float32,
+                    device=None) -> nn.Module:
+    """Build ``model``'s module from a numpy parameter tree in the JAX
+    layout (``jax.tree.map(np.asarray, params)`` of storm_tpu's params) on
+    ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    module = model.make(prepare_params(params, weights, dtype))
+    return module.eval().to(dev)

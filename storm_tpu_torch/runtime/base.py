@@ -1,0 +1,160 @@
+"""Operator API: Spout / Bolt / OutputCollector / TopologyContext, copied
+from ``storm_tpu/runtime/base.py`` without the tracing and copy-ledger
+hooks.
+
+``execute``/``next_tuple`` are coroutines, because emitting into a bounded
+downstream inbox is a backpressure point; an uncaught exception in
+``execute`` fails the input tuple and keeps the executor alive.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+from storm_tpu_torch.runtime.tuples import Tuple, new_id
+
+
+class TopologyContext:
+    """What an operator instance knows about itself and its surroundings."""
+
+    def __init__(self, component_id: str, task_index: int, parallelism: int,
+                 config: Any, metrics: Any = None) -> None:
+        self.component_id = component_id
+        self.task_index = task_index
+        self.parallelism = parallelism
+        self.config = config
+        self.metrics = metrics
+
+
+class OutputCollector:
+    """Routes emits and keeps the ack/anchor bookkeeping (Storm's
+    ``OutputCollector``/``SpoutOutputCollector``)."""
+
+    def __init__(self, runtime: Any, component_id: str, task_index: int) -> None:
+        self._rt = runtime
+        self.component_id = component_id
+        self.task_index = task_index
+        self._out_fields: Dict[str, Sequence[str]] = {"default": ("message",)}
+        self._m_emitted = runtime.metrics.counter(component_id, "emitted")
+        self._m_acked = runtime.metrics.counter(component_id, "acked")
+        self._m_failed = runtime.metrics.counter(component_id, "failed")
+
+    def set_output_fields(self, fields: Dict[str, Sequence[str]]) -> None:
+        self._out_fields = fields
+
+    async def emit(self, values: Sequence[Any], *, stream: str = "default",
+                   anchors: Optional[Iterable[Tuple]] = None,
+                   msg_id: Any = None, root_ts: Optional[float] = None) -> int:
+        """Emit a tuple downstream; returns the number of deliveries.
+
+        Bolts: ``await collector.emit(Values(out), anchors=[in_tuple])``.
+        Spouts: ``await collector.emit(Values(x), msg_id=offset)`` — a
+        non-None ``msg_id`` opens an at-least-once ledger entry whose
+        completion or failure is reported back to the spout."""
+        fields = self._out_fields.get(stream, ("message",))
+        subs = self._rt.router.subscriptions(self.component_id, stream)
+
+        ts = root_ts if root_ts is not None else time.perf_counter()
+        roots: frozenset = frozenset()
+        if anchors:
+            anchor_list = list(anchors)
+            roots = frozenset().union(*(a.anchors for a in anchor_list))
+            if root_ts is None:
+                ts = min(a.root_ts for a in anchor_list)
+
+        probe = Tuple(values=list(values), fields=fields,
+                      source_component=self.component_id,
+                      source_task=self.task_index, stream=stream, root_ts=ts)
+        deliveries: List[Any] = []
+        for grouping, group in subs:
+            for idx in grouping.choose(probe):
+                deliveries.append(group.inboxes[idx])
+
+        if msg_id is not None:
+            if not deliveries:
+                # No subscribers: complete immediately (Storm acks these).
+                self._rt.spout_done(self.component_id, self.task_index, msg_id, True)
+                return 0
+            root_id = new_id()
+            self._rt.ledger.init_root(
+                root_id, msg_id,
+                self._rt.spout_done_cb(self.component_id, self.task_index), ts)
+            roots = frozenset((root_id,))
+
+        # XOR every new edge into the ledger BEFORE the first (possibly
+        # yielding) queue put — otherwise a fast consumer could zero the
+        # ledger while later deliveries of the same emit are still pending.
+        edges = [new_id() for _ in deliveries]
+        for edge in edges:
+            for r in roots:
+                self._rt.ledger.xor(r, edge)
+        for inbox, edge in zip(deliveries, edges):
+            await inbox.put(Tuple(
+                # Fresh list per delivery: fan-out targets never share one
+                # mutable values object.
+                values=list(probe.values), fields=fields,
+                source_component=self.component_id,
+                source_task=self.task_index, stream=stream, edge_id=edge,
+                anchors=roots, root_ts=ts))
+        self._m_emitted.inc(len(deliveries))
+        return len(deliveries)
+
+    def ack(self, t: Tuple) -> None:
+        """Mark the input tuple consumed."""
+        for r in t.anchors:
+            self._rt.ledger.xor(r, t.edge_id)
+        self._m_acked.inc()
+
+    def fail(self, t: Tuple) -> None:
+        """Fail the input tuple's roots -> spout replay."""
+        for r in t.anchors:
+            self._rt.ledger.fail_root(r)
+        self._m_failed.inc()
+
+    def report_error(self, err: BaseException) -> None:
+        self._rt.report_error(self.component_id, self.task_index, err)
+
+
+class Component:
+    """Shared declarations for spouts and bolts."""
+
+    def declare_output_fields(self) -> Dict[str, Sequence[str]]:
+        return {"default": ("message",)}
+
+
+class Spout(Component):
+    def open(self, context: TopologyContext, collector: OutputCollector) -> None:
+        self.context = context
+        self.collector = collector
+
+    async def next_tuple(self) -> bool:
+        """Emit zero or more tuples; return True if anything was emitted
+        (False lets the executor back off briefly)."""
+        raise NotImplementedError
+
+    def ack(self, msg_id: Any) -> None:
+        """Tuple tree for ``msg_id`` fully processed."""
+
+    def fail(self, msg_id: Any) -> None:
+        """Tuple tree failed or timed out; replayable spouts re-emit."""
+
+    def close(self) -> None:
+        pass
+
+
+class Bolt(Component):
+    def prepare(self, context: TopologyContext, collector: OutputCollector) -> None:
+        """One-time init per executor. Heavy state belongs here, not in
+        ``__init__``: the topology clones the instance per task."""
+        self.context = context
+        self.collector = collector
+
+    async def execute(self, t: Tuple) -> None:
+        raise NotImplementedError
+
+    async def flush(self) -> None:
+        """Drain hook, awaited after the last tuple of a graceful stop."""
+
+    def cleanup(self) -> None:
+        """Graceful shutdown."""

@@ -1,0 +1,72 @@
+"""Tuples and ack identities, copied from ``storm_tpu/runtime/tuples.py``
+(single-process: no worker tags, no source-log provenance).
+
+Every tuple edge has a random 64-bit ``edge_id``; a tuple anchored to one
+or more root (spout) tuples carries their ids in ``anchors``, Storm's
+anchoring model, which the XOR ledger (:mod:`.acker`) completes.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Any, FrozenSet, Sequence
+
+# Ids only need uniqueness and uniform mixing for the XOR ledger; a
+# process-seeded Mersenne Twister is far cheaper per call than urandom.
+_rng = random.Random(int.from_bytes(os.urandom(16), "big"))
+_randbits = _rng.getrandbits
+
+
+def new_id() -> int:
+    """Random non-zero 64-bit id (zero means 'complete' to the ledger)."""
+    while True:
+        v = _randbits(64)
+        if v:
+            return v
+
+
+class Values(list):
+    """An emitted value list, mirroring Storm's ``Values``."""
+
+
+@lru_cache(maxsize=1024)
+def _field_index(fields: tuple) -> dict:
+    return {name: i for i, name in enumerate(fields)}
+
+
+@dataclass
+class Tuple:
+    values: Sequence[Any]
+    fields: Sequence[str]
+    source_component: str
+    source_task: int = 0
+    stream: str = "default"
+    edge_id: int = 0
+    anchors: FrozenSet[int] = frozenset()
+    # perf_counter timestamp when the root entered the topology; flows with
+    # the tuple for end-to-end latency metrics.
+    root_ts: float = 0.0
+
+    def __getitem__(self, i: int) -> Any:
+        return self.values[i]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    _MISSING = object()
+
+    def get(self, name: str, default: Any = _MISSING) -> Any:
+        """Field access by declared name (Storm's ``getValueByField``);
+        a ``default`` makes a missing field non-fatal."""
+        idx = _field_index(tuple(self.fields)).get(name)
+        if idx is None:
+            if default is not Tuple._MISSING:
+                return default
+            raise KeyError(
+                f"no field {name!r} in stream from {self.source_component} "
+                f"(fields: {list(self.fields)})")
+        return self.values[idx]
+
