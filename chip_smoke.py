@@ -10,10 +10,13 @@ no result):
 2. build: every hand-written kernel from ``storm_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel);
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the cases and tolerances of ``storm_tpu/ops/parity_checks.py``
-   and at the ViT-B/16 shapes (batch 8); then each kernel, its plain
-   version and a one-call PyTorch yardstick timed with CUDA events over
-   one forward's worth of calls at those shapes;
+   card, at the cases and tolerances of ``storm_tpu/ops/parity_checks.py``,
+   at the same ragged shapes in bf16, and at the ViT-B/16 shapes (batch 8);
+   w8a16 and flash attention have two variants each, the f32 kernels
+   (float32 inputs) and the tensor-core kernels (``*_sm90``, bfloat16),
+   and every case checks which one it launched. Then each kernel variant,
+   its plain version and a one-call PyTorch yardstick are timed with CUDA
+   events over one forward's worth of calls at the ViT-B/16 shapes;
 4. forward parity: ViT-B/16 ``int8_fused`` with seeded weights, kernel path
    against plain path, in float32 (TF32 off) and bfloat16: logits within a
    relative bound, argmax identical (in bfloat16 on every row whose top-2
@@ -21,7 +24,9 @@ no result):
 5. main path: MemoryBroker -> 2x BrokerSpout -> 4x InferenceBolt -> 2x
    BrokerSink (+ dead-letter sink) serving ViT-B/16 bf16 ``int8_fused``:
    16 records and 1 poison record; the kernels' launch counters, zeroed
-   just before, must show every batch went through all three kernels;
+   just before, must show every batch went through all three kernels, the
+   tensor-core variants of w8a16 and flash attention, and the f32
+   variants launched 0 times;
 6. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -152,8 +157,13 @@ def plain_kernels():
 
 
 def parity_cases(torch, rows: list) -> dict:
-    """parity_checks.py's cases and tolerances, then the ViT-B/16 shapes.
-    Returns max |kernel - plain| per kernel at the ViT-B/16 shapes."""
+    """parity_checks.py's cases and tolerances, the same ragged shapes in
+    bf16, then the ViT-B/16 shapes. Each case also checks which variant of
+    the kernel it launched: f32 cases the f32 kernels, bf16 cases the
+    tensor-core (sm90) kernels. Returns max |kernel - plain| per kernel
+    variant at the ViT-B/16 shapes (the f32 variants run there on the same
+    bf16 inputs by naming them)."""
+    from storm_tpu_torch.ops import _build
     from storm_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     from storm_tpu_torch.ops.fused_norm import (
@@ -172,18 +182,32 @@ def parity_cases(torch, rows: list) -> dict:
         q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
         return q, s
 
+    def launched(fn, variant):
+        """fn(), holding that it launched ``variant`` and nothing else."""
+        before = _build.launch_counts()
+        out = fn()
+        diff = {k: v - before[k] for k, v in _build.launch_counts().items() if v != before[k]}
+        if diff != {variant: 1}:
+            raise AssertionError(f"expected one launch of {variant}, got {diff}")
+        return out
+
     # Flash attention. The reference sees the same (possibly bf16-rounded)
     # inputs upcast to f32; the f32 tolerance is parity_checks' @highest
-    # bound (this kernel multiplies in full f32), bf16 allows one output
+    # bound (the f32 kernel multiplies in full f32), bf16 allows one output
     # rounding step.
     for case, shape, dt in [("S2048", (1, 2, 2048, 64), f32),
                             ("S2048_bf16", (1, 2, 2048, 64), bf16),
                             ("S4096_multiblock", (1, 1, 4096, 128), f32),
-                            ("S600_padded", (1, 1, 600, 64), f32)]:
+                            ("S600_padded", (1, 1, 600, 64), f32),
+                            ("S600_padded_bf16", (1, 1, 600, 64), bf16),
+                            ("S197_D16_bf16", (2, 2, 197, 16), bf16),
+                            ("S100_D32_bf16", (1, 2, 100, 32), bf16),
+                            ("S4096_D128_bf16", (1, 1, 4096, 128), bf16)]:
         q, k, v = randn(*shape, dtype=dt), randn(*shape, dtype=dt), randn(*shape, dtype=dt)
         want = flash_attention_reference(q.float(), k.float(), v.float())
-        check(rows, "flash_attention", case, rel_err(flash_attention(q, k, v), want),
-              1e-2 if dt == bf16 else 1e-5, "rel")
+        variant = "flash_attention_sm90" if dt == bf16 else "flash_attention"
+        got = launched(lambda: flash_attention(q, k, v), variant)
+        check(rows, variant, case, rel_err(got, want), 1e-2 if dt == bf16 else 1e-5, "rel")
     # Fused residual + LayerNorm (f32, absolute, both outputs).
     for rows_n, d in [(6, 64), (300, 100), (1024, 768)]:
         x, r, gg, bb = randn(rows_n, d), randn(rows_n, d), randn(d), randn(d)
@@ -191,44 +215,54 @@ def parity_cases(torch, rows: list) -> dict:
         wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
         check(rows, "fused_norm.y", f"{rows_n}x{d}", abs_err(y, wy), 1e-5, "abs")
         check(rows, "fused_norm.ln", f"{rows_n}x{d}", abs_err(o, wo), 1e-4, "abs")
-    # w8a16: ragged M, N, K, the multi-chunk K loop, 3-D tokens, bf16.
-    for case, xshape, k, n, dt in [
-            ("4x64@64x128", (4, 64), 64, 128, f32),
-            ("5x100@100x70_padded", (5, 100), 100, 70, f32),
-            ("2x9x48@48x200_tokens", (2, 9, 48), 48, 200, f32),
-            ("1x700@700x10_multichunk", (1, 700), 700, 10, f32),
-            ("64x768@768x3072_bf16", (64, 768), 768, 3072, bf16),
-            # beyond parity_checks: 64-row tiles with scalar (unaligned) loads
-            ("2100x100@100x4100_bigtile", (2100, 100), 100, 4100, f32)]:
-        x = randn(*xshape, dtype=dt)
-        q, s = quantized(k, n)
-        want = w8a16_matmul_reference(x.float(), q, s)
-        check(rows, "w8a16_matmul", case, rel_err(w8a16_matmul(x, q, s), want),
-              2e-2 if dt == bf16 else 1e-5, "rel")
+    # w8a16: ragged M, N, K, the multi-tile K loop, 3-D tokens; each shape
+    # in f32 (the f32 kernel) and in bf16 (the tensor-core kernel, whose
+    # element, 8-byte and 16-byte load modes these shapes cover).
+    for case, xshape, k, n in [
+            ("4x64@64x128", (4, 64), 64, 128),
+            ("5x100@100x70_padded", (5, 100), 100, 70),
+            ("2x9x48@48x200_tokens", (2, 9, 48), 48, 200),
+            ("1x700@700x10_multichunk", (1, 700), 700, 10),
+            ("64x768@768x3072", (64, 768), 768, 3072),
+            # beyond parity_checks: many tiles with unaligned loads
+            ("2100x100@100x4100_bigtile", (2100, 100), 100, 4100)]:
+        for dt in (f32, bf16):
+            x = randn(*xshape, dtype=dt)
+            q, s = quantized(k, n)
+            want = w8a16_matmul_reference(x.float(), q, s)
+            variant = "w8a16_matmul_sm90" if dt == bf16 else "w8a16_matmul"
+            got = launched(lambda: w8a16_matmul(x, q, s), variant)
+            check(rows, variant, case + ("_bf16" if dt == bf16 else ""),
+                  rel_err(got, want), 2e-2 if dt == bf16 else 1e-5, "rel")
 
-    # The ViT-B/16 shapes (bf16, batch 8), kernel vs plain version on the
-    # same bf16 inputs; bf16 tolerances: one rounding step of the output.
+    # The ViT-B/16 shapes (bf16, batch 8), each variant against the plain
+    # version on the same bf16 inputs; bf16 tolerances: one rounding step
+    # of the output.
     errs = {}
-    mm = []
+    mm = {"w8a16_matmul_sm90": [], "w8a16_matmul": []}
     for name, (m, k, n) in [("qkvo", (M, DIM, DIM)), ("mlp_in", (M, DIM, MLP)),
                             ("mlp_out", (M, MLP, DIM)), ("head", (B, DIM, CLASSES))]:
         x = randn(m, k, dtype=bf16)
         q, s = quantized(k, n)
-        got, want = w8a16_matmul(x, q, s), w8a16_matmul_reference(x, q, s)
-        check(rows, "w8a16_matmul", f"vit_b16 {name} {m}x{k}@{k}x{n}",
-              rel_err(got, want), 2e-2, "rel")
-        mm.append(abs_err(got, want))
-    errs["w8a16_matmul"] = max(mm)
+        want = w8a16_matmul_reference(x, q, s)
+        for variant in mm:
+            got = launched(lambda: w8a16_matmul(x, q, s, variant=variant), variant)
+            check(rows, variant, f"vit_b16 {name} {m}x{k}@{k}x{n}",
+                  rel_err(got, want), 2e-2, "rel")
+            mm[variant].append(abs_err(got, want))
+    errs.update({v: max(e) for v, e in mm.items()})
     x, r, gg, bb = randn(M, DIM, dtype=bf16), randn(M, DIM, dtype=bf16), randn(DIM), randn(DIM)
     (y, o), (wy, wo) = fused_add_layernorm(x, r, gg, bb), fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
     check(rows, "fused_norm.y", f"vit_b16 {M}x{DIM} bf16", rel_err(y, wy), 1e-2, "rel")
     check(rows, "fused_norm.ln", f"vit_b16 {M}x{DIM} bf16", rel_err(o, wo), 1e-2, "rel")
     errs["residual_layernorm"] = max(abs_err(y, wy), abs_err(o, wo))
     q, k, v = (randn(B, HEADS, SEQ, HDIM, dtype=bf16) for _ in range(3))
-    got, want = flash_attention(q, k, v), flash_attention_reference(q, k, v)
-    check(rows, "flash_attention", f"vit_b16 {B}x{HEADS}x{SEQ}x{HDIM} bf16",
-          rel_err(got, want), 1e-2, "rel")
-    errs["flash_attention"] = abs_err(got, want)
+    want = flash_attention_reference(q, k, v)
+    for variant in ("flash_attention_sm90", "flash_attention"):
+        got = launched(lambda: flash_attention(q, k, v, variant=variant), variant)
+        check(rows, variant, f"vit_b16 {B}x{HEADS}x{SEQ}x{HDIM} bf16",
+              rel_err(got, want), 1e-2, "rel")
+        errs[variant] = abs_err(got, want)
     torch.cuda.synchronize()
     return errs
 
@@ -281,14 +315,20 @@ def time_kernels(torch) -> dict:
         bms += max(b_ / PEAK_BYTES_S, f_ / PEAK_BF16_FLOPS) * 1e3
         nbytes += b_
         flops += f_
-    out["w8a16_matmul"] = {
-        "ms": time_ms(torch, lambda: [w8a16_matmul(*c) for c in calls]),
-        "eager_ms": eager_ms(torch, lambda: [w8a16_matmul(*c) for c in calls]),
+    # The tensor-core variant is what the wrapper picks for bf16; the f32
+    # variant (the first version) runs the same bf16 calls by name.
+    common = {
         "plain_ms": time_ms(torch, lambda: [w8a16_matmul_reference(*c) for c in calls]),
         "library_ms": time_ms(torch, lambda: [torch.matmul(c[0], w) * c[2]
                                              for c, w in zip(calls, wdq)]),
         "bound_ms": bms, "bound_by": bound_ms(nbytes, flops, PEAK_BF16_FLOPS)[1],
         "calls": len(calls)}
+    for variant in ("w8a16_matmul_sm90", "w8a16_matmul"):
+        out[variant] = {
+            "ms": time_ms(torch, lambda: [w8a16_matmul(*c, variant=variant) for c in calls]),
+            "eager_ms": eager_ms(torch, lambda: [w8a16_matmul(*c, variant=variant)
+                                                 for c in calls]),
+            **common}
 
     # Fused norm: one (B*197, 768) call per layer.
     ncalls = [(randn(M, DIM), randn(M, DIM), torch.randn(DIM, device="cuda", generator=g),
@@ -313,16 +353,21 @@ def time_kernels(torch) -> dict:
     b_ = 4 * B * HEADS * SEQ * HDIM * 2
     f_ = 4.0 * B * HEADS * SEQ * SEQ * HDIM
     bm, by = bound_ms(b_, f_, PEAK_BF16_FLOPS)
-    out["flash_attention"] = {
-        "ms": time_ms(torch, lambda: [flash_attention(*c) for c in acalls]),
-        "eager_ms": eager_ms(torch, lambda: [flash_attention(*c) for c in acalls]),
+    common = {
         "plain_ms": time_ms(torch, lambda: [flash_attention_reference(*c) for c in acalls]),
         "library_ms": time_ms(torch, lambda: [F.scaled_dot_product_attention(*c)
                                              for c in acalls]),
         "bound_ms": bm * DEPTH, "bound_by": by, "calls": DEPTH}
+    for variant in ("flash_attention_sm90", "flash_attention"):
+        out[variant] = {
+            "ms": time_ms(torch, lambda: [flash_attention(*c, variant=variant)
+                                          for c in acalls]),
+            "eager_ms": eager_ms(torch, lambda: [flash_attention(*c, variant=variant)
+                                                 for c in acalls]),
+            **common}
     torch.cuda.synchronize()
     for name, t in out.items():
-        log(f"  time {name:20s} per forward ({t['calls']} calls, CUDA graph): kernel "
+        log(f"  time {name:21s} per forward ({t['calls']} calls, CUDA graph): kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"kernel eager, host included {t['eager_ms']:.4f} ms")
@@ -474,12 +519,16 @@ def main_path(torch) -> dict:
     match = np.abs(preds[:, None, :] - direct[None, :, :]).max(axis=2).min(axis=1)
     if match.max() > 1e-4:
         raise AssertionError(f"a streamed prediction matches no direct one: {match.max()}")
-    per_forward = {"w8a16_matmul": 73, "residual_layernorm": 12, "flash_attention": 12}
+    # Every forward in bf16 goes through the tensor-core variants; the f32
+    # variants must not launch at all while the topology serves.
+    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm": 12,
+                   "flash_attention_sm90": 12, "w8a16_matmul": 0, "flash_attention": 0}
     for name, n in per_forward.items():
-        if launches[name] < batches * n or launches[name] == 0:
+        if (n == 0 and launches[name] != 0) or (
+                n and (launches[name] < batches * n or launches[name] == 0)):
             raise AssertionError(
                 f"{name}: {launches[name]} launches for {batches} forwards "
-                f"(need >= {batches * n})")
+                f"(need {'0' if n == 0 else f'>= {batches * n}'})")
     e2e = snap["kafka-bolt"]["e2e_latency_ms"]
     log(f"  main path: {len(outs)} predictions + {len(dlq)} dead letter, "
         f"{batches} forwards (warmup included), launches {launches}")
@@ -533,18 +582,23 @@ def run() -> int:
     log("[5] main path: 2x spout -> 4x InferenceBolt -> 2x sink, ViT-B/16 bf16 int8_fused")
     served = main_path(torch)
 
-    replaces = {"w8a16_matmul": ("storm_tpu_torch/csrc/w8a16_matmul.cu",
-                                 "storm_tpu/ops/quant_matmul.py:42"),
-                "residual_layernorm": ("storm_tpu_torch/csrc/fused_norm.cu",
-                                       "storm_tpu/ops/fused_norm.py:40"),
-                "flash_attention": ("storm_tpu_torch/csrc/flash_attention.cu",
-                                    "storm_tpu/ops/flash_attention.py:40")}
+    replaces = {
+        "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
+                              "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
+        "w8a16_matmul": ("storm_tpu_torch/csrc/w8a16_matmul.cu",
+                         "storm_tpu/ops/quant_matmul.py:42", "f32 FMAs, f32 inputs"),
+        "residual_layernorm": ("storm_tpu_torch/csrc/fused_norm.cu",
+                               "storm_tpu/ops/fused_norm.py:40", "f32 arithmetic"),
+        "flash_attention_sm90": ("storm_tpu_torch/csrc/flash_attention_sm90.cu",
+                                 "storm_tpu/ops/flash_attention.py:40", "tensor cores, bf16"),
+        "flash_attention": ("storm_tpu_torch/csrc/flash_attention.cu",
+                            "storm_tpu/ops/flash_attention.py:40", "f32 FMAs, f32 inputs")}
     kernels = []
-    for name, (src, tpu) in replaces.items():
+    for name, (src, tpu, variant) in replaces.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "parity": "pass", "launches": served["launches"][name],
+            "variant": variant, "parity": "pass", "launches": served["launches"][name],
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

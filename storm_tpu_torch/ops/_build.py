@@ -63,10 +63,12 @@ class Kernel:
     where they run the kernel, never on their CPU (plain) path.
     """
 
-    def __init__(self, name: str, source: str, argtypes: Sequence) -> None:
+    def __init__(self, name: str, source: str, argtypes: Sequence,
+                 libs: Sequence[str] = ()) -> None:
         self.name = name
         self.source = CSRC / source
         self.argtypes = list(argtypes)
+        self.libs = list(libs)  # linker flags, after the source
         self.launches = 0
         self._fn = None
         self._lock = threading.Lock()
@@ -78,7 +80,7 @@ class Kernel:
         h = hashlib.sha256()
         for p in self._sources():
             h.update(p.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join([*NVCC_FLAGS, *self.libs]).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def start_build(self, nvcc: str) -> Optional[subprocess.Popen]:
@@ -92,7 +94,7 @@ class Kernel:
         with open(lib.with_suffix(".log"), "w") as log:
             return subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(self._tmp_path()),
-                 str(self.source)],
+                 str(self.source), *self.libs],
                 stdout=log, stderr=subprocess.STDOUT)
 
     def _tmp_path(self) -> Path:
@@ -145,16 +147,26 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
+# Each variant of a kernel is an entry of its own, with its own launch
+# count: the f32 variants (CUDA-core FMAs, float32 and bfloat16) and the
+# tensor-core variants (*_sm90, bfloat16 only).
 KERNELS: Dict[str, Kernel] = {
     k.name: k for k in (
         # (dtype, x, q, s, out, M, N, K, stream)
         Kernel("w8a16_matmul", "w8a16_matmul.cu", [I, P, P, P, P, I, I, I, P]),
+        # (x, q, s, out, M, N, K, warpgroups, tile_m, load_mode, stream)
+        # (links the driver library for cuTensorMapEncodeTiled)
+        Kernel("w8a16_matmul_sm90", "w8a16_matmul_sm90.cu",
+               [P, P, P, P, I, I, I, I, I, I, P], libs=("-lcuda",)),
         # (dtype, x, r, g, b, y, out, rows, d, eps, stream)
         Kernel("residual_layernorm", "fused_norm.cu",
                [I, P, P, P, P, P, P, I, I, F, P]),
         # (dtype, q, k, v, o, B*H, S, D, scale, stream)
         Kernel("flash_attention", "flash_attention.cu",
                [I, P, P, P, P, I, I, I, F, P]),
+        # (q, k, v, o, B*H, S, D, scale, stream)
+        Kernel("flash_attention_sm90", "flash_attention_sm90.cu",
+               [P, P, P, P, I, I, I, F, P]),
     )
 }
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of storm_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package storm_tpu."""
+"""The port stands alone: no module of storm_tpu_torch, and neither
+chip_smoke.py nor kernel_sweep.py, imports JAX or anything of the JAX
+package storm_tpu."""
 
 import ast
 import os
@@ -17,6 +18,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_sweep.py")
 
 
 def _forbidden(name: str) -> bool:

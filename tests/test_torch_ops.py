@@ -45,6 +45,11 @@ def _np32(a) -> np.ndarray:
     ((1, 2, 128, 64), "float32", 1e-5),
     ((2, 2, 197, 16), "float32", 1e-5),   # padded S, D = 16 (vit_tiny)
     ((1, 2, 197, 64), "bfloat16", 1e-2),  # the ViT-B/16 sequence
+    # bf16 at the shapes chip_smoke.py runs the tensor-core kernel at:
+    ((1, 1, 600, 64), "bfloat16", 1e-2),   # S600 padded, several key tiles
+    ((2, 2, 197, 16), "bfloat16", 1e-2),   # D = 16
+    ((1, 2, 100, 32), "bfloat16", 1e-2),   # D = 32, one ragged key tile
+    ((1, 1, 130, 128), "bfloat16", 1e-2),  # D = 128 (chip_smoke.py: at S = 4096)
 ])
 def test_flash_attention_matches_pallas_interpret(shape, dtype, tol):
     jdt, tdt = DTYPES[dtype]
@@ -95,6 +100,11 @@ def test_residual_layernorm_keeps_the_residual_stream():
     ((2, 9, 48), 48, 200, "float32", 1e-5),    # 3-D token activations
     ((1, 700), 700, 10, "float32", 1e-5),      # K over several chunks
     ((64, 768), 768, 3072, "bfloat16", 2e-2),  # the serving dtype
+    # bf16 at the ragged shapes chip_smoke.py runs the tensor-core kernel at:
+    ((5, 100), 100, 70, "bfloat16", 2e-2),     # element loads (mode 0)
+    ((2, 9, 48), 48, 200, "bfloat16", 2e-2),   # 8-byte weight copies (mode 1)
+    ((1, 700), 700, 10, "bfloat16", 2e-2),     # K over several tiles, N < 16
+    ((8, 768), 768, 1000, "bfloat16", 2e-2),   # the ViT-B/16 head
 ])
 def test_w8a16_matmul_matches_pallas_interpret(xshape, k, n, dtype, tol):
     jdt, tdt = DTYPES[dtype]
