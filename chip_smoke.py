@@ -12,11 +12,13 @@ no result):
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, at the cases and tolerances of ``storm_tpu/ops/parity_checks.py``,
    at the same ragged shapes in bf16, and at the ViT-B/16 shapes (batch 8);
-   w8a16 and flash attention have two variants each, the f32 kernels
-   (float32 inputs) and the tensor-core kernels (``*_sm90``, bfloat16),
-   and every case checks which one it launched. Then each kernel variant,
-   its plain version and a one-call PyTorch yardstick are timed with CUDA
-   events over one forward's worth of calls at the ViT-B/16 shapes;
+   every kernel has two variants, its first version and its redesign for
+   Hopper (``*_sm90``: w8a16 and flash attention on tensor cores for
+   bfloat16, the first versions serving float32; the fused norm for both
+   dtypes, its first version launched only by name), and every case checks
+   which one it launched. Then each kernel variant, its plain version and
+   a one-call PyTorch yardstick are timed with CUDA events over one
+   forward's worth of calls at the ViT-B/16 shapes;
 4. forward parity: ViT-B/16 ``int8_fused`` with seeded weights, kernel path
    against plain path, in float32 (TF32 off) and bfloat16: logits within a
    relative bound, argmax identical (in bfloat16 on every row whose top-2
@@ -24,9 +26,8 @@ no result):
 5. main path: MemoryBroker -> 2x BrokerSpout -> 4x InferenceBolt -> 2x
    BrokerSink (+ dead-letter sink) serving ViT-B/16 bf16 ``int8_fused``:
    16 records and 1 poison record; the kernels' launch counters, zeroed
-   just before, must show every batch went through all three kernels, the
-   tensor-core variants of w8a16 and flash attention, and the f32
-   variants launched 0 times;
+   just before, must show every batch went through the three ``*_sm90``
+   kernels and the first versions launched 0 times;
 6. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +142,7 @@ def plain_kernels():
     from storm_tpu_torch.ops import attention, fused_norm, quant_matmul
     from storm_tpu_torch.ops.flash_attention import flash_attention_reference
 
-    def norm_plain(x2, r2, g, b, eps=1e-6):
+    def norm_plain(x2, r2, g, b, eps=1e-6, variant=None):
         return fused_norm.fused_add_layernorm_reference(x2, r2, g, b, eps)
 
     with contextlib.ExitStack() as st:
@@ -159,15 +160,16 @@ def plain_kernels():
 def parity_cases(torch, rows: list) -> dict:
     """parity_checks.py's cases and tolerances, the same ragged shapes in
     bf16, then the ViT-B/16 shapes. Each case also checks which variant of
-    the kernel it launched: f32 cases the f32 kernels, bf16 cases the
-    tensor-core (sm90) kernels. Returns max |kernel - plain| per kernel
-    variant at the ViT-B/16 shapes (the f32 variants run there on the same
-    bf16 inputs by naming them)."""
+    the kernel it launched: w8a16 and flash f32 cases the f32 kernels, bf16
+    cases the tensor-core (sm90) kernels; every fused norm case the sm90
+    kernel. Returns max |kernel - plain| per kernel variant at the ViT-B/16
+    shapes (the first versions run there on the same bf16 inputs by naming
+    them)."""
     from storm_tpu_torch.ops import _build
     from storm_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     from storm_tpu_torch.ops.fused_norm import (
-        fused_add_layernorm, fused_add_layernorm_reference)
+        fused_add_layernorm, fused_add_layernorm_reference, norm_plan)
     from storm_tpu_torch.ops.quant_matmul import w8a16_matmul, w8a16_matmul_reference
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -208,13 +210,34 @@ def parity_cases(torch, rows: list) -> dict:
         variant = "flash_attention_sm90" if dt == bf16 else "flash_attention"
         got = launched(lambda: flash_attention(q, k, v), variant)
         check(rows, variant, case, rel_err(got, want), 1e-2 if dt == bf16 else 1e-5, "rel")
-    # Fused residual + LayerNorm (f32, absolute, both outputs).
-    for rows_n, d in [(6, 64), (300, 100), (1024, 768)]:
-        x, r, gg, bb = randn(rows_n, d), randn(rows_n, d), randn(d), randn(d)
-        y, o = fused_add_layernorm(x, r, gg, bb)
+    # Fused residual + LayerNorm, every case on the sm90 kernel: f32
+    # (absolute, both outputs), bf16 at each width with a plan of its own
+    # (64, 512, 768) and a ragged one (100, element loads), an offset view
+    # (element loads at 768) and bf16 g and b as the model passes them
+    # (bf16: one rounding step of the output, relative).
+    norm = "residual_layernorm_sm90"
+
+    def norm_case(case, x, r, gg, bb, tol_y, tol_o, metric):
         wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
-        check(rows, "fused_norm.y", f"{rows_n}x{d}", abs_err(y, wy), 1e-5, "abs")
-        check(rows, "fused_norm.ln", f"{rows_n}x{d}", abs_err(o, wo), 1e-4, "abs")
+        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb), norm)
+        err = abs_err if metric == "abs" else rel_err
+        check(rows, norm + ".y", case, err(y, wy), tol_y, metric)
+        check(rows, norm + ".ln", case, err(o, wo), tol_o, metric)
+
+    for rows_n, d in [(6, 64), (300, 100), (1024, 768)]:
+        norm_case(f"{rows_n}x{d}", randn(rows_n, d), randn(rows_n, d), randn(d), randn(d),
+                  1e-5, 1e-4, "abs")
+    for rows_n, d in [(6, 64), (300, 100), (40, 512), (1024, 768)]:
+        norm_case(f"{rows_n}x{d}_bf16", randn(rows_n, d, dtype=bf16),
+                  randn(rows_n, d, dtype=bf16), randn(d), randn(d), 1e-2, 1e-2, "rel")
+    x = randn(300 * 768 + 1, dtype=bf16)[1:].view(300, 768)
+    r = randn(300, 768, dtype=bf16)
+    if norm_plan(768, bf16, x.data_ptr(), r.data_ptr())[2] != 0:
+        raise AssertionError("an offset view must take the element load mode")
+    norm_case("300x768_bf16_offset_view", x, r, randn(768), randn(768), 1e-2, 1e-2, "rel")
+    norm_case("1024x768_bf16_bf16_g_b", randn(1024, 768, dtype=bf16),
+              randn(1024, 768, dtype=bf16), randn(768, dtype=bf16),
+              randn(768, dtype=bf16), 1e-2, 1e-2, "rel")
     # w8a16: ragged M, N, K, the multi-tile K loop, 3-D tokens; each shape
     # in f32 (the f32 kernel) and in bf16 (the tensor-core kernel, whose
     # element, 8-byte and 16-byte load modes these shapes cover).
@@ -252,10 +275,12 @@ def parity_cases(torch, rows: list) -> dict:
             mm[variant].append(abs_err(got, want))
     errs.update({v: max(e) for v, e in mm.items()})
     x, r, gg, bb = randn(M, DIM, dtype=bf16), randn(M, DIM, dtype=bf16), randn(DIM), randn(DIM)
-    (y, o), (wy, wo) = fused_add_layernorm(x, r, gg, bb), fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
-    check(rows, "fused_norm.y", f"vit_b16 {M}x{DIM} bf16", rel_err(y, wy), 1e-2, "rel")
-    check(rows, "fused_norm.ln", f"vit_b16 {M}x{DIM} bf16", rel_err(o, wo), 1e-2, "rel")
-    errs["residual_layernorm"] = max(abs_err(y, wy), abs_err(o, wo))
+    wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
+    for variant in ("residual_layernorm_sm90", "residual_layernorm"):
+        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb, variant=variant), variant)
+        check(rows, variant + ".y", f"vit_b16 {M}x{DIM} bf16", rel_err(y, wy), 1e-2, "rel")
+        check(rows, variant + ".ln", f"vit_b16 {M}x{DIM} bf16", rel_err(o, wo), 1e-2, "rel")
+        errs[variant] = max(abs_err(y, wy), abs_err(o, wo))
     q, k, v = (randn(B, HEADS, SEQ, HDIM, dtype=bf16) for _ in range(3))
     want = flash_attention_reference(q, k, v)
     for variant in ("flash_attention_sm90", "flash_attention"):
@@ -330,7 +355,10 @@ def time_kernels(torch) -> dict:
                                                  for c in calls]),
             **common}
 
-    # Fused norm: one (B*197, 768) call per layer.
+    # Fused norm: one (B*197, 768) call per layer, with f32 g and b, and
+    # as the model makes it, with bf16 g and b (model_ms, model_eager_ms:
+    # the first version's wrapper casts those to f32 first, the sm90 kernel
+    # reads them as they are).
     ncalls = [(randn(M, DIM), randn(M, DIM), torch.randn(DIM, device="cuda", generator=g),
                torch.randn(DIM, device="cuda", generator=g)) for _ in range(DEPTH)]
     # F.layer_norm takes its weight and bias in the input's dtype.
@@ -338,15 +366,24 @@ def time_kernels(torch) -> dict:
     b_ = 4 * M * DIM * 2 + 2 * DIM * 4
     f_ = 10.0 * M * DIM
     bm, by = bound_ms(b_, f_, PEAK_F32_FLOPS)
-    out["residual_layernorm"] = {
-        "ms": time_ms(torch, lambda: [fused_add_layernorm(*c) for c in ncalls]),
-        "eager_ms": eager_ms(torch, lambda: [fused_add_layernorm(*c) for c in ncalls]),
+    common = {
         "plain_ms": time_ms(torch, lambda: [fused_add_layernorm_reference(*c, 1e-6)
                                            for c in ncalls]),
         # Two calls (the add, then the norm): PyTorch has no fused one.
         "library_ms": time_ms(torch, lambda: [F.layer_norm(x + r, (DIM,), w, b, 1e-6)
                                              for x, r, w, b in lcalls]),
         "bound_ms": bm * DEPTH, "bound_by": by, "calls": DEPTH}
+    for variant in ("residual_layernorm_sm90", "residual_layernorm"):
+        out[variant] = {
+            "ms": time_ms(torch, lambda: [fused_add_layernorm(*c, variant=variant)
+                                          for c in ncalls]),
+            "eager_ms": eager_ms(torch, lambda: [fused_add_layernorm(*c, variant=variant)
+                                                 for c in ncalls]),
+            "model_ms": time_ms(torch, lambda: [fused_add_layernorm(*c, variant=variant)
+                                                for c in lcalls]),
+            "model_eager_ms": eager_ms(torch, lambda: [fused_add_layernorm(*c, variant=variant)
+                                                       for c in lcalls]),
+            **common}
 
     # Flash attention: one (8, 12, 197, 64) call per layer.
     acalls = [tuple(randn(B, HEADS, SEQ, HDIM) for _ in range(3)) for _ in range(DEPTH)]
@@ -371,6 +408,9 @@ def time_kernels(torch) -> dict:
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"kernel eager, host included {t['eager_ms']:.4f} ms")
+        if "model_ms" in t:
+            log(f"  time {name:21s} with bf16 g and b, as the model calls it: kernel "
+                f"{t['model_ms']:.4f} ms (CUDA graph), {t['model_eager_ms']:.4f} ms eager")
     return out
 
 
@@ -519,10 +559,11 @@ def main_path(torch) -> dict:
     match = np.abs(preds[:, None, :] - direct[None, :, :]).max(axis=2).min(axis=1)
     if match.max() > 1e-4:
         raise AssertionError(f"a streamed prediction matches no direct one: {match.max()}")
-    # Every forward in bf16 goes through the tensor-core variants; the f32
-    # variants must not launch at all while the topology serves.
-    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm": 12,
-                   "flash_attention_sm90": 12, "w8a16_matmul": 0, "flash_attention": 0}
+    # Every forward in bf16 goes through the sm90 variants; the first
+    # versions must not launch at all while the topology serves.
+    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
+                   "flash_attention_sm90": 12, "w8a16_matmul": 0, "residual_layernorm": 0,
+                   "flash_attention": 0}
     for name, n in per_forward.items():
         if (n == 0 and launches[name] != 0) or (
                 n and (launches[name] < batches * n or launches[name] == 0)):
@@ -564,9 +605,12 @@ def run() -> int:
     libs = _build.build_all()
     log(f"[2] built {len(libs)} kernels in {time.perf_counter() - t:.1f} s")
     for k in _build.KERNELS.values():
+        entry = ""
         for line in k.build_log().splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                log(f"  ptxas {k.name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+                log(f"  ptxas {k.name} {entry}: {line.strip()}")
 
     log("[3] kernel parity on the card")
     rows = []
@@ -587,8 +631,12 @@ def run() -> int:
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
         "w8a16_matmul": ("storm_tpu_torch/csrc/w8a16_matmul.cu",
                          "storm_tpu/ops/quant_matmul.py:42", "f32 FMAs, f32 inputs"),
+        "residual_layernorm_sm90": ("storm_tpu_torch/csrc/fused_norm_sm90.cu",
+                                    "storm_tpu/ops/fused_norm.py:40",
+                                    "register-resident rows, 16-byte loads"),
         "residual_layernorm": ("storm_tpu_torch/csrc/fused_norm.cu",
-                               "storm_tpu/ops/fused_norm.py:40", "f32 arithmetic"),
+                               "storm_tpu/ops/fused_norm.py:40",
+                               "one block per row, first version"),
         "flash_attention_sm90": ("storm_tpu_torch/csrc/flash_attention_sm90.cu",
                                  "storm_tpu/ops/flash_attention.py:40", "tensor cores, bf16"),
         "flash_attention": ("storm_tpu_torch/csrc/flash_attention.cu",

@@ -148,8 +148,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 # Each variant of a kernel is an entry of its own, with its own launch
-# count: the f32 variants (CUDA-core FMAs, float32 and bfloat16) and the
-# tensor-core variants (*_sm90, bfloat16 only).
+# count: the first versions (CUDA-core FMAs, float32 and bfloat16) and the
+# redesigns for Hopper (*_sm90: w8a16 and flash attention on tensor cores,
+# bfloat16 only; the fused norm, float32 and bfloat16).
 KERNELS: Dict[str, Kernel] = {
     k.name: k for k in (
         # (dtype, x, q, s, out, M, N, K, stream)
@@ -161,6 +162,10 @@ KERNELS: Dict[str, Kernel] = {
         # (dtype, x, r, g, b, y, out, rows, d, eps, stream)
         Kernel("residual_layernorm", "fused_norm.cu",
                [I, P, P, P, P, P, P, I, I, F, P]),
+        # (dtype, param dtype, x, r, g, b, y, out, rows, d, eps, lanes,
+        #  vectors, load_mode, rows_per_block, stream)
+        Kernel("residual_layernorm_sm90", "fused_norm_sm90.cu",
+               [I, I, P, P, P, P, P, P, I, I, F, I, I, I, I, P]),
         # (dtype, q, k, v, o, B*H, S, D, scale, stream)
         Kernel("flash_attention", "flash_attention.cu",
                [I, P, P, P, P, I, I, I, F, P]),

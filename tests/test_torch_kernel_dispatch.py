@@ -1,18 +1,23 @@
 """Which CUDA kernel each wrapper of storm_tpu_torch.ops launches, and the
-premises the tensor-core kernels rest on, checked on the CPU.
+premises the Hopper kernels rest on, checked on the CPU.
 
 The kernels themselves only run on the card (chip_smoke.py holds each
 against its plain version there). Here the wrappers' dispatch runs for
 real up to the launch, which is recorded instead of made: every bf16
 ViT-B/16 shape must reach a tensor-core kernel (``*_sm90``) and every f32
-call the f32 kernel, with the tile and load plan the kernel expects.
+call the f32 kernel, with the tile and load plan the kernel expects; every
+fused norm reaches ``residual_layernorm_sm90`` in one launch, with the plan
+of ``norm_plan``.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from storm_tpu_torch.ops import _build, flash_attention as fa, quant_matmul as qm
+from storm_tpu_torch.ops import _build, flash_attention as fa, fused_norm as fn, quant_matmul as qm
 
 SM = qm.SM_COUNT
 M = 8 * 197  # ViT-B/16 tokens at batch 8
@@ -29,7 +34,7 @@ def launches(monkeypatch):
     """Run the wrappers' CUDA branch on CPU tensors and record each launch
     as (kernel name, arguments) instead of making it."""
     calls = []
-    for mod in (qm, fa):
+    for mod in (qm, fa, fn):
         monkeypatch.setattr(mod, "route", lambda name, *t: True)
         monkeypatch.setattr(mod, "check_cuda", lambda name, *t: t[0].device)
     for name, kernel in _build.KERNELS.items():
@@ -152,3 +157,143 @@ def test_bf16_products_are_exact_in_f32():
     prod32 = a2[:, None].float() * torch.cat([w, acts[:255]])[None, :].float()
     prod64 = a2[:, None].double() * torch.cat([w, acts[:255]])[None, :].double()
     assert torch.equal(prod32.double(), prod64)
+
+
+# ---- fused residual + LayerNorm ---------------------------------------------
+
+NORM_WIDTHS = (64, 100, 512, 768, 3072)
+NORM_SOURCE = _build.CSRC / "fused_norm_sm90.cu"
+
+
+def _norm_args(rows, d, dtype, param_dtype=torch.float32):
+    x, r = torch.zeros(rows, d, dtype=dtype), torch.zeros(rows, d, dtype=dtype)
+    return x, r, torch.ones(d, dtype=param_dtype), torch.zeros(d, dtype=param_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_fused_norm_launches_the_sm90_kernel_with_its_plan(launches, d, dtype):
+    x, r, g, b = _norm_args(197, d, dtype)
+    y, out = fn.fused_add_layernorm(x, r, g, b)
+    assert y.shape == out.shape == (197, d) and y.dtype == out.dtype == dtype
+    assert [c[0] for c in launches] == ["residual_layernorm_sm90"]
+    args = launches[0][1]
+    assert args[:2] == (_build.DTYPE_CODES[dtype], _build.DTYPE_CODES[torch.float32])
+    assert args[8:11] == (197, d, 1e-6)
+    plan = fn.norm_plan(d, dtype, x.data_ptr(), r.data_ptr())
+    assert args[11:] == plan
+    lanes, vectors, mode, rows_per_block = plan
+    # Rows of the zoo take one warp or part of one; 16-byte vectors where
+    # d is a whole number of them (all but bf16 100: 200-byte rows; CPU
+    # allocations are 16-byte aligned).
+    assert mode == (0 if (d, dtype) == (100, torch.bfloat16) else 1)
+    if d in (64, 512, 768):
+        assert (lanes, vectors) == fn.NORM_PLANS[(dtype, d)]
+        assert lanes <= 32 and lanes * vectors * fn.VEC[dtype] == d
+        assert rows_per_block > 1
+    else:
+        assert vectors == fn.RUNTIME_VECTORS[dtype] and rows_per_block == 1
+        assert lanes == (32 if d == 100 else 64)  # 3072: two warps of 1536
+
+
+def test_fused_norm_offset_view_takes_element_loads(launches):
+    """A contiguous view that starts one element into its storage is not
+    16-byte aligned: the same kernel moves it one element at a time."""
+    buf = torch.zeros(8 * 768 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(8, 768)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    r, g, b = torch.zeros(8, 768, dtype=torch.bfloat16), torch.ones(768), torch.zeros(768)
+    fn.fused_add_layernorm(x, r, g, b)
+    lanes, vectors, mode, _ = launches[0][1][11:]
+    assert (lanes, vectors, mode) == (32, 3, 0)
+    assert fn.norm_plan(768, torch.bfloat16, 0, 2)[2] == 0  # r misaligned alone
+
+
+def test_fused_norm_first_version_launches_only_when_named(launches):
+    x, r, g, b = _norm_args(16, 768, torch.bfloat16)
+    fn.fused_add_layernorm(x, r, g, b)
+    fn.residual_layernorm({"scale": g, "bias": b}, x.view(2, 8, 768), r.view(2, 8, 768))
+    fn.fused_add_layernorm(x, r, g, b, variant="residual_layernorm")
+    assert [c[0] for c in launches] == ["residual_layernorm_sm90"] * 2 + ["residual_layernorm"]
+    assert launches[2][1][0] == _build.DTYPE_CODES[torch.bfloat16]
+    with pytest.raises(ValueError, match="unknown fused norm variant"):
+        fn.fused_add_layernorm(x, r, g, b, variant="layer_norm")
+
+
+def test_fused_norm_refuses_what_no_kernel_takes(launches):
+    with pytest.raises(ValueError, match=f"d <= {fn.MAX_DIM}"):
+        fn.fused_add_layernorm(*_norm_args(2, fn.MAX_DIM + 8, torch.bfloat16))
+    x, r, g, _ = _norm_args(4, 768, torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        fn.fused_add_layernorm(x, r, g, torch.zeros(768, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn.fused_add_layernorm(*_norm_args(4, 768, torch.float16))
+    assert launches == []
+
+
+class _Ops(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_norm_one_launch_on_the_callers_own_scale_and_bias(launches, dtype):
+    """The model's g and b are bf16: the kernel receives those very
+    tensors, in their own dtype, and the wrapper runs no operation but
+    the two output allocations, so one call is one launch."""
+    x, r, g, b = _norm_args(1576, 768, torch.bfloat16, param_dtype=dtype)
+    with _Ops() as ops:
+        fn.fused_add_layernorm(x, r, g, b)
+    assert [c[0] for c in launches] == ["residual_layernorm_sm90"]
+    args = launches[0][1]
+    assert args[1] == _build.DTYPE_CODES[dtype]
+    assert args[4] is g and args[5] is b
+    assert args[4].data_ptr() == g.data_ptr() and args[5].data_ptr() == b.data_ptr()
+    assert all(name.startswith("empty_like") for name in ops.names), ops.names
+    assert len(ops.names) == 2
+
+
+def _source_instantiations():
+    """(dtype, lanes, vectors) of each fixed instantiation in the kernel's
+    C entry, and vectors per lane of each runtime-d one."""
+    text = NORM_SOURCE.read_text()
+    entry = text[text.index('extern "C" int residual_layernorm_sm90'):]
+    bf16, f32 = entry.split("dtype == DTYPE_F32")
+    fixed, runtime = set(), {}
+    for dtype, part in ((torch.bfloat16, bf16), (torch.float32, f32)):
+        for lanes, vectors in re.findall(r"lanes == (\d+) && vectors == (\d+)", part):
+            fixed.add((dtype, int(lanes), int(vectors)))
+        (vectors,) = re.findall(r"lanes % 32 == 0 && vectors == (\d+)", part)
+        runtime[dtype] = int(vectors)
+    return fixed, runtime
+
+
+def test_norm_plans_mirror_the_kernel_source():
+    fixed, runtime = _source_instantiations()
+    assert runtime == fn.RUNTIME_VECTORS
+    for (dtype, d), (lanes, vectors) in fn.NORM_PLANS.items():
+        assert (dtype, lanes, vectors) in fixed, (dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_plan_is_one_the_kernel_takes_at_every_width(dtype):
+    """What the C entry checks before it launches, for every d up to
+    MAX_DIM: whole warps of at most 256 threads, lanes * vectors covering
+    the row, one row per block on the runtime-d plan, a one-warp row up to
+    1536 columns (no barrier), and vector loads only on whole vectors."""
+    fixed, runtime = _source_instantiations()
+    vec = fn.VEC[dtype]
+    for d in range(1, fn.MAX_DIM + 1):
+        lanes, vectors, mode, rows_per_block = fn.norm_plan(d, dtype, 0, 0)
+        threads = lanes * rows_per_block
+        assert threads % 32 == 0 and 32 <= threads <= 256, d
+        assert lanes * vectors * vec >= d, d
+        assert (dtype, lanes, vectors) in fixed or (
+            lanes % 32 == 0 and vectors == runtime[dtype] and rows_per_block == 1), d
+        assert (lanes <= 32) == (d <= 32 * vectors * vec or d in (64, 512, 768)), d
+        assert mode == int(d % vec == 0), d

@@ -70,16 +70,55 @@ def test_flash_plain_version_matches_textbook_attention():
                 attention_reference(q, k, v).numpy()) <= 1e-5
 
 
-@pytest.mark.parametrize("rows,d", [(6, 64), (300, 100), (5, 768)])
-def test_fused_norm_matches_pallas_interpret(rows, d):
+@pytest.mark.parametrize("rows,d,dtype", [
+    pytest.param(6, 64, "float32", id="6-64"),
+    pytest.param(300, 100, "float32", id="300-100"),
+    pytest.param(5, 768, "float32", id="5-768"),
+    # bf16 x and r (f32 g and b on both sides) at the widths the kernel
+    # has plans for: 64 (vit_tiny), 100 (ragged, element loads), 768
+    # (ViT-B/16's 197 tokens), 512 (mixer_s16).
+    pytest.param(6, 64, "bfloat16", id="6-64-bfloat16"),
+    pytest.param(300, 100, "bfloat16", id="300-100-bfloat16"),
+    pytest.param(197, 768, "bfloat16", id="197-768-bfloat16"),
+    pytest.param(40, 512, "bfloat16", id="40-512-bfloat16"),
+])
+def test_fused_norm_matches_pallas_interpret(rows, d, dtype):
+    """f32: absolute 1e-5 on y, 1e-4 on out. bf16: y bit-identical (both
+    round the same f32 sum once), out within one bf16 rounding step,
+    |dout| <= 1e-2 * max|out|."""
+    jdt, tdt = DTYPES[dtype]
     rng = np.random.RandomState(0)
     x, r = rng.randn(rows, d).astype(np.float32), rng.randn(rows, d).astype(np.float32)
     g, b = rng.randn(d).astype(np.float32), rng.randn(d).astype(np.float32)
-    wy, wo = _fused_fwd_pallas(*(jnp.asarray(a) for a in (x, r, g, b)),
-                               eps=1e-6, interpret=True)
-    gy, go = fused_add_layernorm(*(torch.from_numpy(a) for a in (x, r, g, b)))
-    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(go.numpy(), np.asarray(wo), rtol=0, atol=1e-4)
+    wy, wo = _fused_fwd_pallas(jnp.asarray(x, jdt), jnp.asarray(r, jdt), jnp.asarray(g),
+                               jnp.asarray(b), eps=1e-6, interpret=True)
+    gy, go = fused_add_layernorm(torch.from_numpy(x).to(tdt), torch.from_numpy(r).to(tdt),
+                                 torch.from_numpy(g), torch.from_numpy(b))
+    assert gy.dtype == go.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(gy.numpy(), np.asarray(wy), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(go.numpy(), np.asarray(wo), rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(_np32(gy), _np32(wy))
+        assert np.abs(_np32(go) - _np32(wo)).max() <= 1e-2 * np.abs(_np32(wo)).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_takes_bf16_scale_and_bias_as_they_are(dtype):
+    """bf16 g and b (the model's: convert.py casts norm parameters to the
+    compute dtype) give exactly what the same values cast to f32 first
+    give: bf16 -> f32 is exact, so the kernel reads them in their own
+    dtype and the wrapper casts nothing."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.RandomState(4)
+    x, r = (torch.from_numpy(rng.randn(33, 768).astype(np.float32)).to(tdt) for _ in range(2))
+    g, b = (torch.from_numpy(rng.randn(768).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    got = fused_add_layernorm(x, r, g, b)
+    want = fused_add_layernorm(x, r, g.float(), b.float())
+    for a, w in zip(got, want):
+        assert a.dtype == tdt
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
 
 
 def test_residual_layernorm_keeps_the_residual_stream():
