@@ -28,7 +28,21 @@ no result):
    16 records and 1 poison record; the kernels' launch counters, zeroed
    just before, must show every batch went through the three ``*_sm90``
    kernels and the first versions launched 0 times;
-6. the ``{"kernels": [...]}`` line, then the card line, then the last line
+6. trained checkpoints: the four digits checkpoints exported to
+   ``checkpoints_torch/`` (lenet5, its 3-channel twin, resnet20, vit_tiny)
+   in the modes bf16, int8, int8_fused and uint8_wire. The three kernels
+   at this slice's shapes against their plain versions, and timed; each
+   (checkpoint, mode) through ``InferenceEngine`` on the 449 held-out
+   rows, in slices of 64 as the JAX reference was taken, its accuracy
+   within ``accuracy_harness``'s EPSILON of the JAX engine's and its
+   argmax equal on every row whose JAX top-2 margin exceeds 0.02, and its
+   forward timed at B = 64; then three streaming passes (lenet5
+   int8_fused, vit_tiny bf16, resnet20 uint8_wire) through spout ->
+   InferenceBolt -> sink in the harness's ordering-deterministic
+   configuration, each held positionally against the engine's direct
+   predictions and to the accuracy at the output topic, with the kernels'
+   launches per forward counted;
+7. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -581,6 +595,308 @@ def main_path(torch) -> dict:
             "records_per_s": len(inputs) / wall}
 
 
+# ---- phase 6: trained checkpoints ------------------------------------------------
+
+# The exported checkpoints; each records its model, input shape and class
+# count (ModelConfig.from_checkpoint).
+DIGITS = ("lenet5_digits", "lenet5_rgb_digits", "resnet20_digits", "vit_tiny_digits")
+DIGITS_MODES = {"bf16": {}, "int8": {"weights": "int8"},
+                "int8_fused": {"weights": "int8_fused"},
+                "uint8_wire": {"transfer_dtype": "uint8"}}
+# accuracy_harness.py's bounds: |acc - JAX acc| per mode, and the
+# transport proof (L-inf per row against the same mode's engine-direct
+# predictions; the share of rows within it; the share with equal argmax).
+EPSILON = {"bf16": 0.01, "uint8_wire": 0.02, "int8": 0.02, "int8_fused": 0.02}
+TRANSPORT_TOL = {"bf16": 0.05, "uint8_wire": 0.15, "int8": 0.05, "int8_fused": 0.05}
+MIN_ROW_MATCH, MIN_ARGMAX_AGREE = 0.90, 0.97
+MARGIN = 0.02  # JAX top-2 probability margin above which the argmax must agree
+SLICE = 64  # the reference's batch: BatchConfig(max_batch=64, buckets=(64,))
+# (checkpoint, mode, kernel launches per forward): lenet5's three dense
+# layers run w8a16; vit_tiny's 2 blocks run one flash attention and one
+# fused residual + LayerNorm each (its other LayerNorms, ln1 and the final
+# one, are plain); resnet20 runs no kernel of the port.
+STREAMS = [("lenet5_digits", "int8_fused", {"w8a16_matmul_sm90": 3}),
+           ("vit_tiny_digits", "bf16", {"flash_attention_sm90": 2,
+                                        "residual_layernorm_sm90": 2}),
+           ("resnet20_digits", "uint8_wire", {})]
+
+
+def digits_config(tag: str, mode: str):
+    from storm_tpu_torch.config import ModelConfig
+
+    return ModelConfig.from_checkpoint(f"checkpoints/{tag}", dtype="bfloat16",
+                                       **DIGITS_MODES[mode])
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def calls_bound(work: list, peak_flops: float) -> tuple:
+    """The bound of a sequence of calls, each given as (bytes, operations):
+    the sum of each call's own bound; "bytes" or "operations" by which of
+    the two totals takes longer."""
+    ms = sum(bound_ms(b, f, peak_flops)[0] for b, f in work)
+    return ms, bound_ms(sum(b for b, _ in work), sum(f for _, f in work), peak_flops)[1]
+
+
+def digits_kernels(torch, rows: list) -> dict:
+    """The three kernels at this slice's shapes (bf16, B = 64): w8a16 at
+    lenet5's (1024, 120), (120, 84), (84, 10) and vit_tiny's dense shapes,
+    flash attention at (64, 4, 17, 16), the fused norm at (17 * 64, 64),
+    each against its plain version; then one forward's worth of each
+    (lenet5's 3 w8a16 calls, vit_tiny's 2 flash and 2 norm calls) timed
+    against the plain version and the library call."""
+    import torch.nn.functional as F
+
+    from storm_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from storm_tpu_torch.ops.fused_norm import (
+        fused_add_layernorm, fused_add_layernorm_reference)
+    from storm_tpu_torch.ops.quant_matmul import w8a16_matmul, w8a16_matmul_reference
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def quantized(k, n):
+        w = torch.randn(k, n, device="cuda", generator=g)
+        s = (w.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
+        return torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), s
+
+    tokens = SLICE * 17
+    lenet = [(SLICE, 1024, 120), (SLICE, 120, 84), (SLICE, 84, 10)]
+    vit = [(tokens, 64, 64), (tokens, 64, 128), (tokens, 128, 64), (SLICE, 64, 10)]
+    mm = [(randn(m, k), *quantized(k, n)) for m, k, n in lenet + vit]
+    for (x, q, s), (m, k, n) in zip(mm, lenet + vit):
+        got = w8a16_matmul(x, q, s)
+        check(rows, "w8a16_matmul_sm90", f"digits {m}x{k}@{k}x{n}_bf16",
+              rel_err(got, w8a16_matmul_reference(x, q, s)), 2e-2, "rel")
+    att = [tuple(randn(SLICE, 4, 17, 16) for _ in range(3)) for _ in range(2)]
+    for q, k, v in att:
+        check(rows, "flash_attention_sm90", "digits 64x4x17x16_bf16",
+              rel_err(flash_attention(q, k, v), flash_attention_reference(q, k, v)),
+              1e-2, "rel")
+    norms = [(randn(tokens, 64), randn(tokens, 64), randn(64), randn(64)) for _ in range(2)]
+    for x, r, gg, bb in norms:
+        y, o = fused_add_layernorm(x, r, gg, bb)
+        wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
+        check(rows, "residual_layernorm_sm90.y", f"digits {tokens}x64_bf16",
+              rel_err(y, wy), 1e-2, "rel")
+        check(rows, "residual_layernorm_sm90.ln", f"digits {tokens}x64_bf16",
+              rel_err(o, wo), 1e-2, "rel")
+    torch.cuda.synchronize()
+
+    out = {}
+    calls = mm[:3]  # one lenet5 forward
+    # each input read once, the (M, N) bf16 output written once
+    bm, by = calls_bound([(tensor_bytes(x, q, s) + x.shape[0] * q.shape[1] * x.element_size(),
+                           2.0 * x.shape[0] * q.shape[0] * q.shape[1]) for x, q, s in calls],
+                         PEAK_BF16_FLOPS)
+    wdq = [q.to(bf16) for _, q, _ in calls]
+    out["w8a16_matmul_sm90"] = {
+        "shapes": "lenet5 B=64: 64x1024@1024x120, 64x120@120x84, 64x84@84x10",
+        "ms": time_ms(torch, lambda: [w8a16_matmul(*c) for c in calls]),
+        "plain_ms": time_ms(torch, lambda: [w8a16_matmul_reference(*c) for c in calls]),
+        "library_ms": time_ms(torch, lambda: [torch.matmul(c[0], w) * c[2]
+                                             for c, w in zip(calls, wdq)]),
+        "bound_ms": bm, "bound_by": by, "calls": len(calls)}
+    # q, k, v read once, an output of q's size written once
+    bm, by = calls_bound([(tensor_bytes(q, k, v, q), 4.0 * q.shape[0] * q.shape[1]
+                           * q.shape[2] * k.shape[2] * q.shape[3]) for q, k, v in att],
+                         PEAK_BF16_FLOPS)
+    out["flash_attention_sm90"] = {
+        "shapes": "vit_tiny B=64: 2 x (64, 4, 17, 16)",
+        "ms": time_ms(torch, lambda: [flash_attention(*c) for c in att]),
+        "plain_ms": time_ms(torch, lambda: [flash_attention_reference(*c) for c in att]),
+        "library_ms": time_ms(torch, lambda: [F.scaled_dot_product_attention(*c)
+                                             for c in att]),
+        "bound_ms": bm, "bound_by": by, "calls": len(att)}
+    lnorms = [(x, r, w.to(bf16), b.to(bf16)) for x, r, w, b in norms]
+    # x, r, g, b read once in their own dtypes, y and out (x's size) written once
+    bm, by = calls_bound([(tensor_bytes(x, r, gg, bb, x, x), 10.0 * x.numel())
+                          for x, r, gg, bb in norms], PEAK_F32_FLOPS)
+    out["residual_layernorm_sm90"] = {
+        "shapes": "vit_tiny B=64: 2 x (1088, 64)",
+        "ms": time_ms(torch, lambda: [fused_add_layernorm(*c) for c in norms]),
+        "plain_ms": time_ms(torch, lambda: [fused_add_layernorm_reference(*c, 1e-6)
+                                           for c in norms]),
+        "library_ms": time_ms(torch, lambda: [F.layer_norm(x + r, (64,), w, b, 1e-6)
+                                             for x, r, w, b in lnorms]),
+        "bound_ms": bm, "bound_by": by, "calls": len(norms)}
+    for name, t in out.items():
+        log(f"  time {name:21s} per forward at {t['shapes']} ({t['calls']} calls, CUDA "
+            f"graph): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+def digits_engine_direct(torch, ref: dict, card: str) -> dict:
+    """Every (checkpoint, mode) through InferenceEngine on the card: the
+    449 held-out rows in slices of 64 against the JAX engine's recorded
+    predictions, gated on accuracy and on argmax where JAX is decided;
+    then the forward at B = 64 by CUDA-graph replay (the uint8 wire's
+    on-card dequantization included).
+
+    A decided row whose argmax differs is a flip, and fails the cell,
+    unless the port's two largest probabilities are exactly equal and
+    one of them is JAX's class: such a tie is counted and printed on its
+    own, with its rows. The recorded predictions come from XLA on the
+    CPU, which keeps fused bf16 intermediates in f32; storm_tpu's forward
+    compiled without that excess precision ties such a row exactly as
+    the port does (tests/test_torch_cnn.py)."""
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.data import load_digits_nhwc
+    from storm_tpu_torch.infer.engine import InferenceEngine, quantize_wire
+
+    results = {}
+    for tag in DIGITS:
+        for mode in DIGITS_MODES:
+            cfg = digits_config(tag, mode)
+            _, _, x, y = load_digits_nhwc(cfg.input_shape)
+            eng = InferenceEngine(cfg, BatchConfig(max_batch=SLICE, buckets=(SLICE,)),
+                                  device="cuda")
+            preds = np.concatenate([eng.predict(x[i:i + SLICE])
+                                    for i in range(0, len(x), SLICE)])
+            want, want_acc = ref[f"{tag}/{mode}"], float(ref[f"{tag}/{mode}/acc"])
+            acc = float((preds.argmax(-1) == y).mean())
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            decided = top2[:, 1] - top2[:, 0] > MARGIN
+            agree = preds.argmax(-1) == want.argmax(-1)
+            tied = preds[np.arange(len(y)), want.argmax(-1)] == preds.max(-1)
+            ties = np.flatnonzero(~agree & tied & decided)
+            flips = int((~agree & ~tied & decided).sum())
+            others = int((~agree & ~decided).sum())
+            dp = float(np.abs(preds - want).max())
+            xd = torch.from_numpy(np.ascontiguousarray(x[:SLICE])).cuda()
+            with torch.inference_mode():
+                if eng.wire_uint8:
+                    xq, scale, lo = quantize_wire(x[:SLICE])
+                    xq = torch.from_numpy(xq).cuda()
+                    ms = time_ms(torch, lambda: eng.model(
+                        (xq.float() * float(scale) + float(lo)).to(eng.dtype)))
+                else:
+                    xd = xd.to(eng.dtype)
+                    ms = time_ms(torch, lambda: eng.model(xd))
+            results[(tag, mode)] = {"acc": acc, "ref_acc": want_acc, "flips": flips,
+                                    "ties": ties.tolist(), "other_flips": others,
+                                    "max_dp": dp, "ms": ms, "preds": preds, "y": y, "x": x}
+            log(f"  {tag:18s} {mode:10s} accuracy {acc:.4f} (JAX {want_acc:.4f}, "
+                f"epsilon {EPSILON[mode]}); on {int(decided.sum())} rows with JAX margin "
+                f"> {MARGIN}: argmax flips {flips}, exact ties {len(ties)}"
+                + "".join(f" (row {i}: port {preds[i].max():.6f} twice, JAX "
+                          f"{np.sort(want[i])[-1]:.6f} / {np.sort(want[i])[-2]:.6f})"
+                          for i in ties)
+                + f"; flips {others} on the other {int((~decided).sum())}; max |dp| "
+                f"{dp:.4f}; forward B={SLICE} {ms:.4f} ms (CUDA graph) on {card}")
+            if abs(acc - want_acc) > EPSILON[mode]:
+                raise AssertionError(f"{tag} {mode}: accuracy {acc} vs JAX {want_acc}")
+            if flips:
+                raise AssertionError(f"{tag} {mode}: {flips} argmax flips on decided rows")
+            del eng
+    return results
+
+
+async def stream_digits(model_cfg, x: np.ndarray):
+    """accuracy_harness.e2e_run's ordering-deterministic configuration:
+    one partition, parallelism 1/1/1, max_inflight 1, a sync sink, one
+    image per record."""
+    from storm_tpu_torch.api.schema import decode_predictions
+    from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig, SinkConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+
+    batch_cfg = BatchConfig(max_batch=32, max_wait_ms=5.0, buckets=(8, 32), max_inflight=1)
+    broker = MemoryBroker(default_partitions=1)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None)))
+    tb.set_bolt("inference-bolt", InferenceBolt(model_cfg, batch_cfg, device="cuda")) \
+        .shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", SinkConfig(mode="sync"))) \
+        .shuffle_grouping("inference-bolt")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("accuracy", Config(), tb.build())
+    t0 = time.perf_counter()
+    for img in x:
+        broker.produce("input", json.dumps({"instances": [img.tolist()]}), partition=0)
+    deadline = time.monotonic() + 300
+    while broker.topic_size("output") < len(x):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"stream: {broker.topic_size('output')}/{len(x)} out in 300 s")
+        await asyncio.sleep(0.01)
+    wall = time.perf_counter() - t0
+    await rt.drain(timeout_s=60)
+    errors = list(rt.errors)
+    outs = broker.drain_topic("output")
+    await cluster.shutdown()
+    if errors:
+        raise AssertionError(f"stream reported errors: {errors[:3]}")
+    return np.concatenate([decode_predictions(r.value).data for r in outs]), batch_cfg, wall
+
+
+def digits_streams(torch, direct: dict, ref: dict) -> dict:
+    """The three streaming passes, each a main path of its own: launch
+    counts zeroed just before and read just after, held to the kernels'
+    launches per forward of that model (and 0 for every other variant)."""
+    from storm_tpu_torch.infer.engine import shared_engine
+    from storm_tpu_torch.ops import _build
+
+    launches = {}
+    for tag, mode, per_forward in STREAMS:
+        d = direct[(tag, mode)]
+        model_cfg = digits_config(tag, mode)
+        _build.reset_launch_counts()
+        outs, batch_cfg, wall = asyncio.run(stream_digits(model_cfg, d["x"]))
+        counts = _build.launch_counts()
+        forwards = shared_engine(model_cfg, batch_cfg, device="cuda").forwards
+        n = len(d["y"])
+        if outs.shape != (n, 10):
+            raise AssertionError(f"stream {tag} {mode}: outputs {outs.shape}")
+        row_diff = np.abs(outs - d["preds"]).max(axis=1)
+        row_match = float((row_diff <= TRANSPORT_TOL[mode]).mean())
+        argmax_agree = float((outs.argmax(-1) == d["preds"].argmax(-1)).mean())
+        acc = float((outs.argmax(-1) == d["y"]).mean())
+        want_acc = float(ref[f"{tag}/{mode}/acc"])
+        log(f"  stream {tag} {mode}: {n} records in {wall:.3f} s, {forwards} forwards "
+            f"(warmup included); rows within {TRANSPORT_TOL[mode]} of engine-direct "
+            f"{row_match:.4f} (>= {MIN_ROW_MATCH}), argmax agree {argmax_agree:.4f} "
+            f"(>= {MIN_ARGMAX_AGREE}), max row diff {row_diff.max():.4f}; accuracy at the "
+            f"output topic {acc:.4f} (JAX {want_acc:.4f}); launches {counts}")
+        if row_match < MIN_ROW_MATCH or argmax_agree < MIN_ARGMAX_AGREE:
+            raise AssertionError(f"stream {tag} {mode}: transport proof failed")
+        if abs(acc - want_acc) > EPSILON[mode]:
+            raise AssertionError(f"stream {tag} {mode}: accuracy {acc} vs JAX {want_acc}")
+        for name, got in counts.items():
+            want = per_forward.get(name, 0) * forwards
+            if got != want:
+                raise AssertionError(f"stream {tag} {mode}: {name} launched {got} times "
+                                     f"for {forwards} forwards (want {want})")
+        launches[f"{tag} {mode}"] = counts
+    return launches
+
+
+def trained_checkpoints(torch, rows: list, card: str) -> dict:
+    from storm_tpu_torch.models.registry import CHECKPOINTS
+
+    with np.load(CHECKPOINTS / "reference_predictions.npz") as f:
+        ref = {k: f[k] for k in f.files}
+    times = digits_kernels(torch, rows)
+    failed = [r for r in rows if not r["pass"]]
+    if failed:
+        raise AssertionError(f"kernel parity failed at the digits shapes: {failed}")
+    direct = digits_engine_direct(torch, ref, card)
+    ties = {f"{t} {m}": r["ties"] for (t, m), r in direct.items() if r["ties"]}
+    log(f"  engine-direct: {len(direct)} cells, argmax flips on decided rows "
+        f"{sum(r['flips'] for r in direct.values())}, exact ties on decided rows "
+        f"{sum(map(len, ties.values()))} {ties}")
+    launches = digits_streams(torch, direct, ref)
+    return {"times": times, "launches": launches}
+
+
 def run() -> int:
     import torch
 
@@ -626,6 +942,9 @@ def run() -> int:
     log("[5] main path: 2x spout -> 4x InferenceBolt -> 2x sink, ViT-B/16 bf16 int8_fused")
     served = main_path(torch)
 
+    log("[6] trained checkpoints: lenet5, lenet5_rgb, resnet20, vit_tiny on the digits")
+    digits = trained_checkpoints(torch, rows, card)
+
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
@@ -644,12 +963,17 @@ def run() -> int:
     kernels = []
     for name, (src, tpu, variant) in replaces.items():
         t = times[name]
-        kernels.append({
+        paths = {"vit_b16 int8_fused (main path)": served["launches"][name]}
+        paths.update({p: c[name] for p, c in digits["launches"].items()})
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],
-            "max_abs_err": errs[name],
+            "launches_by_path": paths, "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name in digits["times"]:
+            entry["digits"] = digits["times"][name]
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

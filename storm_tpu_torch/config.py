@@ -47,22 +47,25 @@ class ModelConfig:
     """Which model an inference operator runs, and how."""
 
     # Key into storm_tpu_torch.models.registry. The default is the
-    # flagship the port serves (the JAX package defaults to lenet5, which
-    # the port has not registered yet).
+    # flagship the port serves (the JAX package defaults to lenet5).
     name: str = "vit_b16"
-    checkpoint: Optional[str] = None  # checkpoints are not served by the port yet
+    # An exported checkpoint: a path ending in ".npz", or the JAX package's
+    # orbax directory spelled "checkpoints/<tag>", which names
+    # "checkpoints_torch/<tag>.npz" (written by export_torch_checkpoints.py);
+    # any other directory is refused. None initializes from ``seed``.
+    checkpoint: Optional[str] = None
     dtype: str = "bfloat16"  # compute dtype
     num_classes: int = 1000
     input_shape: tuple = (224, 224, 3)  # per-instance HWC
     seed: int = 0
     # Extra keyword arguments for the registry's model function.
     extra: dict = dataclasses.field(default_factory=dict)
-    # 'float' keeps params in the compute dtype; 'int8_fused' keeps dense
-    # weights int8 (per-output-channel scales) for the w8a16 kernel;
-    # 'int8' (dequantize up front) is not ported yet.
+    # 'float' keeps params in the compute dtype; 'int8' quantizes every
+    # weight (per-output-channel scales) and dequantizes it once at load;
+    # 'int8_fused' keeps dense weights int8 for the w8a16 kernel.
     weights: str = "float"
     # Wire dtype of the host->device transfer; None ships the compute
-    # dtype. 'uint8' is not ported yet.
+    # dtype, 'uint8' affine-quantized bytes with a per-batch range.
     transfer_dtype: Optional[str] = None
 
     def __post_init__(self) -> None:
@@ -71,6 +74,18 @@ class ModelConfig:
         if self.weights not in ("float", "int8", "int8_fused"):
             raise ValueError(
                 f"model.weights must be float|int8|int8_fused, got {self.weights!r}")
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str, **fields) -> "ModelConfig":
+        """The config serving an exported checkpoint: ``name``,
+        ``input_shape`` and ``num_classes`` as its export recorded them,
+        every other field from ``fields``."""
+        from storm_tpu_torch.models.registry import checkpoint_meta
+
+        meta = checkpoint_meta(checkpoint)
+        return cls(name=meta["model"], checkpoint=checkpoint,
+                   input_shape=tuple(meta["input_shape"]),
+                   num_classes=meta["num_classes"], **fields)
 
 
 @dataclass

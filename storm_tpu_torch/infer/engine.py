@@ -3,11 +3,13 @@ counterpart of ``storm_tpu/infer/engine.py`` on its serialized path
 (``pipeline_depth=0``).
 
 ``predict`` pads the batch to its bucket with zero rows, casts it to the
-compute dtype on the host, copies it to the device, runs the forward under
-a lock (one forward at a time per engine), takes the f32 softmax and copies
-the probabilities back, sliced to the real rows. ``shared_engine`` keeps
-one engine per model identity per process, so every inference operator
-task of a topology shares one copy of the weights on the card.
+compute dtype on the host (or, with ``transfer_dtype="uint8"``,
+affine-quantizes it to bytes there and dequantizes it on the device),
+copies it to the device, runs the forward under a lock (one forward at a
+time per engine), takes the f32 softmax and copies the probabilities back,
+sliced to the real rows. ``shared_engine`` keeps one engine per model
+identity per process, so every inference operator task of a topology
+shares one copy of the weights on the card.
 """
 
 from __future__ import annotations
@@ -22,10 +24,9 @@ import torch
 from storm_tpu_torch.config import BatchConfig, ModelConfig
 from storm_tpu_torch.device import resolve_device
 from storm_tpu_torch.models.convert import from_jax_params, init_params
-from storm_tpu_torch.models.registry import model_def
+from storm_tpu_torch.models.registry import check_checkpoint, load_checkpoint, model_def
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_ROADMAP = "see ROADMAP.md, 'PyTorch/H100 port'"
 
 
 class InflightBatch:
@@ -38,31 +39,34 @@ class InflightBatch:
         self.future: Future = Future()
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.checkpoint is not None:
-        raise NotImplementedError(
-            "serving checkpoints is not ported yet (they are orbax/JAX "
-            f"checkpoints; the converter is queued, {_ROADMAP})")
-    if cfg.transfer_dtype is not None:
-        raise NotImplementedError(
-            f"transfer_dtype={cfg.transfer_dtype!r} (the uint8 wire) is not "
-            f"ported yet ({_ROADMAP}, int8 weights and the uint8 wire)")
-    if cfg.weights == "int8":
-        raise NotImplementedError(
-            "weights='int8' is not ported yet "
-            f"({_ROADMAP}, int8 weights and the uint8 wire)")
-    if cfg.dtype not in DTYPES:
-        raise ValueError(f"model.dtype must be one of {sorted(DTYPES)}, got {cfg.dtype!r}")
+def quantize_wire(x: np.ndarray, n: Optional[int] = None) -> Tuple[np.ndarray, np.float32,
+                                                                     np.float32]:
+    """The uint8 wire of ``storm_tpu/infer/engine.py:926-937``: the range
+    from the first ``n`` (real, unpadded) rows of float32 ``x``, ``scale =
+    max((hi - lo) / 255, 1e-12)`` in float32, and ``clip(rint((x - lo) /
+    scale), 0, 255)`` over every row as uint8. Returns ``(bytes, scale,
+    lo)``; the device computes ``bytes * scale + lo`` in float32."""
+    real = x if n is None else x[:n]
+    lo, hi = float(real.min()), float(real.max())
+    scale = np.float32(max((hi - lo) / 255.0, 1e-12))
+    offset = np.float32(lo)
+    xq = np.clip(np.rint((x - offset) / scale), 0, 255).astype(np.uint8)
+    return xq, scale, offset
 
 
 class InferenceEngine:
-    """``params``: a numpy parameter tree in the JAX layout (e.g. carried
-    from storm_tpu); None initializes from ``model_cfg.seed``."""
+    """``params`` and ``state``: numpy trees in the JAX layout (e.g.
+    carried from storm_tpu). With ``params`` None the engine loads
+    ``model_cfg.checkpoint`` (an exported checkpoint, see
+    :func:`storm_tpu_torch.models.registry.checkpoint_path`), or, without
+    one, initializes from ``model_cfg.seed``."""
 
     def __init__(self, model_cfg: ModelConfig,
                  batch_cfg: Optional[BatchConfig] = None, *,
-                 device=None, params=None) -> None:
-        _check_supported(model_cfg)
+                 device=None, params=None, state=None) -> None:
+        if model_cfg.dtype not in DTYPES:
+            raise ValueError(
+                f"model.dtype must be one of {sorted(DTYPES)}, got {model_cfg.dtype!r}")
         self.model_cfg = model_cfg
         self.batch_cfg = batch_cfg or BatchConfig()
         self.device = resolve_device(device)
@@ -70,9 +74,15 @@ class InferenceEngine:
         self.model_def = model_def(model_cfg.name, num_classes=model_cfg.num_classes,
                                    input_shape=tuple(model_cfg.input_shape),
                                    **model_cfg.extra)
-        tree = init_params(self.model_def, model_cfg.seed) if params is None else params
-        self.model = from_jax_params(tree, self.model_def, weights=model_cfg.weights,
-                                     dtype=self.dtype, device=self.device)
+        if params is None and model_cfg.checkpoint:
+            params, state, meta = load_checkpoint(model_cfg.checkpoint)
+            check_checkpoint(self.model_def, params, state, meta, model_cfg.checkpoint)
+        elif params is None:
+            params, state = init_params(self.model_def, model_cfg.seed)
+        self.model = from_jax_params(params, self.model_def, state,
+                                     weights=model_cfg.weights, dtype=self.dtype,
+                                     device=self.device)
+        self.wire_uint8 = model_cfg.transfer_dtype == "uint8"
         self._lock = threading.Lock()
         # Forwards run (warmup included): the batch count the kernels'
         # launch counters are held against.
@@ -107,13 +117,22 @@ class InferenceEngine:
         event loop."""
         n = x.shape[0]
         padded = self.pad_batch(n)
+        x = np.asarray(x, np.float32)
         if padded != n:
             x = np.concatenate([x, np.zeros((padded - n, *x.shape[1:]), x.dtype)])
-        # Cast on the host: the copy to the card then moves the compute
-        # dtype's bytes (half of f32 for bf16).
-        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.dtype)
+        if self.wire_uint8:
+            # One byte per value crosses to the card, plus two scalars.
+            xq, scale, offset = quantize_wire(x, n)
+            xt = torch.from_numpy(xq)
+        else:
+            # Cast on the host: the copy to the card then moves the compute
+            # dtype's bytes (half of f32 for bf16).
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.dtype)
         with self._lock, torch.inference_mode():
-            probs = self.model(xt.to(self.device)).float().softmax(dim=-1)
+            xd = xt.to(self.device)
+            if self.wire_uint8:
+                xd = (xd.float() * float(scale) + float(offset)).to(self.dtype)
+            probs = self.model(xd).float().softmax(dim=-1)
             host = probs.cpu().numpy()
             self.forwards += 1
         return host[:n]

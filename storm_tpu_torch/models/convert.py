@@ -6,7 +6,10 @@ package lays them out: dense ``w`` is (in, out), convolution kernels are
 HWIO (the module transposes them to OIHW). :func:`quantize_params` is the
 numpy copy of ``storm_tpu/infer/engine.py:quantize_params`` and produces
 bit-identical ``{"__q", "__s"}`` leaves; :func:`dequantize_params` and
-:func:`prepare_params` follow the same file's serving preparation.
+:func:`prepare_params` follow the same file's serving preparation
+(``engine.py:75-95`` and ``:537-551``), done once at load where the JAX
+package does it inside its jitted forward. BatchNorm state stays float32
+in every mode.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def _is_qleaf(x) -> bool:
 
 
 def init_params(model: ModelDef, seed: int = 0):
-    """Seeded float32 numpy parameters for ``model`` (JAX layout)."""
+    """Seeded float32 numpy ``(params, state)`` for ``model`` (JAX layout)."""
     return model.init(np.random.RandomState(seed))
 
 
@@ -84,31 +87,40 @@ def dequantize_params(qparams, dtype: torch.dtype, keep_dense: bool = False):
 
 def prepare_params(params, weights: str, dtype: torch.dtype):
     """Numpy float32 tree (JAX layout) -> the tensor tree a module is
-    built from, for ``weights`` "float" (every float32 leaf cast to the
-    compute dtype) or "int8_fused" (quantized; dense weights stay int8,
-    every other quantized leaf is dequantized in the compute dtype, and
-    the rest — biases and norm parameters — cast to it)."""
-    if weights == "int8":
-        raise NotImplementedError(
-            "weights='int8' (dequantize every weight up front) is not ported "
-            "yet; see ROADMAP.md 'PyTorch/H100 port', int8 weights and the "
-            "uint8 wire. Use 'int8_fused' or 'float'.")
-    if weights not in ("float", "int8_fused"):
-        raise ValueError(f"weights must be float|int8_fused, got {weights!r}")
+    built from, for ``weights``:
+
+    - "float": every leaf cast to the compute dtype;
+    - "int8": every float leaf of rank >= 2 (dense and convolution
+      weights, the CLS token, the position embedding) quantized and
+      dequantized once, here, as ``q.to(dtype) * s.to(dtype)``; the rest
+      (biases, norm parameters) cast to the compute dtype;
+    - "int8_fused": the same, except that dense weights (2-D leaves under
+      a ``"w"`` key) stay ``{"__q": int8, "__s": f32}`` for the w8a16
+      kernel."""
+    if weights not in ("float", "int8", "int8_fused"):
+        raise ValueError(f"weights must be float|int8|int8_fused, got {weights!r}")
 
     f32 = _map(lambda leaf, _p: np.asarray(leaf, np.float32), params)
     if weights == "float":
         return _map(lambda leaf, _p: _tensor(leaf, dtype), f32)
-    tree = dequantize_params(quantize_params(f32), dtype, keep_dense=True)
+    tree = dequantize_params(quantize_params(f32), dtype,
+                             keep_dense=weights == "int8_fused")
     return _map(lambda t, _p: t if _is_qleaf(t) else t.to(dtype), tree)
 
 
-def from_jax_params(params, model: ModelDef, *, weights: str = "float",
+def prepare_state(state):
+    """Numpy state tree -> float32 tensors, whatever the compute dtype
+    (BatchNorm statistics are never cast, ``engine.py:537-538``)."""
+    return _map(lambda leaf, _p: _tensor(np.asarray(leaf, np.float32)), state or {})
+
+
+def from_jax_params(params, model: ModelDef, state=None, *, weights: str = "float",
                     dtype: torch.dtype = torch.float32,
                     device=None) -> nn.Module:
-    """Build ``model``'s module from a numpy parameter tree in the JAX
-    layout (``jax.tree.map(np.asarray, params)`` of storm_tpu's params) on
+    """Build ``model``'s module from numpy ``params`` and ``state`` trees
+    in the JAX layout (``jax.tree.map(np.asarray, ...)`` of storm_tpu's,
+    or :func:`storm_tpu_torch.models.registry.load_checkpoint`'s) on
     ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU)."""
     dev = resolve_device(device)
-    module = model.make(prepare_params(params, weights, dtype))
+    module = model.make(prepare_params(params, weights, dtype), prepare_state(state))
     return module.eval().to(dev)

@@ -15,45 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from storm_tpu_torch.models.common import (
+    Dense, LayerNorm, dense_init, ln_init, normal, trunc_normal)
 from storm_tpu_torch.models.registry import ModelDef, register
 from storm_tpu_torch.ops import layers as L
 from storm_tpu_torch.ops.attention import multi_head_attention
 from storm_tpu_torch.ops.fused_norm import residual_layernorm
-
-
-class Dense(nn.Module):
-    """``{"w": (in, out) float | {"__q": int8, "__s": f32}, "b"}``."""
-
-    def __init__(self, p: dict) -> None:
-        super().__init__()
-        w = p["w"]
-        self.quantized = isinstance(w, dict)
-        if self.quantized:
-            self.register_buffer("q", w["__q"])
-            self.register_buffer("s", w["__s"])
-        else:
-            self.register_buffer("w", w)
-        self.register_buffer("b", p["b"])
-
-    def params(self) -> dict:
-        w = {"__q": self.q, "__s": self.s} if self.quantized else self.w
-        return {"w": w, "b": self.b}
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return L.dense(self.params(), x)
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, p: dict) -> None:
-        super().__init__()
-        self.register_buffer("scale", p["scale"])
-        self.register_buffer("bias", p["bias"])
-
-    def params(self) -> dict:
-        return {"scale": self.scale, "bias": self.bias}
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return L.layernorm(self.params(), x)
 
 
 class MultiHeadAttention(nn.Module):
@@ -116,32 +83,6 @@ class ViT(nn.Module):
         return self.head(tok[:, 0].contiguous())
 
 
-# ---- seeded numpy initializers (the JAX package's distributions) ----------
-
-
-def _normal(rng, shape, std):
-    return (rng.standard_normal(shape) * std).astype(np.float32)
-
-
-def _trunc_normal(rng, shape, std=0.02):
-    x = rng.standard_normal(shape)
-    bad = np.abs(x) > 2.0
-    while bad.any():
-        x[bad] = rng.standard_normal(int(bad.sum()))
-        bad = np.abs(x) > 2.0
-    return (x * std).astype(np.float32)
-
-
-def _dense(rng, n_in, n_out):
-    return {"w": _normal(rng, (n_in, n_out), np.sqrt(1.0 / n_in)),
-            "b": np.zeros((n_out,), np.float32)}
-
-
-def _ln(dim):
-    return {"scale": np.ones((dim,), np.float32),
-            "bias": np.zeros((dim,), np.float32)}
-
-
 def build_vit(name: str, num_classes: int, input_shape: tuple, patch: int,
               dim: int, depth: int, num_heads: int, mlp_dim: int) -> ModelDef:
     h, w, c = input_shape
@@ -152,27 +93,28 @@ def build_vit(name: str, num_classes: int, input_shape: tuple, patch: int,
              "mlp_dim": mlp_dim, "patch": patch,
              "input_shape": tuple(input_shape), "num_classes": num_classes}
 
-    def init(rng: np.random.RandomState) -> dict:
+    def init(rng: np.random.RandomState) -> tuple:
         fan_in = patch * patch * c
-        return {
-            "embed": {"w": _normal(rng, (patch, patch, c, dim), np.sqrt(2.0 / fan_in)),
+        params = {
+            "embed": {"w": normal(rng, (patch, patch, c, dim), np.sqrt(2.0 / fan_in)),
                       "b": np.zeros((dim,), np.float32)},
             "cls": np.zeros((1, 1, dim), np.float32),
-            "pos": _trunc_normal(rng, (1, seq, dim)),
+            "pos": trunc_normal(rng, (1, seq, dim)),
             "blocks": [
-                {"ln1": _ln(dim),
-                 "attn": {n: _dense(rng, dim, dim) for n in "qkvo"},
-                 "ln2": _ln(dim),
-                 "mlp_in": _dense(rng, dim, mlp_dim),
-                 "mlp_out": _dense(rng, mlp_dim, dim)}
+                {"ln1": ln_init(dim),
+                 "attn": {n: dense_init(rng, dim, dim) for n in "qkvo"},
+                 "ln2": ln_init(dim),
+                 "mlp_in": dense_init(rng, dim, mlp_dim),
+                 "mlp_out": dense_init(rng, mlp_dim, dim)}
                 for _ in range(depth)
             ],
-            "ln": _ln(dim),
-            "head": _dense(rng, dim, num_classes),
+            "ln": ln_init(dim),
+            "head": dense_init(rng, dim, num_classes),
         }
+        return params, {}
 
     return ModelDef(name, tuple(input_shape), num_classes, init,
-                    lambda tree: ViT(tree, **hyper), hyper)
+                    lambda params, _state: ViT(params, **hyper), hyper)
 
 
 @register("vit_b16")
@@ -183,6 +125,7 @@ def build_vit_b16(num_classes: int = 1000, input_shape: tuple = (224, 224, 3)) -
 
 @register("vit_tiny")
 def build_vit_tiny(num_classes: int = 10, input_shape: tuple = (32, 32, 3)) -> ModelDef:
-    """Small ViT for tests (same code path as vit_b16, toy size)."""
+    """Small ViT (same code path as vit_b16, toy size): the digits
+    checkpoint's model and the tests'."""
     return build_vit("vit_tiny", num_classes, input_shape, patch=8, dim=64,
                      depth=2, num_heads=4, mlp_dim=128)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of storm_tpu_torch, and neither
-chip_smoke.py nor kernel_sweep.py, imports JAX or anything of the JAX
-package storm_tpu."""
+chip_smoke.py nor kernel_sweep.py, imports JAX, orbax, scikit-learn or
+anything of the JAX package storm_tpu (the machine with the card has none
+of them)."""
 
 import ast
 import os
@@ -23,7 +24,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "orbax", "storm_tpu")
+    return top in ("jax", "jaxlib", "flax", "orbax", "sklearn", "storm_tpu")
 
 
 def test_no_jax_or_storm_tpu_imports_in_source():
@@ -68,7 +69,8 @@ def test_importing_the_port_loads_no_jax():
             .shuffle_grouping("infer")
         tb.build()
         loaded = sorted(n for n in sys.modules
-                        if n.split(".")[0] in ("jax", "jaxlib", "storm_tpu"))
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -87,13 +87,24 @@ def test_int8_fused_keeps_only_dense_weights_int8(jax_params):
 
 
 def test_unported_configurations_raise():
+    """The three configurations that once raised (int8 weights, the uint8
+    wire, a checkpoint) now build on the CPU and serve; an unknown weight
+    mode or wire dtype still raises."""
+    x = np.random.RandomState(3).rand(2, *SHAPE).astype(np.float32)
     for kw in ({"weights": "int8"}, {"transfer_dtype": "uint8"},
                {"checkpoint": "checkpoints/vit_tiny_digits"}):
-        cfg = ModelConfig(name="vit_tiny", input_shape=SHAPE, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("vit_tiny", device="cpu", weights="int8")
+        cfg = ModelConfig(name="vit_tiny", input_shape=SHAPE, num_classes=10, **kw)
+        out = InferenceEngine(cfg, BatchConfig(max_batch=4, buckets=(4,)),
+                              device="cpu").predict(x)
+        assert out.shape == (2, 10) and np.isfinite(out).all()
+    m = build_model("vit_tiny", device="cpu", weights="int8")
+    assert not any(v.dtype == torch.int8 for v in m.state_dict().values())
+    with pytest.raises(ValueError, match="weights"):
+        ModelConfig(name="vit_tiny", weights="int4")
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        ModelConfig(name="vit_tiny", transfer_dtype="fp8")
+    with pytest.raises(ValueError, match="weights"):
+        build_model("vit_tiny", device="cpu", weights="int4")
 
 
 def test_shared_engine_is_one_copy_per_model():
