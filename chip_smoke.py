@@ -24,10 +24,16 @@ no result):
    relative bound, argmax identical (in bfloat16 on every row whose top-2
    margin exceeds ``ARGMAX_ULPS`` ulps);
 5. main path: MemoryBroker -> 2x BrokerSpout -> 4x InferenceBolt -> 2x
-   BrokerSink (+ dead-letter sink) serving ViT-B/16 bf16 ``int8_fused``:
-   16 records and 1 poison record; the kernels' launch counters, zeroed
-   just before, must show every batch went through the three ``*_sm90``
-   kernels and the first versions launched 0 times;
+   BrokerSink (+ dead-letter sink) serving ViT-B/16 bf16 ``int8_fused``
+   through the default engine (pipeline depth 2, one CUDA graph per
+   bucket): 16 records and 1 poison record. The engine's launch tally
+   (each replay counts its graph's kernels as its capture recorded them,
+   the warm-up's eager forward its own) must be exactly forwards x 73
+   w8a16, x 12 flash, x 12 fused norm on the ``*_sm90`` kernels and 0 on
+   the first versions; the wrappers' own counters, zeroed just before,
+   must show the warm-up's eager launches of those three and none of the
+   others; one replay of each graph under ``torch.profiler`` must run the
+   kernels its capture recorded;
 6. trained checkpoints: the four digits checkpoints exported to
    ``checkpoints_torch/`` (lenet5, its 3-channel twin, resnet20, vit_tiny)
    in the modes bf16, int8, int8_fused and uint8_wire. The three kernels
@@ -41,8 +47,21 @@ no result):
    InferenceBolt -> sink in the harness's ordering-deterministic
    configuration, each held positionally against the engine's direct
    predictions and to the accuracy at the output topic, with the kernels'
-   launches per forward counted;
-7. the ``{"kernels": [...]}`` line, then the card line, then the last line
+   launches per forward held as in phase 5;
+7. the split-phase engine: (a) each graph's replay bit-identical to the
+   same engine's eager forward (ViT-B/16 at B = 8; lenet5, resnet20 and
+   vit_tiny in bf16 and on the uint8 wire at buckets 8 and 32, a scale of
+   its own per batch); (b) 64 ViT-B/16 batches dispatched from two threads
+   at depth 2, each bit-identical to its own serial forward, the staging
+   pool within its limit; (c) information only, in turns (depth 0, 2, 2,
+   0): batches a second through ``dispatch``, the substages' medians, the
+   card's busy and idle share under the profiler, the forward by replay
+   against eager, the graph build's peak bytes; (d) the watchdog at 50 ms
+   failing a batch held 200 ms alone, two holds quarantining the engine
+   and ``shared_engine`` replacing it, and a lenet5 1/1/1 topology
+   swapping the replacement in with every record through after replay;
+   (e) a batch larger than ``max_batch`` capturing its own graph once;
+8. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -118,9 +137,7 @@ def time_ms(torch, fn, reps: int = 20) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    # relaxed: the flash wrapper sets its kernel's shared-memory attribute
-    # on every launch, a call the default capture mode refuses.
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph):
         fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -541,16 +558,79 @@ async def serve(n_good: int = 16):
     return inputs, outs, dlq, snap, errors, wall, model_cfg, batch_cfg
 
 
+# The CUDA function of each kernel variant, as the profiler names it.
+KERNEL_FUNCS = {"w8a16_matmul_sm90": "w8a16_sm90_kernel<", "w8a16_matmul": "w8a16_kernel<",
+                "residual_layernorm_sm90": "residual_layernorm_sm90_kernel<",
+                "residual_layernorm": "residual_layernorm_kernel<",
+                "flash_attention_sm90": "flash_sm90_kernel<", "flash_attention": "flash_kernel<"}
+
+
+def profiled_kernels(torch, fn) -> dict:
+    """Kernels the card ran in ``fn()``, counted by name in a
+    ``torch.profiler`` trace (each variant, and all CUDA kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_FUNCS, 0)
+    counts["all"] = 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or "Memcpy" in ev.name or "Memset" in ev.name:
+            continue
+        counts["all"] += 1
+        for name, fn_name in KERNEL_FUNCS.items():
+            if fn_name in ev.name:
+                counts[name] += 1
+    return counts
+
+
+def check_tally(torch, engine, per_forward: dict, wrapper_counts: dict, path: str) -> dict:
+    """The engine's launch tally over one served path: every variant
+    exactly ``per_forward`` (0 when absent) times the engine's forwards,
+    and each kernel of the path launched eagerly by its wrapper during the
+    path's warm-up (the other variants 0 times); then one replay of each of
+    the engine's graphs under the profiler must show the kernels its
+    capture recorded (the tally's unit)."""
+    tally, forwards = engine.launch_tally(), engine.forwards
+    for name in KERNEL_FUNCS:
+        want = per_forward.get(name, 0) * forwards
+        if tally.get(name, 0) != want:
+            raise AssertionError(f"{path}: {name} tallied {tally.get(name, 0)} launches for "
+                                 f"{forwards} forwards (want {want})")
+        if (wrapper_counts[name] > 0) != (per_forward.get(name, 0) > 0):
+            raise AssertionError(f"{path}: {name} launched {wrapper_counts[name]} times "
+                                 f"eagerly by its wrapper")
+    for padded in sorted(engine.compiled_batches):
+        bucket = engine.graph_for(padded)
+        seen = profiled_kernels(torch, bucket.replay)
+        recorded = {n: bucket.launches.get(n, 0) for n in KERNEL_FUNCS}
+        if {n: seen[n] for n in KERNEL_FUNCS} != recorded:
+            raise AssertionError(f"{path}: bucket {padded}'s replay ran {seen}, its capture "
+                                 f"recorded {recorded}")
+        log(f"  {path}: one replay of bucket {padded} under the profiler ran "
+            f"{seen['all']} kernels, ours {({n: c for n, c in seen.items() if c and n != 'all'})}"
+            f" = the capture's record")
+    return {n: tally.get(n, 0) for n in KERNEL_FUNCS}
+
+
 def main_path(torch) -> dict:
     from storm_tpu_torch.api.schema import decode_predictions
-    from storm_tpu_torch.infer.engine import shared_engine
+    from storm_tpu_torch.infer.engine import clear_engines, shared_engine
     from storm_tpu_torch.ops import _build
 
+    clear_engines()
     _build.reset_launch_counts()
     inputs, outs, dlq, snap, errors, wall, model_cfg, batch_cfg = asyncio.run(serve())
-    launches = _build.launch_counts()
+    wrapper_counts = _build.launch_counts()
     engine = shared_engine(model_cfg, batch_cfg, device="cuda")
     batches = engine.forwards
+    # Every forward in bf16 goes through the sm90 variants; the first
+    # versions must not launch at all while the topology serves.
+    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
+                   "flash_attention_sm90": 12}
+    launches = check_tally(torch, engine, per_forward, wrapper_counts, "main path")
     if errors:
         raise AssertionError(f"main path reported errors: {errors[:3]}")
     if len(outs) != len(inputs) or len(dlq) != 1:
@@ -573,24 +653,17 @@ def main_path(torch) -> dict:
     match = np.abs(preds[:, None, :] - direct[None, :, :]).max(axis=2).min(axis=1)
     if match.max() > 1e-4:
         raise AssertionError(f"a streamed prediction matches no direct one: {match.max()}")
-    # Every forward in bf16 goes through the sm90 variants; the first
-    # versions must not launch at all while the topology serves.
-    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
-                   "flash_attention_sm90": 12, "w8a16_matmul": 0, "residual_layernorm": 0,
-                   "flash_attention": 0}
-    for name, n in per_forward.items():
-        if (n == 0 and launches[name] != 0) or (
-                n and (launches[name] < batches * n or launches[name] == 0)):
-            raise AssertionError(
-                f"{name}: {launches[name]} launches for {batches} forwards "
-                f"(need {'0' if n == 0 else f'>= {batches * n}'})")
     e2e = snap["kafka-bolt"]["e2e_latency_ms"]
     log(f"  main path: {len(outs)} predictions + {len(dlq)} dead letter, "
-        f"{batches} forwards (warmup included), launches {launches}")
+        f"{batches} forwards (warm-up included: one eager, the rest graph replays), "
+        f"launch tally {launches}, eager launches by the wrappers {wrapper_counts}")
     log(f"  main path on {nvidia_smi()}: e2e p50 {e2e['p50']:.3f} ms, p99 "
         f"{e2e['p99']:.3f} ms, {len(inputs) / wall:.3f} records/s over {wall:.3f} s; batch sizes "
         f"{snap['inference-bolt']['batch_size']['mean']:.2f} mean; weights on card "
         f"{engine.param_bytes() / 1e6:.3f} MB")
+    sub = {k: snap["inference-bolt"][k]["p50"] for k in ("h2d_ms", "compute_ms", "d2h_ms")}
+    log(f"  main path substages p50: {sub}; graph build peak "
+        f"{engine.graph_pool_bytes / 1e6:.3f} MB")
     return {"launches": launches, "batches": batches, "e2e_p50_ms": e2e["p50"],
             "records_per_s": len(inputs) / wall}
 
@@ -842,17 +915,19 @@ def digits_streams(torch, direct: dict, ref: dict) -> dict:
     """The three streaming passes, each a main path of its own: launch
     counts zeroed just before and read just after, held to the kernels'
     launches per forward of that model (and 0 for every other variant)."""
-    from storm_tpu_torch.infer.engine import shared_engine
+    from storm_tpu_torch.infer.engine import clear_engines, shared_engine
     from storm_tpu_torch.ops import _build
 
     launches = {}
     for tag, mode, per_forward in STREAMS:
         d = direct[(tag, mode)]
         model_cfg = digits_config(tag, mode)
+        clear_engines()
         _build.reset_launch_counts()
         outs, batch_cfg, wall = asyncio.run(stream_digits(model_cfg, d["x"]))
-        counts = _build.launch_counts()
-        forwards = shared_engine(model_cfg, batch_cfg, device="cuda").forwards
+        wrapper_counts = _build.launch_counts()
+        engine = shared_engine(model_cfg, batch_cfg, device="cuda")
+        forwards = engine.forwards
         n = len(d["y"])
         if outs.shape != (n, 10):
             raise AssertionError(f"stream {tag} {mode}: outputs {outs.shape}")
@@ -865,16 +940,15 @@ def digits_streams(torch, direct: dict, ref: dict) -> dict:
             f"(warmup included); rows within {TRANSPORT_TOL[mode]} of engine-direct "
             f"{row_match:.4f} (>= {MIN_ROW_MATCH}), argmax agree {argmax_agree:.4f} "
             f"(>= {MIN_ARGMAX_AGREE}), max row diff {row_diff.max():.4f}; accuracy at the "
-            f"output topic {acc:.4f} (JAX {want_acc:.4f}); launches {counts}")
+            f"output topic {acc:.4f} (JAX {want_acc:.4f}); eager launches by the wrappers "
+            f"{wrapper_counts}")
         if row_match < MIN_ROW_MATCH or argmax_agree < MIN_ARGMAX_AGREE:
             raise AssertionError(f"stream {tag} {mode}: transport proof failed")
         if abs(acc - want_acc) > EPSILON[mode]:
             raise AssertionError(f"stream {tag} {mode}: accuracy {acc} vs JAX {want_acc}")
-        for name, got in counts.items():
-            want = per_forward.get(name, 0) * forwards
-            if got != want:
-                raise AssertionError(f"stream {tag} {mode}: {name} launched {got} times "
-                                     f"for {forwards} forwards (want {want})")
+        counts = check_tally(torch, engine, per_forward, wrapper_counts,
+                             f"stream {tag} {mode}")
+        log(f"  stream {tag} {mode}: launch tally {counts} for {forwards} forwards")
         launches[f"{tag} {mode}"] = counts
     return launches
 
@@ -897,6 +971,377 @@ def trained_checkpoints(torch, rows: list, card: str) -> dict:
     return {"times": times, "launches": launches}
 
 
+# ---- phase 7: the split-phase engine ----------------------------------------------
+
+# (c)'s bursts: batches per burst at each size.
+BURSTS = {"vit_b16 B=8": 60, "vit_tiny B=64": 200}
+DIGITS_BUCKETS = (8, 32)
+
+
+def vit_b16_config():
+    from storm_tpu_torch.config import ModelConfig
+
+    return ModelConfig(name="vit_b16", dtype="bfloat16", weights="int8_fused",
+                       num_classes=CLASSES, input_shape=(224, 224, 3))
+
+
+def graph_parity(torch, engines: dict) -> dict:
+    """(a) Each engine's replayed forward (``predict``, through the ring
+    and the bucket's graph) against its eager forward of the same bucket
+    (``predict_eager``) on the same seeded inputs: bit-identical, or, if a
+    library call computes otherwise under capture, within phase 4's bf16
+    bound with the argmax kept. The digits engines take batches of 8, 32,
+    5 and 20 rows (buckets 8 and 32, padded and full), each batch with its
+    own range, so the uint8 wire's scale differs from batch to batch."""
+    rng = np.random.RandomState(21)
+    out = {}
+    for name, eng in engines.items():
+        if name.startswith("vit_b16"):
+            xs = [rng.rand(B, *eng.input_shape).astype(np.float32)]
+        else:
+            xs = [(rng.rand(n, *eng.input_shape) * (1 + k) - 0.5 * k).astype(np.float32)
+                  for k, n in enumerate((8, 32, 5, 20))]
+        identical, worst = True, 0.0
+        for x in xs:
+            got, want = eng.predict(x), eng.predict_eager(x)
+            if np.array_equal(got, want):
+                continue
+            identical = False
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            worst = max(worst, err)
+            if err > 5e-2 or not (got.argmax(-1) == want.argmax(-1)).all():
+                raise AssertionError(f"graph parity {name}: replay differs from eager by "
+                                     f"{err} (relative) or in argmax")
+        out[name] = {"bit_identical": identical, "max_rel_err": worst,
+                     "buckets": sorted(eng.compiled_batches)}
+        log(f"  (a) graph parity {name:28s} buckets {sorted(eng.compiled_batches)}: replay "
+            + ("bit-identical to eager" if identical else
+               f"NOT bit-identical to eager, max rel err {worst:.3e} (within 5e-2)"))
+    return out
+
+
+def ring_integrity(eng) -> dict:
+    """(b) 64 ViT-B/16 batches of 1..8 distinct seeded rows (all padded to
+    bucket 8), each first through ``predict`` alone, then all dispatched
+    back to back at depth 2 from two threads: every result bit-identical
+    to its own serial one (a static-buffer race would mix batches), and
+    the staging pool within its limit per key."""
+    import threading
+
+    rng = np.random.RandomState(22)
+    batches = [rng.rand(1 + i % B, *eng.input_shape).astype(np.float32) for i in range(64)]
+    serial = [eng.predict(x) for x in batches]
+    handles = [None] * len(batches)
+
+    def feed(first: int) -> None:
+        for i in range(first, len(batches), 2):
+            handles[i] = eng.dispatch((batches[i],))
+
+    threads = [threading.Thread(target=feed, args=(t,)) for t in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("ring integrity: a dispatching thread did not finish in 120 s")
+    bad = [i for i, h in enumerate(handles)
+           if not np.array_equal(h.future.result(120), serial[i])]
+    wall = time.perf_counter() - t0
+    for _ in range(100):  # the fetch thread releases just after resolving
+        stats = eng.staging_stats()
+        if not stats["in_use"]:
+            break
+        time.sleep(0.01)
+    keys = 2  # the bf16 input (8, 224, 224, 3) and the f32 output (8, 1000)
+    log(f"  (b) ring integrity: {len(batches)} batches from 2 threads in {wall:.3f} s at "
+        f"depth {eng.pipeline_depth}, {len(batches) - len(bad)} bit-identical to their "
+        f"serial forwards; staging {stats}")
+    if bad:
+        raise AssertionError(f"ring integrity: batches {bad} differ from their serial forwards")
+    if stats["allocated"] > keys * stats["limit"] or stats["in_use"]:
+        raise AssertionError(f"ring integrity: staging pool {stats} over its limit per key")
+    return {"batches": len(batches), "wall_s": wall, "staging": stats}
+
+
+def device_busy(torch, fn) -> dict:
+    """``fn()`` under ``torch.profiler``: the wall time, and the share of
+    it the card was busy (the union of every device activity's interval:
+    kernels, copies, sets) and busy with kernels alone. Device activity
+    only: recording every host op too would slow the host it measures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def union(spans):
+        total, end = 0.0, -math.inf
+        for s, e in sorted(spans):
+            if e > end:
+                total += e - max(s, end)
+                end = e
+        return total
+
+    dev = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+           if ev.device_type == DeviceType.CUDA]
+    busy = union([(s, e) for s, e, _ in dev])
+    kern = union([(s, e) for s, e, n in dev if "Memcpy" not in n and "Memset" not in n])
+    return {"wall_ms": wall_us / 1e3, "busy_share": busy / wall_us,
+            "idle_share": 1 - busy / wall_us, "kernel_share": kern / wall_us}
+
+
+def burst(eng, xs) -> dict:
+    """``xs`` through ``dispatch`` back to back from one thread, then every
+    result: batches a second, and the substages' medians (the serialized
+    path, depth 0, times no substages: None)."""
+    t0 = time.perf_counter()
+    handles = [eng.dispatch((x,)) for x in xs]
+    for h in handles:
+        h.future.result(120)
+    wall = time.perf_counter() - t0
+    med = {k: float(np.median([h.timings[k] for h in handles])) if eng.pipeline_depth
+           else None for k in ("h2d_ms", "compute_ms", "d2h_ms")}
+    return {"batches_per_s": len(xs) / wall, **med}
+
+
+def timings(torch, engines: dict, card: str) -> dict:
+    """(c) Information only. Per size, a depth-0 and a depth-2 engine in
+    turns (0, 2, 2, 0) over the same distinct seeded batches; then one
+    profiled burst each for the card's busy and idle share; the forward by
+    graph replay (device time) against eager (wall, host included); the
+    graph build's peak bytes."""
+    from storm_tpu_torch.infer.graphs import eager_ms, replay_ms
+
+    rng = np.random.RandomState(23)
+    out = {}
+    for size, (e0, e2, rows) in engines.items():
+        xs = [rng.rand(rows, *e2.input_shape).astype(np.float32) for _ in range(BURSTS[size])]
+        for e in (e0, e2):
+            burst(e, xs[:10])  # first use of the pools and the pinned buffers
+        turns = [(d, burst(e, xs)) for d, e in ((0, e0), (2, e2), (2, e2), (0, e0))]
+        prof = {d: device_busy(torch, lambda e=e: burst(e, xs[:20]))
+                for d, e in ((0, e0), (2, e2))}
+        bucket = e2.graph_for(rows)
+        res = {"turns": [{"depth": d, **t} for d, t in turns], "profiled": prof,
+               "replay_ms": replay_ms(bucket), "eager_ms": eager_ms(bucket),
+               "graph_build_peak_bytes": e2.graph_pool_bytes}
+        out[size] = res
+        for d, t in turns:
+            log(f"  (c) {size} depth {d}: {t['batches_per_s']:.3f} batches/s"
+                + (f"; medians h2d {t['h2d_ms']:.4f} ms, compute {t['compute_ms']:.4f} ms, "
+                   f"d2h {t['d2h_ms']:.4f} ms" if d else ""))
+        for d, p in prof.items():
+            log(f"  (c) {size} depth {d}, 20 batches under the profiler: {p['wall_ms']:.3f} "
+                f"ms, card busy {p['busy_share']:.4f} (kernels {p['kernel_share']:.4f}), "
+                f"idle {p['idle_share']:.4f}")
+        log(f"  (c) {size}: forward by graph replay {res['replay_ms']:.4f} ms (device), eager "
+            f"{res['eager_ms']:.4f} ms (wall, host included); graph build peak "
+            f"{res['graph_build_peak_bytes'] / 1e6:.3f} MB; on {card}")
+    return out
+
+
+async def stream_quarantine(model_cfg, batch_cfg, x: np.ndarray, inj):
+    """The lenet5 1/1/1 topology with two held batches: the watchdog fails
+    them, the second trip quarantines the engine, the operator swaps in a
+    replacement, and the spout's replays carry every record through."""
+    from storm_tpu_torch.config import Config, OffsetsConfig, SinkConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+
+    broker = MemoryBroker(default_partitions=1)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None)))
+    tb.set_bolt("inference-bolt", InferenceBolt(model_cfg, batch_cfg, device="cuda")) \
+        .shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", SinkConfig(mode="sync"))) \
+        .shuffle_grouping("inference-bolt")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("quarantine", Config(), tb.build())
+    bolt = rt.bolt_execs["inference-bolt"][0].bolt
+    first = bolt.engine
+    inj.configure(engine_hang_ms=200.0, engine_hang_next=2)
+    for img in x:
+        broker.produce("input", json.dumps({"instances": [img.tolist()]}), partition=0)
+    deadline = time.monotonic() + 120
+    while broker.topic_size("output") < len(x):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"quarantine stream: {broker.topic_size('output')}/{len(x)} "
+                               f"out in 120 s")
+        await asyncio.sleep(0.01)
+    await rt.drain(timeout_s=60)
+    snap = rt.metrics.snapshot()
+    errors = list(rt.errors)
+    outs = broker.drain_topic("output")
+    await cluster.shutdown()
+    return first, bolt.engine, snap, errors, outs
+
+
+def watchdog_quarantine(torch) -> dict:
+    """(d) watchdog_ms=50 with the chaos injector holding batches 200 ms."""
+    import logging
+
+    from storm_tpu_torch.api.schema import decode_predictions
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.data import load_digits_nhwc
+    from storm_tpu_torch.infer.engine import (EngineQuarantined, EngineWatchdogTimeout,
+                                              clear_engines, live_engines, shared_engine)
+    from storm_tpu_torch.resilience import get_injector
+
+    cfg = digits_config("lenet5_digits", "int8_fused")
+    bcfg = BatchConfig(max_batch=32, max_wait_ms=5.0, buckets=DIGITS_BUCKETS, max_inflight=1,
+                       watchdog_ms=50.0, watchdog_trips=2)
+    x = load_digits_nhwc(cfg.input_shape)[2][:128]
+    inj = get_injector()
+
+    def trips(eng, n: int) -> None:
+        inj.configure(engine_hang_ms=200.0, engine_hang_next=n)
+        for _ in range(n):
+            try:
+                eng.dispatch((x[:8],)).future.result(10)
+            except EngineWatchdogTimeout:
+                continue
+            raise AssertionError("a held batch did not trip the watchdog")
+
+    def settled(eng) -> dict:
+        # The fetch thread releases a batch's slot and buffers just after
+        # resolving its future.
+        for _ in range(100):
+            stats = eng.staging_stats()
+            if eng.ring_inflight == 0 and stats["in_use"] == 0:
+                return stats
+            time.sleep(0.01)
+        raise AssertionError(f"ring {eng.ring_inflight} or staging {eng.staging_stats()} "
+                             f"not released")
+
+    clear_engines()
+    eng = shared_engine(cfg, bcfg, device="cuda")
+    eng.warmup()
+    trips(eng, 1)
+    if eng.dispatch((x[:8],)).future.result(10).shape != (8, 10) or eng.quarantined:
+        raise AssertionError("the batch after a trip did not succeed")
+    stats = settled(eng)
+    log(f"  (d) one held batch failed with EngineWatchdogTimeout, the next succeeded; "
+        f"ring in flight {eng.ring_inflight}, staging {stats}")
+    trips(eng, 2)
+    for _ in range(200):  # the fetch thread quarantines just after the future fails
+        if eng.quarantined and not any(e is eng for e in live_engines()):
+            break
+        time.sleep(0.01)
+    if not eng.quarantined:
+        raise AssertionError("two consecutive trips did not quarantine the engine")
+    try:
+        eng.dispatch((x[:8],))
+    except EngineQuarantined:
+        pass
+    else:
+        raise AssertionError("a quarantined engine accepted a dispatch")
+    if any(e is eng for e in live_engines()):
+        raise AssertionError("the quarantined engine is still in the cache")
+    fresh = shared_engine(cfg, bcfg, device="cuda")
+    if fresh is eng or fresh.quarantined or fresh.predict(x[:8]).shape != (8, 10):
+        raise AssertionError("shared_engine did not build a working replacement")
+    settled(eng)
+    log("  (d) two held batches quarantined the engine: dispatch raises EngineQuarantined, "
+        "it left the cache, shared_engine built a replacement that serves")
+
+    clear_engines()
+    quiet = logging.getLogger("storm_tpu_torch.cluster")
+    level = quiet.level
+    quiet.setLevel(logging.CRITICAL)  # one ERROR line a failed batch, by design
+    try:
+        first, final, snap, errors, outs = asyncio.run(stream_quarantine(cfg, bcfg, x, inj))
+    finally:
+        quiet.setLevel(level)
+        inj.configure(engine_hang_ms=0.0, engine_hang_next=0)
+    preds = np.concatenate([decode_predictions(r.value).data for r in outs])
+    direct = np.concatenate([final.predict(x[i:i + 32]) for i in range(0, len(x), 32)])
+    nearest = np.abs(preds[:, None, :] - direct[None, :, :]).max(axis=2).min(axis=1)
+    kinds = {}
+    for _, _, e in errors:
+        kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+    spout, infer = snap["kafka-spout"], snap["inference-bolt"]
+    dups = len(outs) - len(x)
+    log(f"  (d) 1/1/1 lenet5 stream of {len(x)} records with 2 held batches: "
+        f"{len(outs)} predictions out ({dups} duplicates), spout acked "
+        f"{spout.get('tree_acked', 0)}, failed {spout.get('tree_failed', 0)} (replayed); "
+        f"errors {kinds}; watchdog_trips {infer.get('watchdog_trips', 0)}, "
+        f"engine_quarantined {infer.get('engine_quarantined')}; replacement swapped in "
+        f"{final is not first}; max distance of an output to its nearest direct "
+        f"prediction {nearest.max():.2e}")
+    if final is first or final.quarantined or not first.quarantined:
+        raise AssertionError("the operator did not swap a replacement in")
+    if spout.get("tree_acked", 0) != len(x) or dups < 0:
+        raise AssertionError(f"records lost: {spout.get('tree_acked', 0)} acked, "
+                             f"{len(outs)} out of {len(x)}")
+    if infer.get("watchdog_trips", 0) != 2 or infer.get("engine_quarantined") != 0:
+        raise AssertionError(f"operator metrics wrong: {infer}")
+    if nearest.max() > TRANSPORT_TOL["int8_fused"]:
+        raise AssertionError(f"an output matches no direct prediction: {nearest.max()}")
+    return {"records": len(x), "out": len(outs), "duplicates": dups,
+            "replayed": spout.get("tree_failed", 0), "errors": kinds}
+
+
+def cold_bucket(eng) -> dict:
+    """(e) A batch larger than max_batch captures a graph of its own once,
+    and on_compile fires once for it."""
+    compiles = []
+    eng.on_compile = lambda padded, ms: compiles.append((padded, ms))
+    rows = eng.batch_cfg.max_batch + 8
+    rng = np.random.RandomState(24)
+    x1, x2 = (rng.rand(rows, *eng.input_shape).astype(np.float32) for _ in range(2))
+    got = [eng.predict(x1), eng.predict(x2)]
+    bucket = eng.graph_for(rows)
+    log(f"  (e) cold bucket: {rows} rows > max_batch {eng.batch_cfg.max_batch}: on_compile "
+        f"fired {[(p, round(ms, 3)) for p, ms in compiles]}; {bucket.replays} replays of "
+        f"its graph; replay equal to eager "
+        f"{np.array_equal(got[0], eng.predict_eager(x1))}")
+    if [p for p, _ in compiles] != [rows] or bucket.replays != 2 or bucket.graph is None:
+        raise AssertionError(f"cold bucket: compiles {compiles}, replays {bucket.replays}")
+    if not np.array_equal(got[0], eng.predict_eager(x1)):
+        raise AssertionError("cold bucket: replay differs from eager")
+    return {"rows": rows, "capture_ms": compiles[0][1]}
+
+
+def split_phase(torch, card: str) -> dict:
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.infer.engine import InferenceEngine, clear_engines
+
+    clear_engines()
+    vit = vit_b16_config()
+    engines = {"vit_b16 bf16 int8_fused": InferenceEngine(
+        vit, BatchConfig(max_batch=B, buckets=(B,)), device="cuda")}
+    for tag in ("lenet5_digits", "resnet20_digits", "vit_tiny_digits"):
+        for mode in ("bf16", "uint8_wire"):
+            engines[f"{tag} {mode}"] = InferenceEngine(
+                digits_config(tag, mode), BatchConfig(max_batch=32, buckets=DIGITS_BUCKETS),
+                device="cuda")
+    parity = graph_parity(torch, engines)
+    vit2 = engines["vit_b16 bf16 int8_fused"]
+    ring = ring_integrity(vit2)
+    tiny = digits_config("vit_tiny_digits", "bf16")
+    sized = {
+        "vit_b16 B=8": (InferenceEngine(vit, BatchConfig(max_batch=B, buckets=(B,),
+                                                         pipeline_depth=0), device="cuda"),
+                        vit2, B),
+        "vit_tiny B=64": tuple(InferenceEngine(tiny, BatchConfig(
+            max_batch=SLICE, buckets=(SLICE,), pipeline_depth=d), device="cuda")
+            for d in (0, 2)) + (SLICE,)}
+    for e0, e2, rows in sized.values():
+        e0.warmup()
+        e2.warmup()
+    times = timings(torch, sized, card)
+    cold = cold_bucket(engines["vit_tiny_digits bf16"])
+    watchdog = watchdog_quarantine(torch)
+    return {"parity": parity, "ring": ring, "timings": times, "watchdog": watchdog,
+            "cold_bucket": cold}
+
+
 def run() -> int:
     import torch
 
@@ -913,6 +1358,9 @@ def run() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The plain bf16 dense layer is one bf16 GEMM that must accumulate in
+    # f32 (ops/layers.py:dense): no split-K partial sums in bf16.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = nvidia_smi()
 
     log(f"[1] environment: {card}; torch {torch.__version__}, CUDA "
@@ -944,6 +1392,11 @@ def run() -> int:
 
     log("[6] trained checkpoints: lenet5, lenet5_rgb, resnet20, vit_tiny on the digits")
     digits = trained_checkpoints(torch, rows, card)
+
+    log("[7] the split-phase engine: graph parity, ring integrity, timings, watchdog, "
+        "cold bucket")
+    split = split_phase(torch, card)
+    log(json.dumps({"split_phase": split, "card": card}))
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",

@@ -13,7 +13,10 @@ from typing import Optional
 class BatchConfig:
     """Micro-batching policy for the inference operator: dispatch when
     ``max_batch`` instances wait or the oldest has waited ``max_wait_ms``;
-    pad to the smallest of ``buckets`` that fits."""
+    pad to the smallest of ``buckets`` that fits. The engine's fields
+    (``pipeline_depth`` to ``watchdog_trips``) are storm_tpu's; its
+    ``continuous``, ``starvation_rounds`` and ``frame_egress`` belong to
+    modules the port does not have yet."""
 
     max_batch: int = 256
     max_wait_ms: float = 5.0
@@ -21,6 +24,28 @@ class BatchConfig:
     buckets: tuple = (8, 32, 128, 256)
     # Batches in flight per operator instance.
     max_inflight: int = 2
+    # Work-conserving dispatch: flush the pending batch whenever an
+    # in-flight slot is free instead of waiting out max_wait_ms (the
+    # deadline still bounds the wait under load).
+    eager: bool = False
+    # Split-phase engine: batches allowed inside the ENGINE between
+    # dispatch (stage -> host-to-device copy -> graph replay) and fetch
+    # (the device-to-host copy waited on by the engine's fetch thread), so
+    # batch N+1's copy to the card overlaps batch N's compute. 0 restores
+    # the serialized predict. Bounds batches per shared engine across all
+    # operator tasks (``max_inflight`` bounds them per task).
+    pipeline_depth: int = 2
+    # Pinned host staging buffers per (shape, dtype); each in-flight batch
+    # holds its buffers from dispatch until its fetch completes.
+    # 0 = pipeline_depth + 1, so a dispatch never waits on a recycling fetch.
+    staging_pool: int = 0
+    # Per-batch deadline on the fetch side: a batch whose result is not
+    # ready this many ms after launch fails alone (EngineWatchdogTimeout)
+    # and releases its ring slot and staging buffers. 0 = off.
+    watchdog_ms: float = 0.0
+    # Consecutive watchdog trips that quarantine the engine (it leaves the
+    # shared-engine cache and refuses dispatches). 0 = never.
+    watchdog_trips: int = 3
 
     def __post_init__(self) -> None:
         if int(self.max_batch) < 1:
@@ -28,6 +53,18 @@ class BatchConfig:
         if int(self.max_inflight) < 1:
             raise ValueError(
                 f"batch.max_inflight must be >= 1, got {self.max_inflight!r}")
+        if float(self.watchdog_ms) < 0:
+            raise ValueError(
+                f"batch.watchdog_ms must be >= 0, got {self.watchdog_ms!r}")
+        if int(self.watchdog_trips) < 0:
+            raise ValueError(
+                f"batch.watchdog_trips must be >= 0, got {self.watchdog_trips!r}")
+        if int(self.pipeline_depth) < 0:
+            raise ValueError(
+                f"batch.pipeline_depth must be >= 0, got {self.pipeline_depth!r}")
+        if int(self.staging_pool) < 0:
+            raise ValueError(
+                f"batch.staging_pool must be >= 0, got {self.staging_pool!r}")
         self.buckets = tuple(sorted(set(int(b) for b in self.buckets)))
         if not self.buckets:
             self.buckets = (self.max_batch,)

@@ -159,11 +159,13 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int S, float scale, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<D>();
-  // Above 48 KB (D = 128) dynamic shared memory must be opted into.
-  cudaError_t err = cudaFuncSetAttribute(
+  // Above 48 KB (D = 128) dynamic shared memory must be opted into, once per
+  // process: the call is not one a CUDA graph capture may record, so a
+  // launch captured after a first (eager) launch makes none.
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((S + BQ - 1) / BQ, BH);
   flash_kernel<T, D><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -22,6 +22,8 @@ class BatchItem:
     payload: Any  # opaque per-record context (the runtime tuple)
     data: np.ndarray  # (n_i, *instance_shape)
     ts: float  # deadline clock: root (append) time when known
+    # batcher-entry time: what the operator's batch_wait_ms is measured from
+    enq: float = 0.0
 
 
 @dataclass
@@ -69,8 +71,8 @@ class MicroBatcher:
         flushed: Optional[Batch] = None
         if self._count and self._count + n > self.cfg.max_batch:
             flushed = self._take()
-        self._items.append(BatchItem(payload, data, ts if ts is not None
-                                     else time.perf_counter()))
+        now = time.perf_counter()
+        self._items.append(BatchItem(payload, data, ts if ts is not None else now, now))
         self._count += n
         if self._count >= self.cfg.max_batch and flushed is None:
             return self._take()

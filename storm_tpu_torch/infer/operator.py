@@ -1,19 +1,30 @@
 """The inference operator, the counterpart of ``storm_tpu/infer/operator.py``
-without QoS, cascades, record frames, continuous batching and tracing.
+on its split-phase path. Still trimmed from it: QoS lanes and shedding,
+cascades, record frames and chunked tuples, continuous batching, tracing
+and the flight recorder, the copy ledger, and ``swap_model``.
 
 Per tuple: decode the ``{"instances": ...}`` payload and check it against
 the model's input shape — a failure emits a :class:`DeadLetter` on the
 ``dead_letter`` stream and acks (replaying poison can never succeed); feed
-the micro-batcher; a full batch, or the deadline, dispatches to the shared
-engine on a worker thread, so the event loop keeps consuming while the
-card computes; when the batch returns, emit one ``{"predictions": ...}``
-tuple per record, anchored to it, and ack. A failed batch fails every tuple
-in it, which the spout replays.
+the micro-batcher; a full batch, the deadline, or (with ``eager``) a free
+dispatch slot sends the batch to the shared engine's ``dispatch`` on a
+worker thread (it may park on the engine's ring), and the batch's future
+resolves from the engine's fetch thread, so the event loop keeps consuming
+while the card computes. Then one ``{"predictions": ...}`` tuple per
+record, anchored to it, and the ack. A failed batch fails every tuple in
+it, which the spout replays.
+
+When the engine's watchdog quarantines it, the operator records it and
+rebuilds a fresh engine through ``shared_engine`` on a background thread,
+swapping it in once warm; batches dispatched meanwhile fail fast
+(``EngineQuarantined``) and replay.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
+import threading
 import time
 from typing import Optional, Set
 
@@ -21,41 +32,112 @@ from storm_tpu_torch.api.schema import (
     DeadLetter, SchemaError, decode_instances, encode_predictions)
 from storm_tpu_torch.config import BatchConfig, ModelConfig
 from storm_tpu_torch.infer.batcher import Batch, MicroBatcher
-from storm_tpu_torch.infer.engine import shared_engine
+from storm_tpu_torch.infer.engine import DEVICE_SUBSTAGES, shared_engine
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, TopologyContext
 from storm_tpu_torch.runtime.tuples import Tuple, Values
+
+logger = logging.getLogger(__name__)
 
 
 class InferenceBolt(Bolt):
     """``device``: where the shared engine runs (default ``cuda``; pass
-    ``"cpu"`` for the CPU)."""
+    ``"cpu"`` for the CPU). ``engine``: an engine to use instead of the
+    shared one (e.g. a ``NullEngine``); ``warmup=False`` skips building
+    the buckets before traffic."""
 
     def __init__(self, model: Optional[ModelConfig] = None,
-                 batch: Optional[BatchConfig] = None, device=None) -> None:
+                 batch: Optional[BatchConfig] = None, device=None,
+                 engine=None, warmup: bool = True) -> None:
         self.model_cfg = model or ModelConfig()
         self.batch_cfg = batch or BatchConfig()
         self.device = device
+        self._engine = engine
+        self._warmup = warmup
 
     def clone(self) -> "InferenceBolt":
-        return InferenceBolt(self.model_cfg, self.batch_cfg, self.device)
+        return InferenceBolt(self.model_cfg, self.batch_cfg, self.device,
+                             self._engine, self._warmup)
 
     def declare_output_fields(self):
         return {"default": ("message",), "dead_letter": ("message",)}
 
+    def _shared_engine(self):
+        return shared_engine(self.model_cfg, self.batch_cfg, device=self.device)
+
+    def prewarm(self) -> None:
+        """Build and warm the engine off the event loop before this task
+        receives traffic, so a cold build rides neither the loop nor live
+        tuples; ``prepare`` then skips its warm-up. An engine given at
+        construction is kept."""
+        self._engine = self._engine or self._shared_engine()
+        if self._warmup:
+            self._engine.warmup()
+        self._prewarmed = True
+
     def prepare(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().prepare(context, collector)
         # One engine per model per process: the tasks share its weights.
-        self.engine = shared_engine(self.model_cfg, self.batch_cfg, device=self.device)
-        self.engine.warmup()
+        self.engine = self._engine or self._shared_engine()
+        if self._warmup and not getattr(self, "_prewarmed", False):
+            self.engine.warmup()
         self.batcher = MicroBatcher(self.batch_cfg)
         self._flush_task: Optional[asyncio.Task] = None
         self._inflight: Set[asyncio.Task] = set()
-        self._dispatch_sem = asyncio.Semaphore(self.batch_cfg.max_inflight)
+        self._dispatch_sem = asyncio.Semaphore(max(1, self.batch_cfg.max_inflight))
+        self._eager = self.batch_cfg.eager
+        # Eager dispatches created but not yet through the semaphore:
+        # locked() alone is optimistic (the task acquires a tick later), and
+        # two same-tick arrivals would otherwise each ship a tiny batch.
+        self._eager_pending = 0
         m, cid = context.metrics, context.component_id
         self._m_batch = m.histogram(cid, "batch_size")
         self._m_device_ms = m.histogram(cid, "device_ms")
         self._m_dead = m.counter(cid, "dead_lettered")
         self._m_infer = m.counter(cid, "instances_inferred")
+        # Where a record's time goes before the device: in the batcher,
+        # then waiting for a dispatch slot (max_inflight).
+        self._m_batch_wait = m.histogram(cid, "batch_wait_ms")
+        self._m_disp_wait = m.histogram(cid, "dispatch_wait_ms")
+        # Fragmentation: rows / padded bucket, and sources per batch.
+        self._m_fill = m.histogram(cid, "batch_fill")
+        self._m_coalesced = m.counter(cid, "coalesced_sources")
+        # The engine's substages; together they decompose device_ms.
+        self._m_substage = {key: m.histogram(cid, key) for key, _ in DEVICE_SUBSTAGES}
+        # Quarantine -> replacement (batch.watchdog_trips).
+        self._m_quarantined = m.gauge(cid, "engine_quarantined")
+        self._m_wd_trips = m.counter(cid, "watchdog_trips")
+        try:
+            self.engine.on_quarantine = self._engine_quarantined
+        except AttributeError:
+            pass  # a slotted test double
+
+    # ---- quarantine -> replacement -------------------------------------------
+
+    def _engine_quarantined(self, trips: int) -> None:
+        """The engine's watchdog callback (fires once, on its fetch
+        thread): record the quarantine, then build and warm a replacement
+        off-thread and swap it in. The quarantined engine left the shared
+        cache, so ``shared_engine`` builds a fresh one."""
+        self._m_quarantined.set(1)
+        self._m_wd_trips.inc(trips)
+        old = self.engine
+
+        def rebuild() -> None:
+            try:
+                eng = self._shared_engine()
+                if self._warmup:
+                    eng.warmup()
+                eng.on_compile = old.on_compile
+                eng.on_quarantine = self._engine_quarantined
+                self.engine = eng
+                self._m_quarantined.set(0)
+            except Exception:
+                logger.exception("replacement engine build failed; the component stays "
+                                 "quarantined (batches fail fast and replay)")
+
+        threading.Thread(target=rebuild, name="engine-replace", daemon=True).start()
+
+    # ---- ingest --------------------------------------------------------------
 
     async def execute(self, t: Tuple) -> None:
         payload = t.get("message")
@@ -85,9 +167,27 @@ class InferenceBolt(Bolt):
         self.collector.ack(t)
 
     def _kick_flush(self) -> None:
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return  # the loop is torn down (shutdown race)
+        if self._eager and len(self.batcher) and not self._dispatch_sem.locked() \
+                and not self._eager_pending:
+            # Work-conserving: a device slot is free and records wait —
+            # dispatch now rather than age toward the deadline. Under load
+            # every slot is busy, and batches fill while they queue.
+            batch = self.batcher.take_all()
+            self._eager_pending += 1
+            task = loop.create_task(self._dispatch(batch))
+            self._inflight.add(task)
+            task.add_done_callback(self._inflight.discard)
+            # Decrement when the task finishes, however it finishes: a
+            # cancel before its first step never enters _dispatch.
+            task.add_done_callback(
+                lambda _t: setattr(self, "_eager_pending", self._eager_pending - 1))
+            return
         if len(self.batcher) and (self._flush_task is None or self._flush_task.done()):
-            self._flush_task = asyncio.get_running_loop().create_task(
-                self._deadline_flush())
+            self._flush_task = loop.create_task(self._deadline_flush())
 
     async def _deadline_flush(self) -> None:
         """Runs while records are pending; exits when the batcher drains
@@ -105,19 +205,38 @@ class InferenceBolt(Bolt):
                 batch = self.batcher.take_ready()
 
     async def _dispatch(self, batch: Batch) -> None:
+        t0 = time.perf_counter()
+        # Observed before the semaphore, so batch_wait and dispatch_wait
+        # partition the clock.
+        for it in batch.items:
+            if it.enq:
+                self._m_batch_wait.observe((t0 - it.enq) * 1e3)
         await self._dispatch_sem.acquire()
+        self._m_disp_wait.observe((time.perf_counter() - t0) * 1e3)
         task = asyncio.get_running_loop().create_task(self._run_batch(batch))
         self._inflight.add(task)
         task.add_done_callback(self._inflight.discard)
 
     async def _run_batch(self, batch: Batch) -> None:
+        engine = self.engine
         try:
             t0 = time.perf_counter()
-            handle = await asyncio.to_thread(self.engine.dispatch, batch.parts())
+            # The dispatch phase on a worker thread (it can park on the
+            # engine's ring); the future resolves from the fetch thread.
+            # The semaphore stays held for the whole round trip, so
+            # max_inflight and the deferred acks keep their meaning.
+            handle = await asyncio.to_thread(engine.dispatch, batch.parts())
             out = await asyncio.wrap_future(handle.future)
-            self._m_device_ms.observe((time.perf_counter() - t0) * 1e3)
+            t1 = time.perf_counter()
+            self._m_device_ms.observe((t1 - t0) * 1e3)
+            for key, _ in DEVICE_SUBSTAGES:
+                if key in handle.timings:
+                    self._m_substage[key].observe(handle.timings[key])
             self._m_batch.observe(batch.size)
             self._m_infer.inc(batch.size)
+            padded = handle.padded or self.batch_cfg.bucket_for(batch.size)
+            self._m_fill.observe(batch.size / max(padded, 1))
+            self._m_coalesced.inc()  # a per-task batch has one source
             for item, preds in batch.split(out):
                 await self.collector.emit(Values([encode_predictions(preds)]),
                                           anchors=[item])
@@ -129,10 +248,13 @@ class InferenceBolt(Bolt):
                 self.collector.fail(item.payload)
         finally:
             self._dispatch_sem.release()
+            # A slot is free: eagerly pull whatever queued meanwhile.
+            self._kick_flush()
 
     async def flush(self) -> None:
         """Drain: dispatch whatever is pending and wait for in-flight
-        batches, so a graceful stop never strands acks."""
+        batches (the engine's ring included), so a graceful stop never
+        strands acks."""
         batch = self.batcher.take_all()
         if batch is not None:
             await self._dispatch(batch)

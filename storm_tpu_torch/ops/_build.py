@@ -11,6 +11,15 @@ Every pointer and the stream cross as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` after its launch, and :meth:`Kernel.launch` raises
 when that is not 0 — a refused launch never runs, and a later
 ``synchronize`` would not report it.
+
+Two counts of launches. ``Kernel.launches`` (:func:`launch_counts`) counts
+the wrapper's eager launches, process-wide: what ``kernel_sweep.py`` and
+``chip_smoke.py``'s kernel phase read. A launch made while a CUDA graph is
+being captured only records the kernel into the graph, so it is not
+counted there; :func:`record_launches` gives the capturing thread the
+kernels its capture recorded, and the inference engine tallies those per
+replay (``InferenceEngine.launch_tally``), beside the launches of its own
+eager forwards. The served paths' launch gates read that tally.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -36,6 +46,23 @@ NVCC_FLAGS = (
 )
 # Element-type codes of the C entries (csrc/common.cuh DTYPE_*).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The calling thread's launch recorder (record_launches).
+_RECORDER = threading.local()
+
+
+@contextlib.contextmanager
+def record_launches(capturing: bool = False):
+    """Count, by kernel name, the launches this thread makes inside the
+    block. With ``capturing`` the block is a CUDA graph capture: its
+    launches are recorded into the graph, not run, so they stay out of
+    ``Kernel.launches`` (each replay runs them; its caller tallies them)."""
+    counts: Counter = Counter()
+    prev = getattr(_RECORDER, "state", None)
+    _RECORDER.state = (counts, capturing)
+    try:
+        yield counts
+    finally:
+        _RECORDER.state = prev
 
 
 def find_nvcc() -> str:
@@ -58,9 +85,11 @@ def find_nvcc() -> str:
 class Kernel:
     """One CUDA source with a C entry point, built on demand.
 
-    ``launches`` counts successful launches of the kernel, and nothing
-    else: the wrappers in ``storm_tpu_torch.ops`` call :meth:`launch` only
-    where they run the kernel, never on their CPU (plain) path.
+    ``launches`` counts successful eager launches of the kernel, and
+    nothing else: the wrappers in ``storm_tpu_torch.ops`` call
+    :meth:`launch` only where they run the kernel, never on their CPU
+    (plain) path, and a launch inside a graph capture is left to the
+    capture's recorder (:func:`record_launches`).
     """
 
     def __init__(self, name: str, source: str, argtypes: Sequence,
@@ -140,7 +169,11 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError_t {rc}")
-        self.launches += 1
+        state = getattr(_RECORDER, "state", None)
+        if state is not None:
+            state[0][self.name] += 1
+        if state is None or not state[1]:
+            self.launches += 1
 
 
 P = ctypes.c_void_p

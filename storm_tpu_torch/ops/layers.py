@@ -22,10 +22,20 @@ from storm_tpu_torch.ops.quant_matmul import qdense
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ w + b``: accumulated in f32, cast to x.dtype, then the bias
-    added in x.dtype."""
+    added in x.dtype (``jnp.dot(..., preferred_element_type=float32)``).
+
+    On a CUDA tensor that is one GEMM in x.dtype, which cuBLAS accumulates
+    in f32 for bf16 as long as
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    is False (its default True lets split-K reduce partial sums in bf16;
+    ``chip_smoke.py`` sets it False beside the TF32 flags). On the CPU the
+    operands are cast to f32 first: its bf16 GEMM is not shown to
+    accumulate in f32."""
     w = p["w"]
     if isinstance(w, dict):
         return qdense(p, x)
+    if x.is_cuda and w.dtype == x.dtype:
+        return torch.matmul(x, w) + p["b"]
     return torch.matmul(x.float(), w.float()).to(x.dtype) + p["b"]
 
 

@@ -53,8 +53,11 @@ def test_importing_the_port_loads_no_jax():
         import os, pkgutil, importlib, sys
         sys.path.insert(0, {ROOT!r})
         import storm_tpu_torch
+        walked = []
         for m in pkgutil.walk_packages(storm_tpu_torch.__path__, "storm_tpu_torch."):
             importlib.import_module(m.name)
+            walked.append(m.name)
+        print("WALKED", sorted(walked))
         from storm_tpu_torch.config import BatchConfig, Config, ModelConfig
         from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
         from storm_tpu_torch.infer import InferenceBolt
@@ -77,3 +80,7 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    # the split-phase engine's modules are among those imported
+    for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
+                 "storm_tpu_torch.infer.operator", "storm_tpu_torch.resilience.chaos"):
+        assert repr(name) in out.stdout, name
