@@ -7,18 +7,23 @@ Phases, each raising on failure (the script then exits non-zero and prints
 no result):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
+   the package resolves the card (as every entry point does), which must
+   turn TF32 and bf16 reduced-precision reductions off: this script
+   asserts those flags and never sets them;
 2. build: every hand-written kernel from ``storm_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel);
 3. kernel parity: each kernel against its plain PyTorch version on the
    card, at the cases and tolerances of ``storm_tpu/ops/parity_checks.py``,
    at the same ragged shapes in bf16, and at the ViT-B/16 shapes (batch 8);
-   every kernel has two variants, its first version and its redesign for
+   at Mixer-S/16's token-MLP shapes (K or N = 196, a transposed view)
+   and its width 512; every kernel has two variants, its first version and its redesign for
    Hopper (``*_sm90``: w8a16 and flash attention on tensor cores for
    bfloat16, the first versions serving float32; the fused norm for both
    dtypes, its first version launched only by name), and every case checks
    which one it launched. Then each kernel variant, its plain version and
    a one-call PyTorch yardstick are timed with CUDA events over one
-   forward's worth of calls at the ViT-B/16 shapes;
+   forward's worth of calls at the ViT-B/16 shapes, and w8a16 and the
+   fused norm at Mixer-S/16's;
 4. forward parity: ViT-B/16 ``int8_fused`` with seeded weights, kernel path
    against plain path, in float32 (TF32 off) and bfloat16: logits within a
    relative bound, argmax identical (in bfloat16 on every row whose top-2
@@ -26,7 +31,13 @@ no result):
 5. main path: MemoryBroker -> 2x BrokerSpout -> 4x InferenceBolt -> 2x
    BrokerSink (+ dead-letter sink) serving ViT-B/16 bf16 ``int8_fused``
    through the default engine (pipeline depth 2, one CUDA graph per
-   bucket): 16 records and 1 poison record. The engine's launch tally
+   bucket), records decoded and encoded by the native codec: 16 records
+   and 1 poison record, every output record byte-identical to the native
+   encoding of the engine's direct forward of the batch it was served in;
+   the bolt's decode_ms and encode_ms, and the codec against the Python
+   reference on the same records, printed, then (information only) the
+   path's e2e latency with the Python codec in the bolt and with the
+   native one, in turns. The engine's launch tally
    (each replay counts its graph's kernels as its capture recorded them,
    the warm-up's eager forward its own) must be exactly forwards x 73
    w8a16, x 12 flash, x 12 fused norm on the ``*_sm90`` kernels and 0 on
@@ -34,8 +45,9 @@ no result):
    must show the warm-up's eager launches of those three and none of the
    others; one replay of each graph under ``torch.profiler`` must run the
    kernels its capture recorded;
-6. trained checkpoints: the four digits checkpoints exported to
-   ``checkpoints_torch/`` (lenet5, its 3-channel twin, resnet20, vit_tiny)
+6. trained checkpoints: the five digits checkpoints exported to
+   ``checkpoints_torch/`` (lenet5, its 3-channel twin, resnet20, vit_tiny,
+   moe_vit_tiny)
    in the modes bf16, int8, int8_fused and uint8_wire. The three kernels
    at this slice's shapes against their plain versions, and timed; each
    (checkpoint, mode) through ``InferenceEngine`` on the 449 held-out
@@ -61,7 +73,14 @@ no result):
    and ``shared_engine`` replacing it, and a lenet5 1/1/1 topology
    swapping the replacement in with every record through after replay;
    (e) a batch larger than ``max_batch`` capturing its own graph once;
-8. the ``{"kernels": [...]}`` line, then the card line, then the last line
+8. moe_vit_b16 bf16 ``int8_fused`` (seeded) served as in phase 5, its
+   launch tally exactly forwards x 61 w8a16, x 12 flash, x 6 fused norm;
+   then on the same engine the kernel path against the plain path, a
+   graph replay bit-identical to eager, the forward by replay timed with
+   our kernels' share from one profiled replay; 8b: mixer_s16,
+   mobilenetv2 and resnet50 at 224x224x3 the same way engine-direct at
+   B = 8 (33 w8a16 + 8 fused norms, and 1 w8a16, per forward);
+9. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -92,6 +111,8 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 B = 8  # ViT-B/16 batch of the timed shapes and of the main path's bucket
 SEQ, DIM, HEADS, HDIM, MLP, CLASSES, DEPTH = 197, 768, 12, 64, 3072, 1000, 12
 M = B * SEQ
+# Mixer-S/16 at 224x224: 196 tokens of width 512, token MLP 256, depth 8.
+MIXER_TOKENS, MIXER_DIM, MIXER_TOKEN_MLP, MIXER_DEPTH = 196, 512, 256, 8
 # bf16 forward parity: rows whose plain-path top-2 margin exceeds this many
 # bf16 ulps of the largest |logit| must keep their argmax.
 ARGMAX_ULPS = 4
@@ -106,6 +127,25 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
+def numeric_flags(torch) -> dict:
+    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+
+
+def assert_numeric_flags(torch, when: str) -> None:
+    """The arithmetic the gates hold is the package's own: every entry
+    point, resolving the card, turns TF32 and bf16 reduced-precision
+    reductions off (``storm_tpu_torch.device.set_numeric_flags``); this
+    script never sets them."""
+    flags = numeric_flags(torch)
+    if any(flags.values()):
+        raise AssertionError(f"{when}: numeric flags {flags}, the package must turn "
+                             f"all three off")
+    log(f"  numeric flags {when}: all off {sorted(flags)}")
 
 
 def rel_err(got, want) -> float:
@@ -258,7 +298,8 @@ def parity_cases(torch, rows: list) -> dict:
     for rows_n, d in [(6, 64), (300, 100), (1024, 768)]:
         norm_case(f"{rows_n}x{d}", randn(rows_n, d), randn(rows_n, d), randn(d), randn(d),
                   1e-5, 1e-4, "abs")
-    for rows_n, d in [(6, 64), (300, 100), (40, 512), (1024, 768)]:
+    for rows_n, d in [(6, 64), (300, 100), (40, 512), (MIXER_TOKENS * B, MIXER_DIM),
+                      (1024, 768)]:
         norm_case(f"{rows_n}x{d}_bf16", randn(rows_n, d, dtype=bf16),
                   randn(rows_n, d, dtype=bf16), randn(d), randn(d), 1e-2, 1e-2, "rel")
     x = randn(300 * 768 + 1, dtype=bf16)[1:].view(300, 768)
@@ -279,7 +320,11 @@ def parity_cases(torch, rows: list) -> dict:
             ("1x700@700x10_multichunk", (1, 700), 700, 10),
             ("64x768@768x3072", (64, 768), 768, 3072),
             # beyond parity_checks: many tiles with unaligned loads
-            ("2100x100@100x4100_bigtile", (2100, 100), 100, 4100)]:
+            ("2100x100@100x4100_bigtile", (2100, 100), 100, 4100),
+            # the mixers' token MLPs: K or N the token count (element loads)
+            ("mixer_s16_token_fc1 4096x196@196x256", (B * MIXER_DIM, 196), 196, 256),
+            ("mixer_s16_token_fc2 4096x256@256x196", (B * MIXER_DIM, 256), 256, 196),
+            ("mixer_tiny_token_fc1 512x64@64x32", (8 * 64, 64), 64, 32)]:
         for dt in (f32, bf16):
             x = randn(*xshape, dtype=dt)
             q, s = quantized(k, n)
@@ -288,6 +333,14 @@ def parity_cases(torch, rows: list) -> dict:
             got = launched(lambda: w8a16_matmul(x, q, s), variant)
             check(rows, variant, case + ("_bf16" if dt == bf16 else ""),
                   rel_err(got, want), 2e-2 if dt == bf16 else 1e-5, "rel")
+
+    # The mixer's token MLP reads a transposed, non-contiguous activation:
+    # the wrapper copies it once, then launches.
+    xt = randn(B, MIXER_TOKENS, MIXER_DIM, dtype=bf16).transpose(1, 2)
+    q, s = quantized(MIXER_TOKENS, 256)
+    got = launched(lambda: w8a16_matmul(xt, q, s), "w8a16_matmul_sm90")
+    check(rows, "w8a16_matmul_sm90", "mixer_s16 token fc1, transposed view",
+          rel_err(got, w8a16_matmul_reference(xt.contiguous().float(), q, s)), 2e-2, "rel")
 
     # The ViT-B/16 shapes (bf16, batch 8), each variant against the plain
     # version on the same bf16 inputs; bf16 tolerances: one rounding step
@@ -445,19 +498,114 @@ def time_kernels(torch) -> dict:
     return out
 
 
+def mixer_times(torch) -> dict:
+    """The kernels at Mixer-S/16's shapes (bf16, B = 8), one forward's
+    worth of calls each: w8a16 over the 8 token MLPs (M = 8 x 512 = 4096;
+    fc1 K = 196, N = 256; fc2 K = 256, N = 196: element loads) and the
+    fused norm over the 8 token-mixing residuals (1568 x 512, bf16 g and
+    b), against the plain version and the one-call library yardstick."""
+    import torch.nn.functional as F
+
+    from storm_tpu_torch.ops.fused_norm import (
+        fused_add_layernorm, fused_add_layernorm_reference)
+    from storm_tpu_torch.ops.quant_matmul import w8a16_matmul, w8a16_matmul_reference
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    m = B * MIXER_DIM
+    calls = []
+    for _ in range(MIXER_DEPTH):
+        for k, n in ((MIXER_TOKENS, MIXER_TOKEN_MLP), (MIXER_TOKEN_MLP, MIXER_TOKENS)):
+            calls.append((randn(m, k), torch.randint(-127, 128, (k, n), device="cuda",
+                                                     generator=g, dtype=torch.int8),
+                          torch.rand(n, device="cuda", generator=g) * 1e-2))
+    wdq = [q.to(bf16) for _, q, _ in calls]
+    bm, by = calls_bound([(tensor_bytes(x, q, s) + x.shape[0] * q.shape[1] * 2,
+                           2.0 * x.shape[0] * q.shape[0] * q.shape[1]) for x, q, s in calls],
+                         PEAK_BF16_FLOPS)
+    out = {"w8a16_matmul_sm90": {
+        "shapes": "mixer_s16 B=8 token MLP: 8 x (4096x196@196x256, 4096x256@256x196)",
+        "ms": time_ms(torch, lambda: [w8a16_matmul(*c) for c in calls]),
+        "plain_ms": time_ms(torch, lambda: [w8a16_matmul_reference(*c) for c in calls]),
+        "library_ms": time_ms(torch, lambda: [torch.matmul(c[0], w) * c[2]
+                                             for c, w in zip(calls, wdq)]),
+        "bound_ms": bm, "bound_by": by, "calls": len(calls)}}
+    rows_n = B * MIXER_TOKENS
+    norms = [(randn(rows_n, MIXER_DIM), randn(rows_n, MIXER_DIM), randn(MIXER_DIM),
+              randn(MIXER_DIM)) for _ in range(MIXER_DEPTH)]
+    bm, by = calls_bound([(tensor_bytes(x, r, gg, bb, x, x), 10.0 * x.numel())
+                          for x, r, gg, bb in norms], PEAK_F32_FLOPS)
+    out["residual_layernorm_sm90"] = {
+        "shapes": f"mixer_s16 B=8: 8 x ({rows_n}, {MIXER_DIM}), bf16 g and b",
+        "ms": time_ms(torch, lambda: [fused_add_layernorm(*c) for c in norms]),
+        "plain_ms": time_ms(torch, lambda: [fused_add_layernorm_reference(*c, 1e-6)
+                                           for c in norms]),
+        "library_ms": time_ms(torch, lambda: [F.layer_norm(x + r, (MIXER_DIM,), w, b, 1e-6)
+                                             for x, r, w, b in norms]),
+        "bound_ms": bm, "bound_by": by, "calls": len(norms)}
+    torch.cuda.synchronize()
+    for name, t in out.items():
+        log(f"  time {name:21s} per forward at {t['shapes']} ({t['calls']} calls, CUDA "
+            f"graph): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
 # ---- phase 4: forward parity --------------------------------------------------
 
 
+def kernel_vs_plain(torch, model, x, tol: float, label: str):
+    """``model(x)`` with the kernels against the same forward on their
+    plain versions: the logits within ``tol`` of the largest |logit|, and
+    the argmax identical. In float32 on every row; in bfloat16 on every
+    row whose top-2 margin on the plain path exceeds ARGMAX_ULPS bf16 ulps
+    of the batch's largest |logit|: with seeded random weights the top two
+    of 1000 logits can lie within one ulp, where the two paths' bf16
+    rounding alone may flip them, but a row above the threshold flips only
+    if a kernel moves its logits by ARGMAX_ULPS / 2 ulps or more, a fault
+    well inside the relative bound. At least one row must be above the
+    threshold. Returns (got, want) as float32."""
+    with torch.inference_mode():
+        got = model(x).float()
+        with plain_kernels():
+            want = model(x).float()
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    agree = got.argmax(-1) == want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    if x.dtype == torch.float32:
+        gated = torch.ones_like(agree)
+    else:
+        peak = want.abs().max().item()
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(math.log2(peak))
+        gated = margin > ARGMAX_ULPS * ulp
+        log(f"  bf16 argmax gate: top-2 margin > {ARGMAX_ULPS} ulps = "
+            f"{ARGMAX_ULPS * ulp:.4f} (max |logit| {peak:.4f})")
+    log(f"  forward {label} B={x.shape[0]}: max|dlogit|/max|logit| {err:.3e} (tol "
+        f"{tol:.0e}); argmax identical on {int((agree & gated).sum())}/{int(gated.sum())} "
+        f"gated rows ({int(agree.sum())}/{x.shape[0]} of all rows)")
+    for i in torch.nonzero(~agree).flatten().tolist():
+        log(f"    row {i}{' (gated)' if gated[i] else ''}: plain path's top-2 "
+            f"margin {margin[i].item():.4f}, max |dlogit| in the row "
+            f"{(got[i] - want[i]).abs().max().item():.4f}")
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"forward parity {label}: {err} > {tol}")
+    if not bool(gated.any()):
+        raise AssertionError(f"forward parity {label}: no row above the argmax gate")
+    if not bool(agree[gated].all()):
+        raise AssertionError(f"forward parity {label}: argmax differs on a gated row")
+    return got, want
+
+
 def forward_parity(torch) -> dict:
-    """Kernel path against plain path on one batch of 8, the logits held
-    to a relative bound, and the argmax held to agree. In float32 it must
-    agree on every row. In bfloat16 it must agree on every row whose top-2
-    margin on the plain path exceeds ARGMAX_ULPS bf16 ulps of the batch's
-    largest |logit|: with seeded random weights the top two of 1000 logits
-    can lie within one ulp, where the two paths' bf16 rounding alone may
-    flip them, but a row above the threshold flips only if a kernel moves
-    its logits by ARGMAX_ULPS / 2 ulps or more, a fault well inside the
-    relative bound. At least one row must be above the threshold."""
+    """ViT-B/16 int8_fused on one batch of 8, kernel path against plain
+    path (``kernel_vs_plain``) in float32 (TF32 off) and bfloat16; then
+    both paths timed eagerly in bfloat16."""
     from storm_tpu_torch.models import build_model
 
     x_np = np.random.RandomState(7).rand(B, 224, 224, 3).astype(np.float32)
@@ -466,42 +614,13 @@ def forward_parity(torch) -> dict:
         model = build_model("vit_b16", device="cuda", weights="int8_fused",
                             dtype=dtype, seed=0)
         x = torch.from_numpy(x_np).to(dtype).cuda()
-        with torch.inference_mode():
-            got = model(x).float()
-            with plain_kernels():
-                want = model(x).float()
-            if dtype == torch.bfloat16:
+        name = str(dtype).replace("torch.", "")
+        kernel_vs_plain(torch, model, x, tol, f"vit_b16 int8_fused {name}")
+        if dtype == torch.bfloat16:
+            with torch.inference_mode():
                 fwd_ms["kernels"] = eager_ms(torch, lambda: model(x))
                 with plain_kernels():
                     fwd_ms["plain"] = eager_ms(torch, lambda: model(x))
-        torch.cuda.synchronize()
-        err = rel_err(got, want)
-        name = str(dtype).replace("torch.", "")
-        agree = got.argmax(-1) == want.argmax(-1)
-        top2 = want.topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        if dtype == torch.float32:
-            gated = torch.ones_like(agree)
-        else:
-            peak = want.abs().max().item()
-            ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(math.log2(peak))
-            gated = margin > ARGMAX_ULPS * ulp
-            log(f"  bf16 argmax gate: top-2 margin > {ARGMAX_ULPS} ulps = "
-                f"{ARGMAX_ULPS * ulp:.4f} (max |logit| {peak:.4f})")
-        log(f"  forward vit_b16 int8_fused {name} B={B}: max|dlogit|/max|logit| "
-            f"{err:.3e} (tol {tol:.0e}); argmax identical on "
-            f"{int((agree & gated).sum())}/{int(gated.sum())} gated rows "
-            f"({int(agree.sum())}/{B} of all rows)")
-        for i in torch.nonzero(~agree).flatten().tolist():
-            log(f"    row {i}{' (gated)' if gated[i] else ''}: plain path's top-2 "
-                f"margin {margin[i].item():.4f}, max |dlogit| in the row "
-                f"{(got[i] - want[i]).abs().max().item():.4f}")
-        if not (err <= tol and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"forward parity {name}: {err} > {tol}")
-        if not bool(gated.any()):
-            raise AssertionError(f"forward parity {name}: no row above the argmax gate")
-        if not bool(agree[gated].all()):
-            raise AssertionError(f"forward parity {name}: argmax differs on a gated row")
         del model
     log(f"  forward vit_b16 int8_fused bfloat16 B={B}, eager, host overhead included: "
         f"kernel path {fwd_ms['kernels']:.3f} ms, plain path {fwd_ms['plain']:.3f} ms")
@@ -511,15 +630,19 @@ def forward_parity(torch) -> dict:
 # ---- phase 5: the main path ---------------------------------------------------
 
 
-async def serve(n_good: int = 16):
-    from storm_tpu_torch.config import BatchConfig, Config, ModelConfig, OffsetsConfig
+async def serve(model_cfg, n_good: int = 16):
+    """``model_cfg`` through MemoryBroker -> 2x BrokerSpout -> 4x
+    InferenceBolt -> 2x BrokerSink (+ dead-letter sink) on the default
+    engine: ``n_good`` seeded 224x224x3 records and one ragged poison
+    record. The shared engine's ``dispatch`` is wrapped to keep a copy of
+    every batch it is given, so each output can be held to the engine's
+    direct forward of the very batch it was served in."""
+    from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig
     from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
     from storm_tpu_torch.infer import InferenceBolt
     from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
 
     cfg = Config()
-    model_cfg = ModelConfig(name="vit_b16", dtype="bfloat16", weights="int8_fused",
-                            num_classes=CLASSES, input_shape=(224, 224, 3))
     batch_cfg = BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0)
     broker = MemoryBroker(default_partitions=2)
     tb = TopologyBuilder()
@@ -539,6 +662,15 @@ async def serve(n_good: int = 16):
 
     cluster = AsyncLocalCluster()
     rt = await cluster.submit("chip-smoke", cfg, tb.build())  # builds + warms the engine
+    engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+    batches = []
+    dispatch = engine.dispatch
+
+    def recording_dispatch(parts):
+        batches.append(np.concatenate([np.array(p, copy=True) for p in parts]))
+        return dispatch(parts)
+
+    engine.dispatch = recording_dispatch
     t0 = time.perf_counter()
     for i, p in enumerate(payloads):
         broker.produce("input", p)
@@ -547,15 +679,17 @@ async def serve(n_good: int = 16):
     deadline = time.monotonic() + 300
     while broker.topic_size("output") + broker.topic_size("dead-letter") < n_good + 1:
         if time.monotonic() > deadline:
-            raise TimeoutError("main path: records did not all come out in 300 s")
+            raise TimeoutError("served path: records did not all come out in 300 s")
         await asyncio.sleep(0.01)
     wall = time.perf_counter() - t0
     await rt.drain(timeout_s=60)
+    del engine.dispatch
     snap = rt.metrics.snapshot()
     errors = list(rt.errors)
     outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
     await cluster.shutdown()
-    return inputs, outs, dlq, snap, errors, wall, model_cfg, batch_cfg
+    return {"inputs": inputs, "payloads": payloads, "outs": outs, "dlq": dlq, "snap": snap,
+            "errors": errors, "wall": wall, "batch_cfg": batch_cfg, "batches": batches}
 
 
 # The CUDA function of each kernel variant, as the profiler names it.
@@ -565,9 +699,9 @@ KERNEL_FUNCS = {"w8a16_matmul_sm90": "w8a16_sm90_kernel<", "w8a16_matmul": "w8a1
                 "flash_attention_sm90": "flash_sm90_kernel<", "flash_attention": "flash_kernel<"}
 
 
-def profiled_kernels(torch, fn) -> dict:
-    """Kernels the card ran in ``fn()``, counted by name in a
-    ``torch.profiler`` trace (each variant, and all CUDA kernels)."""
+def profiled_kernels(torch, fn) -> tuple:
+    """Kernels the card ran in ``fn()`` under ``torch.profiler``: counts by
+    variant and of all CUDA kernels, and their device ms alike."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -576,14 +710,15 @@ def profiled_kernels(torch, fn) -> dict:
         torch.cuda.synchronize()
     counts = dict.fromkeys(KERNEL_FUNCS, 0)
     counts["all"] = 0
+    ms = dict.fromkeys(counts, 0.0)
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA or "Memcpy" in ev.name or "Memset" in ev.name:
             continue
-        counts["all"] += 1
-        for name, fn_name in KERNEL_FUNCS.items():
-            if fn_name in ev.name:
-                counts[name] += 1
-    return counts
+        t = (ev.time_range.end - ev.time_range.start) / 1e3
+        for name in ["all"] + [n for n, f in KERNEL_FUNCS.items() if f in ev.name]:
+            counts[name] += 1
+            ms[name] += t
+    return counts, ms
 
 
 def check_tally(torch, engine, per_forward: dict, wrapper_counts: dict, path: str) -> dict:
@@ -604,7 +739,7 @@ def check_tally(torch, engine, per_forward: dict, wrapper_counts: dict, path: st
                                  f"eagerly by its wrapper")
     for padded in sorted(engine.compiled_batches):
         bucket = engine.graph_for(padded)
-        seen = profiled_kernels(torch, bucket.replay)
+        seen, _ = profiled_kernels(torch, bucket.replay)
         recorded = {n: bucket.launches.get(n, 0) for n in KERNEL_FUNCS}
         if {n: seen[n] for n in KERNEL_FUNCS} != recorded:
             raise AssertionError(f"{path}: bucket {padded}'s replay ran {seen}, its capture "
@@ -615,64 +750,155 @@ def check_tally(torch, engine, per_forward: dict, wrapper_counts: dict, path: st
     return {n: tally.get(n, 0) for n in KERNEL_FUNCS}
 
 
-def main_path(torch) -> dict:
+def codec_times(payloads: list, preds: np.ndarray) -> dict:
+    """Host ms per record of the native codec and of the pure-Python
+    reference, in this process: the decode of every served payload, the
+    encode of every (1, 1000) prediction (medians)."""
+    from storm_tpu_torch.api import schema
+
+    out = {}
+    for name, fn, args in (
+            ("decode_native_ms", schema.decode_instances, payloads),
+            ("decode_python_ms", schema.decode_instances_reference, payloads),
+            ("encode_native_ms", schema.encode_predictions, [p[None] for p in preds]),
+            ("encode_python_ms", schema.encode_predictions_reference,
+             [p[None] for p in preds])):
+        ts = []
+        for a in args:
+            t = time.perf_counter()
+            fn(a)
+            ts.append((time.perf_counter() - t) * 1e3)
+        out[name] = float(np.median(ts))
+    return out
+
+
+def served_path(torch, model_cfg, per_forward: dict, label: str) -> dict:
+    """``model_cfg`` through the 2/4/2 topology (``serve``), with the launch
+    counts zeroed just before and read just after, then its gates: the
+    engine's launch tally exactly forwards x ``per_forward``; 16 finite
+    predictions summing to 1 +- 1e-3 and the poison record dead-lettered;
+    every output record byte-identical to ``encode_predictions`` (the
+    native writer) of the engine's direct forward of the batch it was
+    served in; the numeric flags the package set. Prints the e2e latency,
+    records/s, the substages and the codec's spans."""
     from storm_tpu_torch.api.schema import decode_predictions
     from storm_tpu_torch.infer.engine import clear_engines, shared_engine
+    from storm_tpu_torch.native import format_predictions
     from storm_tpu_torch.ops import _build
 
     clear_engines()
     _build.reset_launch_counts()
-    inputs, outs, dlq, snap, errors, wall, model_cfg, batch_cfg = asyncio.run(serve())
+    r = asyncio.run(serve(model_cfg))
     wrapper_counts = _build.launch_counts()
-    engine = shared_engine(model_cfg, batch_cfg, device="cuda")
-    batches = engine.forwards
-    # Every forward in bf16 goes through the sm90 variants; the first
-    # versions must not launch at all while the topology serves.
-    per_forward = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
-                   "flash_attention_sm90": 12}
-    launches = check_tally(torch, engine, per_forward, wrapper_counts, "main path")
-    if errors:
-        raise AssertionError(f"main path reported errors: {errors[:3]}")
+    engine = shared_engine(model_cfg, r["batch_cfg"], device="cuda")
+    assert_numeric_flags(torch, f"{label}, engine built")
+    forwards = engine.forwards
+    launches = check_tally(torch, engine, per_forward, wrapper_counts, label)
+    inputs, outs, dlq, snap = r["inputs"], r["outs"], r["dlq"], r["snap"]
+    if r["errors"]:
+        raise AssertionError(f"{label} reported errors: {r['errors'][:3]}")
     if len(outs) != len(inputs) or len(dlq) != 1:
-        raise AssertionError(f"main path: {len(outs)} predictions, {len(dlq)} dead letters")
+        raise AssertionError(f"{label}: {len(outs)} predictions, {len(dlq)} dead letters")
     dl = json.loads(dlq[0].value)
     if dl["stage"] != "decode" or snap["inference-bolt"]["dead_lettered"] != 1:
         raise AssertionError(f"dead letter wrong: {dl}")
-    preds = np.concatenate([decode_predictions(r.value).data for r in outs])
+    preds = np.concatenate([decode_predictions(rec.value).data for rec in outs])
     if preds.shape != (len(inputs), CLASSES) or not np.isfinite(preds).all():
         raise AssertionError(f"predictions shape {preds.shape} or non-finite")
     sums = preds.sum(axis=1)
     if np.abs(sums - 1).max() > 1e-3:
         raise AssertionError(f"probabilities sum to {sums.min()}..{sums.max()}")
-    # The streamed outputs against the same engine's direct forward of
-    # the same inputs, in batches of the same padded shape: routing,
-    # batching, splitting and encoding must not alter a prediction
-    # beyond the wire's 7-decimal rounding.
-    direct = np.concatenate([engine.predict(inputs[i: i + B])
-                             for i in range(0, len(inputs), B)])
+    # Each served batch again through the same engine: the records it
+    # emitted must be exactly the native writer's bytes of these rows.
+    want = []
+    direct = []
+    for batch in r["batches"]:
+        rows = engine.predict(batch)
+        direct.append(rows)
+        want += [format_predictions(row[None]) for row in rows]
+    got = [rec.value.decode() if isinstance(rec.value, bytes) else rec.value for rec in outs]
+    if sorted(got) != sorted(want):
+        missing = len(set(got) - set(want))
+        raise AssertionError(f"{label}: {missing} of {len(got)} output records are not the "
+                             f"bytes of the engine's direct forward of their batch")
+    direct = np.concatenate(direct)
     match = np.abs(preds[:, None, :] - direct[None, :, :]).max(axis=2).min(axis=1)
-    if match.max() > 1e-4:
-        raise AssertionError(f"a streamed prediction matches no direct one: {match.max()}")
+    infer = snap["inference-bolt"]
     e2e = snap["kafka-bolt"]["e2e_latency_ms"]
-    log(f"  main path: {len(outs)} predictions + {len(dlq)} dead letter, "
-        f"{batches} forwards (warm-up included: one eager, the rest graph replays), "
-        f"launch tally {launches}, eager launches by the wrappers {wrapper_counts}")
-    log(f"  main path on {nvidia_smi()}: e2e p50 {e2e['p50']:.3f} ms, p99 "
-        f"{e2e['p99']:.3f} ms, {len(inputs) / wall:.3f} records/s over {wall:.3f} s; batch sizes "
-        f"{snap['inference-bolt']['batch_size']['mean']:.2f} mean; weights on card "
+    codec = codec_times(r["payloads"], preds)
+    res = {"launches": launches, "forwards": forwards, "e2e_p50_ms": e2e["p50"],
+           "e2e_p99_ms": e2e["p99"], "records_per_s": len(inputs) / r["wall"],
+           "decode_ms_p50": infer["decode_ms"]["p50"], "encode_ms_p50": infer["encode_ms"]["p50"],
+           "batches": [len(b) for b in r["batches"]], **codec}
+    log(f"  {label}: {len(outs)} predictions + {len(dlq)} dead letter in "
+        f"{len(r['batches'])} batches {res['batches']}, every record byte-identical to the "
+        f"native encoding of the engine's direct forward of its batch (max |dp| to it "
+        f"{match.max():.1e}); {forwards} forwards (warm-up included: one eager, the rest "
+        f"graph replays), launch tally {launches}, eager launches by the wrappers "
+        f"{wrapper_counts}")
+    log(f"  {label} on {nvidia_smi()}: e2e p50 {e2e['p50']:.3f} ms, p99 "
+        f"{e2e['p99']:.3f} ms, {res['records_per_s']:.3f} records/s over {r['wall']:.3f} s; "
+        f"batch sizes {infer['batch_size']['mean']:.2f} mean; weights on card "
         f"{engine.param_bytes() / 1e6:.3f} MB")
-    sub = {k: snap["inference-bolt"][k]["p50"] for k in ("h2d_ms", "compute_ms", "d2h_ms")}
-    log(f"  main path substages p50: {sub}; graph build peak "
+    sub = {k: infer[k]["p50"] for k in ("h2d_ms", "compute_ms", "d2h_ms")}
+    log(f"  {label} substages p50: {sub}; graph build peak "
         f"{engine.graph_pool_bytes / 1e6:.3f} MB")
-    return {"launches": launches, "batches": batches, "e2e_p50_ms": e2e["p50"],
-            "records_per_s": len(inputs) / wall}
+    log(f"  {label} codec per 150,528-float record: bolt decode_ms p50 "
+        f"{res['decode_ms_p50']:.3f}, encode_ms p50 {res['encode_ms_p50']:.4f}; in this "
+        f"process, medians over the same records: decode native {codec['decode_native_ms']:.3f}"
+        f" ms against the Python reference {codec['decode_python_ms']:.3f} ms, encode "
+        f"native {codec['encode_native_ms']:.4f} ms against {codec['encode_python_ms']:.4f} ms")
+    res["engine"] = engine
+    return res
+
+
+def codec_turns(model_cfg) -> list:
+    """Information only: the main path's e2e latency with the Python
+    reference codec in the bolt (the port before the native one) and with
+    the native codec, in turns (python, native, native, python), on the
+    engine the gated run left warm."""
+    from storm_tpu_torch.api import schema
+    from storm_tpu_torch.infer import operator
+
+    turns = []
+    for codec in ("python", "native", "native", "python"):
+        with contextlib.ExitStack() as st:
+            if codec == "python":
+                st.enter_context(mock.patch.object(
+                    operator, "decode_instances", schema.decode_instances_reference))
+                st.enter_context(mock.patch.object(
+                    operator, "encode_predictions", schema.encode_predictions_reference))
+            r = asyncio.run(serve(model_cfg))
+        if len(r["outs"]) != len(r["inputs"]) or r["errors"]:
+            raise AssertionError(f"codec turn {codec}: {len(r['outs'])} outputs, "
+                                 f"errors {r['errors'][:3]}")
+        e2e = r["snap"]["kafka-bolt"]["e2e_latency_ms"]
+        infer = r["snap"]["inference-bolt"]
+        turns.append({"codec": codec, "e2e_p50_ms": e2e["p50"],
+                      "records_per_s": len(r["inputs"]) / r["wall"],
+                      "decode_ms_p50": infer["decode_ms"]["p50"],
+                      "encode_ms_p50": infer["encode_ms"]["p50"]})
+        log(f"  codec turn {codec:6s}: e2e p50 {e2e['p50']:.3f} ms, "
+            f"{turns[-1]['records_per_s']:.3f} records/s, bolt decode_ms p50 "
+            f"{infer['decode_ms']['p50']:.3f}, encode_ms p50 {infer['encode_ms']['p50']:.4f}")
+    return turns
+
+
+def main_path(torch) -> dict:
+    res = served_path(torch, vit_b16_config(), {
+        "w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
+        "flash_attention_sm90": 12}, "main path")
+    del res["engine"]
+    res["codec_turns"] = codec_turns(vit_b16_config())
+    return res
 
 
 # ---- phase 6: trained checkpoints ------------------------------------------------
 
 # The exported checkpoints; each records its model, input shape and class
 # count (ModelConfig.from_checkpoint).
-DIGITS = ("lenet5_digits", "lenet5_rgb_digits", "resnet20_digits", "vit_tiny_digits")
+DIGITS = ("lenet5_digits", "lenet5_rgb_digits", "resnet20_digits", "vit_tiny_digits",
+          "moe_vit_tiny_digits")
 DIGITS_MODES = {"bf16": {}, "int8": {"weights": "int8"},
                 "int8_fused": {"weights": "int8_fused"},
                 "uint8_wire": {"transfer_dtype": "uint8"}}
@@ -1342,6 +1568,106 @@ def split_phase(torch, card: str) -> dict:
             "cold_bucket": cold}
 
 
+# ---- phase 8: the MoE-ViT-B/16 path, and the other families at full width ----------
+
+# Launches per forward of each new family (bf16 int8_fused), from the code:
+# moe_vit_b16's 6 dense blocks run 6 w8a16 dense layers, one flash
+# attention and one fused norm each, its 6 MoE blocks 4 w8a16 projections
+# and one flash attention (the experts are batched matmuls, their LayerNorms
+# plain), and the head one w8a16; mixer_s16's 8 blocks run 4 w8a16 dense
+# layers and one fused norm each, plus the head; the CNNs only their head.
+FAMILY_LAUNCHES = {
+    "moe_vit_b16": {"w8a16_matmul_sm90": 61, "flash_attention_sm90": 12,
+                    "residual_layernorm_sm90": 6},
+    "mixer_s16": {"w8a16_matmul_sm90": 33, "residual_layernorm_sm90": 8},
+    "mobilenetv2": {"w8a16_matmul_sm90": 1},
+    "resnet50": {"w8a16_matmul_sm90": 1},
+}
+
+
+def family_config(name: str):
+    from storm_tpu_torch.config import ModelConfig
+
+    return ModelConfig(name=name, dtype="bfloat16", weights="int8_fused",
+                       num_classes=CLASSES, input_shape=(224, 224, 3))
+
+
+def replay_equals_eager(engine, x: np.ndarray, label: str) -> None:
+    got, want = engine.predict(x), engine.predict_eager(x)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: graph replay differs from eager by "
+                             f"{np.abs(got - want).max()}")
+    log(f"  {label}: graph replay bit-identical to the same engine's eager forward")
+
+
+def forward_times(torch, engine, label: str, card: str) -> dict:
+    from storm_tpu_torch.infer.graphs import eager_ms as graph_eager_ms
+    from storm_tpu_torch.infer.graphs import replay_ms
+
+    bucket = engine.graph_for(B)
+    t = {"replay_ms": replay_ms(bucket), "eager_ms": graph_eager_ms(bucket)}
+    counts, t["profiled_ms"] = profiled_kernels(torch, bucket.replay)
+    ours = {n: round(v, 4) for n, v in t["profiled_ms"].items() if n in KERNEL_FUNCS and v}
+    log(f"  {label} B={B}: forward by graph replay {t['replay_ms']:.4f} ms (device), eager "
+        f"{t['eager_ms']:.4f} ms (wall, host included); one profiled replay: "
+        f"{counts['all']} kernels, {t['profiled_ms']['all']:.4f} ms of kernel time, "
+        f"ours {ours} ({sum(ours.values()):.4f} ms); on {card}")
+    return t
+
+
+def moe_path(torch, card: str) -> dict:
+    """Phase 8: moe_vit_b16 bf16 int8_fused, seeded, served through the
+    2/4/2 topology with the native codec (``served_path``, its exact launch
+    tally), then, on the same engine: the kernel path against the plain
+    path, a graph replay against the eager forward, the forward's time."""
+    res = served_path(torch, family_config("moe_vit_b16"), FAMILY_LAUNCHES["moe_vit_b16"],
+                      "moe_vit_b16 path")
+    engine = res.pop("engine")
+    x = np.random.RandomState(8).rand(B, 224, 224, 3).astype(np.float32)
+    kernel_vs_plain(torch, engine.model, torch.from_numpy(x).to(torch.bfloat16).cuda(),
+                    5e-2, "moe_vit_b16 int8_fused bfloat16")
+    replay_equals_eager(engine, x, "moe_vit_b16")
+    res["times"] = forward_times(torch, engine, "moe_vit_b16", card)
+    return res
+
+
+def full_width_families(torch, card: str) -> dict:
+    """Phase 8b: mixer_s16, mobilenetv2 and resnet50 at 224x224x3, bf16
+    int8_fused, seeded, engine-direct at B = 8: the launch tally of the
+    warm-up and three forwards (counts zeroed just before building), the
+    kernel path against the plain path, a replay against eager, and the
+    forward by replay timed."""
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.infer.engine import InferenceEngine, clear_engines
+    from storm_tpu_torch.ops import _build
+
+    out = {}
+    rng = np.random.RandomState(9)
+    for name in ("mixer_s16", "mobilenetv2", "resnet50"):
+        clear_engines()
+        _build.reset_launch_counts()
+        engine = InferenceEngine(family_config(name), BatchConfig(max_batch=B, buckets=(B,)),
+                                 device="cuda")
+        engine.warmup()
+        x = rng.rand(B, 224, 224, 3).astype(np.float32)
+        for _ in range(3):
+            probs = engine.predict(x)
+        if probs.shape != (B, CLASSES) or not np.isfinite(probs).all() or \
+                np.abs(probs.sum(-1) - 1).max() > 1e-3:
+            raise AssertionError(f"{name}: predictions {probs.shape} not finite "
+                                 f"probabilities")
+        launches = check_tally(torch, engine, FAMILY_LAUNCHES[name], _build.launch_counts(),
+                               name)
+        log(f"  {name}: launch tally {launches} for {engine.forwards} forwards")
+        kernel_vs_plain(torch, engine.model, torch.from_numpy(x).to(torch.bfloat16).cuda(),
+                        5e-2, f"{name} int8_fused bfloat16")
+        replay_equals_eager(engine, x, name)
+        out[name] = {"launches": launches, "forwards": engine.forwards,
+                     "times": forward_times(torch, engine, name, card)}
+        del engine
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -1356,15 +1682,17 @@ def run() -> int:
         print(f"chip_smoke: the storm_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 3
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # The plain bf16 dense layer is one bf16 GEMM that must accumulate in
-    # f32 (ops/layers.py:dense): no split-K partial sums in bf16.
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    card = nvidia_smi()
+    from storm_tpu_torch.device import resolve_device
 
+    card = nvidia_smi()
     log(f"[1] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    # The package resolves the card as every entry point does; that sets
+    # its arithmetic (no TF32, f32 accumulation of bf16 GEMMs) before the
+    # kernel phases compare anything.
+    log(f"  numeric flags before the package resolves the card: {numeric_flags(torch)}")
+    resolve_device("cuda")
+    assert_numeric_flags(torch, "after storm_tpu_torch.device.resolve_device")
     t = time.perf_counter()
     libs = _build.build_all()
     log(f"[2] built {len(libs)} kernels in {time.perf_counter() - t:.1f} s")
@@ -1383,6 +1711,7 @@ def run() -> int:
     if failed:
         raise AssertionError(f"kernel parity failed: {failed}")
     times = time_kernels(torch)
+    mixer = mixer_times(torch)
 
     log("[4] forward parity, ViT-B/16 int8_fused")
     forward_parity(torch)
@@ -1397,6 +1726,13 @@ def run() -> int:
         "cold bucket")
     split = split_phase(torch, card)
     log(json.dumps({"split_phase": split, "card": card}))
+
+    log("[8] moe_vit_b16 path: 2x spout -> 4x InferenceBolt -> 2x sink, bf16 int8_fused")
+    moe = moe_path(torch, card)
+    log("[8b] mixer_s16, mobilenetv2, resnet50 at 224x224x3, bf16 int8_fused, B=8")
+    families = full_width_families(torch, card)
+    log(json.dumps({"served": {"vit_b16": served, "moe_vit_b16": moe},
+                    "families": families, "card": card}, default=float))
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -1416,7 +1752,10 @@ def run() -> int:
     kernels = []
     for name, (src, tpu, variant) in replaces.items():
         t = times[name]
-        paths = {"vit_b16 int8_fused (main path)": served["launches"][name]}
+        paths = {"vit_b16 int8_fused (main path)": served["launches"][name],
+                 "moe_vit_b16 int8_fused (phase 8)": moe["launches"][name]}
+        paths.update({f"{p} int8_fused (phase 8b)": f["launches"][name]
+                      for p, f in families.items()})
         paths.update({p: c[name] for p, c in digits["launches"].items()})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1426,6 +1765,8 @@ def run() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if name in digits["times"]:
             entry["digits"] = digits["times"][name]
+        if name in mixer:
+            entry["mixer_s16"] = mixer[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -51,6 +51,7 @@ TAGS = {
     "lenet5_rgb_digits": ("lenet5", (32, 32, 3)),
     "resnet20_digits": ("resnet20", (32, 32, 3)),
     "vit_tiny_digits": ("vit_tiny", (32, 32, 3)),
+    "moe_vit_tiny_digits": ("moe_vit_tiny", (32, 32, 3)),
 }
 # The single-device serving modes of accuracy_harness.MODEL_SPECS (bfloat16
 # compute), and the float32 engine the tests hold the port's float32 to.

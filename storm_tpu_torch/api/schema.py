@@ -1,5 +1,13 @@
-"""The JSON wire contract, copied from ``storm_tpu/api/schema.py`` (its
-pure-Python paths): ``{"instances": ...}`` in, ``{"predictions": ...}`` out.
+"""The JSON wire contract, copied from ``storm_tpu/api/schema.py``:
+``{"instances": ...}`` in, ``{"predictions": ...}`` out.
+
+:func:`decode_instances` and :func:`encode_predictions` go through the
+native codec (``storm_tpu_torch/native``, the C++ of storm_tpu's
+``fastjson.cpp``), so records parse to the reference's floats and leave as
+the reference's bytes. The pure-Python codec stays beside them as
+:func:`decode_instances_reference` and :func:`encode_predictions_reference`,
+the version the tests hold the native one to; the serving path does not
+call it.
 
 A malformed payload raises :class:`SchemaError`, which the inference
 operator turns into a :class:`DeadLetter` record — never a silent
@@ -13,6 +21,8 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+
+from storm_tpu_torch import native
 
 
 class SchemaError(ValueError):
@@ -57,9 +67,47 @@ def _to_dense_f32(obj: Any) -> np.ndarray:
         raise SchemaError(f"instances is ragged or non-numeric: {e}") from e
 
 
-def decode_instances(payload: str | bytes, *, ts: float = 0.0) -> Instances:
+def _check_batch(arr: np.ndarray) -> None:
+    if arr.ndim < 2:
+        raise SchemaError(
+            f"instances must have rank >= 2 (batch axis + features); got rank {arr.ndim}")
+    if arr.shape[0] == 0:
+        raise SchemaError("instances batch is empty")
+
+
+def decode_instances(payload: str | bytes | bytearray | memoryview, *,
+                     ts: float = 0.0) -> Instances:
     """Parse a ``{"instances": [[[[...]]]]}`` JSON payload into a dense
-    float32 array; raises :class:`SchemaError` on any contract violation."""
+    float32 array with the native parser; raises :class:`SchemaError`, with
+    the parser's message, on any contract violation. The parser takes one
+    contiguous ``bytes``: a ``str`` is encoded, any other buffer copied
+    once."""
+    if isinstance(payload, str):
+        try:
+            payload = payload.encode("utf-8")
+        except UnicodeEncodeError as e:
+            raise SchemaError(f"payload is not UTF-8: {e}") from e
+    elif not isinstance(payload, bytes):
+        payload = bytes(payload)
+    try:
+        arr = native.parse_instances(payload)
+    except native.ParseError as e:
+        raise SchemaError(str(e)) from None
+    _check_batch(arr)
+    return Instances(data=arr, ts=ts)
+
+
+def encode_predictions(preds: Predictions | np.ndarray) -> str:
+    """Serialize predictions to the ``{"predictions": [[...]]}`` wire form
+    with the native writer (float32 values rounded to 7 decimals, each in
+    its shortest round-trip form)."""
+    arr = preds.data if isinstance(preds, Predictions) else np.asarray(preds)
+    return native.format_predictions(arr)
+
+
+def decode_instances_reference(payload: str | bytes, *, ts: float = 0.0) -> Instances:
+    """The pure-Python :func:`decode_instances` (``json`` and nested lists):
+    the version the native parser is held to."""
     if isinstance(payload, (bytes, bytearray, memoryview)):
         try:
             payload = bytes(payload).decode("utf-8")
@@ -72,16 +120,13 @@ def decode_instances(payload: str | bytes, *, ts: float = 0.0) -> Instances:
     if not isinstance(obj, dict) or "instances" not in obj:
         raise SchemaError('payload missing "instances" key')
     arr = _to_dense_f32(obj["instances"])
-    if arr.ndim < 2:
-        raise SchemaError(
-            f"instances must have rank >= 2 (batch axis + features); got rank {arr.ndim}")
-    if arr.shape[0] == 0:
-        raise SchemaError("instances batch is empty")
+    _check_batch(arr)
     return Instances(data=arr, ts=ts)
 
 
-def encode_predictions(preds: Predictions | np.ndarray) -> str:
-    """Serialize predictions to the ``{"predictions": [[...]]}`` wire form."""
+def encode_predictions_reference(preds: Predictions | np.ndarray) -> str:
+    """The pure-Python :func:`encode_predictions` (``json.dumps`` of the
+    float64 values rounded to 7 decimals)."""
     arr = preds.data if isinstance(preds, Predictions) else np.asarray(preds)
     if arr.ndim == 1:
         arr = arr[None, :]

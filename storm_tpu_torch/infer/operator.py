@@ -1,7 +1,8 @@
 """The inference operator, the counterpart of ``storm_tpu/infer/operator.py``
 on its split-phase path. Still trimmed from it: QoS lanes and shedding,
 cascades, record frames and chunked tuples, continuous batching, tracing
-and the flight recorder, the copy ledger, and ``swap_model``.
+beyond the ``decode_ms`` and ``encode_ms`` spans and the flight recorder,
+the copy ledger, and ``swap_model``.
 
 Per tuple: decode the ``{"instances": ...}`` payload and check it against
 the model's input shape — a failure emits a :class:`DeadLetter` on the
@@ -14,10 +15,10 @@ while the card computes. Then one ``{"predictions": ...}`` tuple per
 record, anchored to it, and the ack. A failed batch fails every tuple in
 it, which the spout replays.
 
-When the engine's watchdog quarantines it, the operator records it and
-rebuilds a fresh engine through ``shared_engine`` on a background thread,
-swapping it in once warm; batches dispatched meanwhile fail fast
-(``EngineQuarantined``) and replay.
+When the engine's watchdog quarantines it, every task on that engine
+records it and takes a fresh engine from ``shared_engine`` (built once for
+them all) on a background thread, swapping it in once warm; batches
+dispatched meanwhile fail fast (``EngineQuarantined``) and replay.
 """
 
 from __future__ import annotations
@@ -26,17 +27,59 @@ import asyncio
 import logging
 import threading
 import time
+import weakref
 from typing import Optional, Set
 
+from storm_tpu_torch import native
 from storm_tpu_torch.api.schema import (
     DeadLetter, SchemaError, decode_instances, encode_predictions)
 from storm_tpu_torch.config import BatchConfig, ModelConfig
 from storm_tpu_torch.infer.batcher import Batch, MicroBatcher
 from storm_tpu_torch.infer.engine import DEVICE_SUBSTAGES, shared_engine
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, TopologyContext
+from storm_tpu_torch.runtime.tracing import span
 from storm_tpu_torch.runtime.tuples import Tuple, Values
 
 logger = logging.getLogger(__name__)
+
+
+class _QuarantineFanout:
+    """The one ``on_quarantine`` hook of an engine that several operator
+    tasks share: it tells every task on the engine, so each swaps in the
+    replacement. (storm_tpu assigns each task's own callback to the hook,
+    ``storm_tpu/infer/operator.py:285-286``; the last task to prepare
+    wins, and the others keep the quarantined engine for good.) Tasks are
+    held weakly: the engine must not keep a finished topology alive."""
+
+    def __init__(self) -> None:
+        self._tasks: "weakref.WeakSet[InferenceBolt]" = weakref.WeakSet()
+        self._lock = threading.Lock()
+
+    def add(self, task: "InferenceBolt") -> None:
+        with self._lock:
+            self._tasks.add(task)
+
+    def __call__(self, trips: int) -> None:
+        with self._lock:
+            tasks = list(self._tasks)
+        for task in tasks:
+            try:
+                task._engine_quarantined(trips)
+            except Exception:
+                logger.exception("a task's quarantine handler failed")
+
+
+def _listen_for_quarantine(engine, task: "InferenceBolt") -> None:
+    """Add ``task`` to ``engine``'s quarantine fan-out, installing it as
+    the engine's hook on first use."""
+    hook = getattr(engine, "on_quarantine", None)
+    if not isinstance(hook, _QuarantineFanout):
+        hook = _QuarantineFanout()
+        try:
+            engine.on_quarantine = hook
+        except AttributeError:
+            return  # a slotted test double
+    hook.add(task)
 
 
 class InferenceBolt(Bolt):
@@ -65,10 +108,11 @@ class InferenceBolt(Bolt):
         return shared_engine(self.model_cfg, self.batch_cfg, device=self.device)
 
     def prewarm(self) -> None:
-        """Build and warm the engine off the event loop before this task
-        receives traffic, so a cold build rides neither the loop nor live
-        tuples; ``prepare`` then skips its warm-up. An engine given at
-        construction is kept."""
+        """Build and warm the engine, and build or load the native codec,
+        off the event loop before this task receives traffic, so a cold
+        build rides neither the loop nor live tuples; ``prepare`` then skips
+        its warm-up. An engine given at construction is kept."""
+        native.load()
         self._engine = self._engine or self._shared_engine()
         if self._warmup:
             self._engine.warmup()
@@ -76,6 +120,9 @@ class InferenceBolt(Bolt):
 
     def prepare(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().prepare(context, collector)
+        # The codec is built before traffic (a no-op once prewarmed): its
+        # first use would otherwise compile it on the event loop.
+        native.load()
         # One engine per model per process: the tasks share its weights.
         self.engine = self._engine or self._shared_engine()
         if self._warmup and not getattr(self, "_prewarmed", False):
@@ -106,18 +153,17 @@ class InferenceBolt(Bolt):
         # Quarantine -> replacement (batch.watchdog_trips).
         self._m_quarantined = m.gauge(cid, "engine_quarantined")
         self._m_wd_trips = m.counter(cid, "watchdog_trips")
-        try:
-            self.engine.on_quarantine = self._engine_quarantined
-        except AttributeError:
-            pass  # a slotted test double
+        _listen_for_quarantine(self.engine, self)
 
     # ---- quarantine -> replacement -------------------------------------------
 
     def _engine_quarantined(self, trips: int) -> None:
-        """The engine's watchdog callback (fires once, on its fetch
-        thread): record the quarantine, then build and warm a replacement
-        off-thread and swap it in. The quarantined engine left the shared
-        cache, so ``shared_engine`` builds a fresh one."""
+        """Called once per quarantine of this task's engine (on its fetch
+        thread, through the engine's :class:`_QuarantineFanout`): record
+        the quarantine, then build and warm a replacement off-thread and
+        swap it in. The quarantined engine left the shared cache, so
+        ``shared_engine`` builds a fresh one; every task that shared the
+        old engine asks for the same key, and the cache builds it once."""
         self._m_quarantined.set(1)
         self._m_wd_trips.inc(trips)
         old = self.engine
@@ -128,7 +174,7 @@ class InferenceBolt(Bolt):
                 if self._warmup:
                     eng.warmup()
                 eng.on_compile = old.on_compile
-                eng.on_quarantine = self._engine_quarantined
+                _listen_for_quarantine(eng, self)
                 self.engine = eng
                 self._m_quarantined.set(0)
             except Exception:
@@ -142,7 +188,8 @@ class InferenceBolt(Bolt):
     async def execute(self, t: Tuple) -> None:
         payload = t.get("message")
         try:
-            inst = decode_instances(payload, ts=t.root_ts)
+            with span(self.context.metrics, self.context.component_id, "decode"):
+                inst = decode_instances(payload, ts=t.root_ts)
             if tuple(inst.data.shape[1:]) != self.engine.input_shape:
                 raise SchemaError(
                     f"instance shape {tuple(inst.data.shape[1:])} != model "
@@ -238,8 +285,9 @@ class InferenceBolt(Bolt):
             self._m_fill.observe(batch.size / max(padded, 1))
             self._m_coalesced.inc()  # a per-task batch has one source
             for item, preds in batch.split(out):
-                await self.collector.emit(Values([encode_predictions(preds)]),
-                                          anchors=[item])
+                with span(self.context.metrics, self.context.component_id, "encode"):
+                    msg = encode_predictions(preds)
+                await self.collector.emit(Values([msg]), anchors=[item])
                 self.collector.ack(item)
         except Exception as e:
             # Device failure: fail every tuple in the batch -> spout replay.

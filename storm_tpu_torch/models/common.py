@@ -55,11 +55,13 @@ class LayerNorm(nn.Module):
 
 class Conv(nn.Module):
     """``{"w": (kh, kw, cin, cout) HWIO, "b"?}``, held OIHW for
-    ``F.conv2d``; NHWC in and out, SAME padding by XLA's rule."""
+    ``F.conv2d``; NHWC in and out, SAME padding by XLA's rule. With
+    ``depthwise`` the kernel is (kh, kw, 1, C), one filter per channel."""
 
-    def __init__(self, p: dict, stride: int = 1) -> None:
+    def __init__(self, p: dict, stride: int = 1, depthwise: bool = False) -> None:
         super().__init__()
         self.stride = stride
+        self.depthwise = depthwise
         self.register_buffer("w", p["w"].permute(3, 2, 0, 1).contiguous())
         self.has_bias = "b" in p
         if self.has_bias:
@@ -67,17 +69,21 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = {"w": self.w, "b": self.b} if self.has_bias else {"w": self.w}
-        return L.conv2d(p, x, stride=self.stride, padding="same")
+        conv = L.depthwise_conv2d if self.depthwise else L.conv2d
+        return conv(p, x, stride=self.stride, padding="same")
 
 
 class ConvBN(nn.Module):
-    """Bias-free convolution, inference BatchNorm, optional ReLU:
-    ``{"conv": {"w"}, "bn": {"scale", "bias"}}`` with state
-    ``{"bn": {"mean", "var"}}`` (float32 in every mode)."""
+    """Bias-free convolution, inference BatchNorm, then ``act`` (ReLU by
+    default; None for none): ``{"conv": {"w"}, "bn": {"scale", "bias"}}``
+    with state ``{"bn": {"mean", "var"}}`` (float32 in every mode).
+    ``conv`` names the convolution's key (MobileNetV2's depthwise
+    convolutions sit under ``"dw"``, with ``depthwise``)."""
 
-    def __init__(self, p: dict, s: dict, stride: int = 1, act: bool = True) -> None:
+    def __init__(self, p: dict, s: dict, stride: int = 1, act=F.relu,
+                 conv: str = "conv", depthwise: bool = False) -> None:
         super().__init__()
-        self.conv = Conv(p["conv"], stride)
+        self.conv = Conv(p[conv], stride, depthwise)
         self.act = act
         for name in ("scale", "bias"):
             self.register_buffer(name, p["bn"][name])
@@ -87,7 +93,7 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = L.batchnorm({"scale": self.scale, "bias": self.bias},
                         {"mean": self.mean, "var": self.var}, self.conv(x))
-        return F.relu(x) if self.act else x
+        return x if self.act is None else self.act(x)
 
 
 # ---- seeded numpy initializers (the JAX package's distributions) ----------

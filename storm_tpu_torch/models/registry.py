@@ -1,7 +1,8 @@
 """Model registry: name -> model function, the counterpart of
-``storm_tpu/models/registry.py`` for the families the port serves
-(``vit_b16``, ``vit_tiny``, ``lenet5`` and ``resnet20``), and the loading
-of exported checkpoints.
+``storm_tpu/models/registry.py`` for the single-device families the port
+serves (``vit_b16``, ``vit_tiny``, ``moe_vit_b16``, ``moe_vit_tiny``,
+``mixer_s16``, ``mixer_tiny``, ``mobilenetv2``, ``lenet5``, ``resnet20``
+and ``resnet50``), and the loading of exported checkpoints.
 
 A :class:`ModelDef` carries a family's hyperparameters, a seeded numpy
 initializer producing parameters and state in the JAX package's layout,
@@ -64,7 +65,8 @@ def register(name: str) -> Callable:
 
 
 def _load_builtin() -> None:
-    from storm_tpu_torch.models import lenet, resnet, vit  # noqa: F401  (registers)
+    from storm_tpu_torch.models import (  # noqa: F401  (registers)
+        lenet, mixer, mobilenet, moe_vit, resnet, vit)
 
 
 def registry_names() -> list:

@@ -53,8 +53,12 @@ class Block(nn.Module):
 
 
 class ViT(nn.Module):
+    """``block(params, num_heads)`` builds each encoder block (the MoE-ViT
+    passes its own, which builds MoE blocks where the parameters hold
+    one)."""
+
     def __init__(self, p: dict, *, patch: int, dim: int, num_heads: int,
-                 input_shape: tuple, **_hyper) -> None:
+                 input_shape: tuple, block=Block, **_hyper) -> None:
         super().__init__()
         h, w, _c = input_shape
         self.patch = patch
@@ -65,7 +69,7 @@ class ViT(nn.Module):
         self.register_buffer("embed_b", p["embed"]["b"])
         self.register_buffer("cls", p["cls"])
         self.register_buffer("pos", p["pos"])
-        self.blocks = nn.ModuleList(Block(bp, num_heads) for bp in p["blocks"])
+        self.blocks = nn.ModuleList(block(bp, num_heads) for bp in p["blocks"])
         self.ln = LayerNorm(p["ln"])
         self.head = Dense(p["head"])
 
@@ -83,35 +87,45 @@ class ViT(nn.Module):
         return self.head(tok[:, 0].contiguous())
 
 
+def vit_init(rng: np.random.RandomState, input_shape: tuple, patch: int, dim: int,
+             depth: int, mlp_dim: int, num_classes: int, block_init=None) -> dict:
+    """Seeded parameters of a ViT in the JAX layout. ``block_init(i)``
+    may return block i's parameters (the MoE-ViT's MoE blocks); None
+    makes the dense block."""
+    h, w, c = input_shape
+    seq = (h // patch) * (w // patch) + 1  # + CLS
+    fan_in = patch * patch * c
+    params = {
+        "embed": {"w": normal(rng, (patch, patch, c, dim), np.sqrt(2.0 / fan_in)),
+                  "b": np.zeros((dim,), np.float32)},
+        "cls": np.zeros((1, 1, dim), np.float32),
+        "pos": trunc_normal(rng, (1, seq, dim)),
+        "blocks": [],
+    }
+    for i in range(depth):
+        bp = block_init(i) if block_init is not None else None
+        params["blocks"].append(bp if bp is not None else {
+            "ln1": ln_init(dim),
+            "attn": {n: dense_init(rng, dim, dim) for n in "qkvo"},
+            "ln2": ln_init(dim),
+            "mlp_in": dense_init(rng, dim, mlp_dim),
+            "mlp_out": dense_init(rng, mlp_dim, dim)})
+    params["ln"] = ln_init(dim)
+    params["head"] = dense_init(rng, dim, num_classes)
+    return params
+
+
 def build_vit(name: str, num_classes: int, input_shape: tuple, patch: int,
               dim: int, depth: int, num_heads: int, mlp_dim: int) -> ModelDef:
-    h, w, c = input_shape
+    h, w, _c = input_shape
     if h % patch or w % patch:
         raise ValueError(f"input {h}x{w} not divisible by patch size {patch}")
-    seq = (h // patch) * (w // patch) + 1  # + CLS
     hyper = {"num_heads": num_heads, "dim": dim, "depth": depth,
              "mlp_dim": mlp_dim, "patch": patch,
              "input_shape": tuple(input_shape), "num_classes": num_classes}
 
     def init(rng: np.random.RandomState) -> tuple:
-        fan_in = patch * patch * c
-        params = {
-            "embed": {"w": normal(rng, (patch, patch, c, dim), np.sqrt(2.0 / fan_in)),
-                      "b": np.zeros((dim,), np.float32)},
-            "cls": np.zeros((1, 1, dim), np.float32),
-            "pos": trunc_normal(rng, (1, seq, dim)),
-            "blocks": [
-                {"ln1": ln_init(dim),
-                 "attn": {n: dense_init(rng, dim, dim) for n in "qkvo"},
-                 "ln2": ln_init(dim),
-                 "mlp_in": dense_init(rng, dim, mlp_dim),
-                 "mlp_out": dense_init(rng, mlp_dim, dim)}
-                for _ in range(depth)
-            ],
-            "ln": ln_init(dim),
-            "head": dense_init(rng, dim, num_classes),
-        }
-        return params, {}
+        return vit_init(rng, input_shape, patch, dim, depth, mlp_dim, num_classes), {}
 
     return ModelDef(name, tuple(input_shape), num_classes, init,
                     lambda params, _state: ViT(params, **hyper), hyper)

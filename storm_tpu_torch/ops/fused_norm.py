@@ -102,6 +102,9 @@ def fused_add_layernorm(x2: torch.Tensor, r2: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"unknown fused norm variant {name!r}")
     if d > MAX_DIM:
         raise ValueError(f"{name} kernel takes d <= {MAX_DIM}, got {d}")
+    # The kernels read dense rows of d elements: a strided view is copied
+    # once, never read with wrong strides.
+    x2, r2 = x2.contiguous(), r2.contiguous()
     dev = check_cuda(name, x2, r2, g, b)
     code = dtype_code(x2)
     y = torch.empty_like(x2)

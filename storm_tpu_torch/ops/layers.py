@@ -28,7 +28,8 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     in f32 for bf16 as long as
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
     is False (its default True lets split-K reduce partial sums in bf16;
-    ``chip_smoke.py`` sets it False beside the TF32 flags). On the CPU the
+    ``device.set_numeric_flags`` sets it False whenever an entry point
+    resolves a CUDA device). On the CPU the
     operands are cast to f32 first: its bf16 GEMM is not shown to
     accumulate in f32."""
     w = p["w"]
@@ -48,10 +49,11 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 def conv2d(p: dict, x: torch.Tensor, stride: Union[int, Tuple[int, int]] = 1,
-           padding: str = "same") -> torch.Tensor:
+           padding: str = "same", groups: int = 1) -> torch.Tensor:
     """NHWC input x OIHW weight -> NHWC output, computed in x.dtype; the
     bias is added in x.dtype. ``padding`` is "same" (XLA's rule,
-    :func:`same_padding`) or "valid"."""
+    :func:`same_padding`) or "valid"; ``groups`` as ``F.conv2d``'s (XLA's
+    ``feature_group_count``)."""
     sh, sw = (stride, stride) if isinstance(stride, int) else stride
     w = p["w"].to(x.dtype)
     xc = x.permute(0, 3, 1, 2)
@@ -65,15 +67,24 @@ def conv2d(p: dict, x: torch.Tensor, stride: Union[int, Tuple[int, int]] = 1,
             xc = F.pad(xc, (left, right, top, bottom))
     elif padding.lower() != "valid":
         raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
-    out = F.conv2d(xc, w, stride=(sh, sw), padding=pad).permute(0, 2, 3, 1)
+    out = F.conv2d(xc, w, stride=(sh, sw), padding=pad, groups=groups).permute(0, 2, 3, 1)
     if "b" in p:
         out = out + p["b"].to(x.dtype)
     return out
 
 
-def max_pool(x: torch.Tensor) -> torch.Tensor:
-    """VALID 2x2 max pooling at stride 2 over H and W of an NHWC tensor."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+def depthwise_conv2d(p: dict, x: torch.Tensor, stride: Union[int, Tuple[int, int]] = 1,
+                     padding: str = "same") -> torch.Tensor:
+    """NHWC depthwise convolution: one (kh, kw) filter per channel, the
+    weight OIHW (C, 1, kh, kw) (the JAX package's HWIO (kh, kw, 1, C)
+    transposed), ``groups`` = C."""
+    return conv2d(p, x, stride=stride, padding=padding, groups=x.shape[-1])
+
+
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """Max pooling over H and W of an NHWC tensor with XLA's VALID rule
+    (no padding, ``floor((size - window) / stride) + 1`` outputs)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +109,11 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6): MobileNet's activation."""
+    return torch.clamp(x, 0.0, 6.0)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

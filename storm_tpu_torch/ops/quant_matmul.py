@@ -94,6 +94,10 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _check(x, q, s)
     if not route("w8a16_matmul", x, q, s):
         return w8a16_matmul_reference(x, q, s)
+    # The kernels read x as dense (M, K) rows: a strided view (the
+    # mixer's transposed tokens) is copied once, never read with wrong
+    # strides.
+    x = x.contiguous()
     dev = check_cuda("w8a16_matmul", x, q, s)
     name = variant or kernel_variant(x.dtype)
     if name not in (SM90_VARIANT, F32_VARIANT):

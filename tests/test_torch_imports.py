@@ -1,7 +1,7 @@
-"""The port stands alone: no module of storm_tpu_torch, and neither
-chip_smoke.py nor kernel_sweep.py, imports JAX, orbax, scikit-learn or
-anything of the JAX package storm_tpu (the machine with the card has none
-of them)."""
+"""The port stands alone: no module of storm_tpu_torch (its native codec,
+MoE layer and model families included), and neither chip_smoke.py nor
+kernel_sweep.py, imports JAX, orbax, scikit-learn or anything of the JAX
+package storm_tpu (the machine with the card has none of them)."""
 
 import ast
 import os
@@ -71,6 +71,12 @@ def test_importing_the_port_loads_no_jax():
         tb.set_bolt("sink", BrokerSink(broker, "out"), parallelism=2) \\
             .shuffle_grouping("infer")
         tb.build()
+        from storm_tpu_torch.api import decode_instances, encode_predictions
+        from storm_tpu_torch.models import build_model
+        x = decode_instances('{{"instances": [[[1.5, 2.0]]]}}').data
+        print("CODEC", x.shape, encode_predictions(x[0]))
+        for name in ("moe_vit_tiny", "mixer_tiny", "mobilenetv2", "resnet50"):
+            build_model(name, device="cpu", num_classes=10, input_shape=(32, 32, 3))
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu"))
@@ -80,7 +86,13 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
-    # the split-phase engine's modules are among those imported
+    assert "CODEC (1, 1, 2) {\"predictions\": [[1.5, 2]]}" in out.stdout, out.stdout
+    # the split-phase engine's modules, the native codec, the MoE layer
+    # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
-                 "storm_tpu_torch.infer.operator", "storm_tpu_torch.resilience.chaos"):
+                 "storm_tpu_torch.infer.operator", "storm_tpu_torch.resilience.chaos",
+                 "storm_tpu_torch.native", "storm_tpu_torch.parallel",
+                 "storm_tpu_torch.parallel.moe", "storm_tpu_torch.runtime.tracing",
+                 "storm_tpu_torch.models.moe_vit", "storm_tpu_torch.models.mixer",
+                 "storm_tpu_torch.models.mobilenet", "storm_tpu_torch.models.resnet"):
         assert repr(name) in out.stdout, name
