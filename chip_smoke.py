@@ -80,7 +80,22 @@ no result):
    our kernels' share from one profiled replay; 8b: mixer_s16,
    mobilenetv2 and resnet50 at 224x224x3 the same way engine-direct at
    B = 8 (33 w8a16 + 8 fused norms, and 1 w8a16, per forward);
-9. the ``{"kernels": [...]}`` line, then the card line, then the last line
+9. longseq_encoder (S = 2048, width 256, 2 heads of 128, bf16
+   ``int8_fused``, seeded; phase 3 also holds the flash wrapper at head
+   dims 8, 24, 48 and 96 and the fused norm's d = 256 plans against their
+   plain versions, and times the three kernels at its shapes): (a)
+   engine-direct at B = 8 and 32, launch tally exactly forwards x 26
+   w8a16, x 4 flash, x 4 fused norm (a profiled replay of each bucket),
+   kernel path against plain path, replays bit-identical to eager, the
+   forward by replay with our kernels' share; longseq_tiny (D = 8) the
+   same way; (b) served through 2/4/2 with QoS (three lanes, two tenants)
+   and continuous batching: every output byte-identical to the native
+   encoding of the direct forward of its batch, the poison record
+   dead-lettered, per-lane e2e histograms, a batch that merged tasks;
+   then the real LoadShedController tripped by the burst (best-effort
+   records answered Overloaded and acked, every high record served, none
+   lost), then the burst with continuous batching off and on, in turns;
+10. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -555,6 +570,174 @@ def mixer_times(torch) -> dict:
     return out
 
 
+# longseq_encoder (phase 3's timing at its shapes, phase 9): S = 2048
+# sequences of 64 features, width 256, 2 heads of 128, depth 4, MLP 1024,
+# 10 classes; batch policy max_batch 32, buckets (8, 32).
+LS_SEQ, LS_FEAT, LS_DIM, LS_HEADS, LS_DEPTH, LS_MLP, LS_CLASSES = 2048, 64, 256, 2, 4, 1024, 10
+LS_HDIM = LS_DIM // LS_HEADS
+# Launches per forward (bf16 int8_fused), from the code: each of the 4
+# blocks runs 6 w8a16 dense layers (q, k, v, o, mlp_in, mlp_out), one flash
+# attention and one fused norm; the embedding and the head one w8a16 each.
+# longseq_tiny: 2 blocks of the same, at width 32 (4 heads of D = 8).
+LS_LAUNCHES = {"w8a16_matmul_sm90": 26, "flash_attention_sm90": 4,
+               "residual_layernorm_sm90": 4}
+LS_TINY_LAUNCHES = {"w8a16_matmul_sm90": 14, "flash_attention_sm90": 2,
+                    "residual_layernorm_sm90": 2}
+
+
+def longseq_kernel_cases(torch, rows: list) -> None:
+    """The flash wrapper at head dims the kernels are not built for (D =
+    8, 24, 48, 96: zero-padded to the next one, the true D's scale, sliced
+    back; storm_tpu's kernel takes every D up to 128), in bf16 and f32,
+    and the fused norm's d = 256 plans, each against its plain version.
+    D > 128 must raise."""
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from storm_tpu_torch.ops.fused_norm import (
+        NORM_PLANS, fused_add_layernorm, fused_add_layernorm_reference, norm_plan)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def launched(fn, variant):
+        before = _build.launch_counts()
+        out = fn()
+        diff = {k: v - before[k] for k, v in _build.launch_counts().items() if v != before[k]}
+        if diff != {variant: 1}:
+            raise AssertionError(f"expected one launch of {variant}, got {diff}")
+        return out
+
+    for d in (8, 24, 48, 96):
+        for dt in (bf16, f32):
+            shape = (2, 2, 300, d)
+            q, k, v = (randn(*shape, dtype=dt) for _ in range(3))
+            want = flash_attention_reference(q.float(), k.float(), v.float())
+            variant = "flash_attention_sm90" if dt == bf16 else "flash_attention"
+            got = launched(lambda: flash_attention(q, k, v), variant)
+            if got.shape != shape:
+                raise AssertionError(f"flash at D = {d}: output {tuple(got.shape)}")
+            check(rows, variant, f"2x2x300x{d}_padded" + ("_bf16" if dt == bf16 else ""),
+                  rel_err(got, want), 1e-2 if dt == bf16 else 1e-5, "rel")
+    t = torch.zeros(1, 1, 8, 160, device="cuda", dtype=bf16)
+    try:
+        flash_attention(t, t, t)
+    except ValueError as e:
+        log(f"  flash at D = 160 raises: {e}")
+    else:
+        raise AssertionError("flash attention at D = 160 must raise")
+    norm = "residual_layernorm_sm90"
+    m = 8 * LS_SEQ
+    for dt, tol, metric in ((bf16, 1e-2, "rel"), (f32, 1e-4, "abs")):
+        x, r = randn(m, LS_DIM, dtype=dt), randn(m, LS_DIM, dtype=dt)
+        gg, bb = randn(LS_DIM, dtype=dt), randn(LS_DIM, dtype=dt)
+        plan = norm_plan(LS_DIM, dt, x.data_ptr(), r.data_ptr())
+        if plan[:2] != NORM_PLANS[(dt, LS_DIM)] or plan[2] != 1:
+            raise AssertionError(f"d = 256 {dt}: plan {plan}")
+        wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
+        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb), norm)
+        err = abs_err if metric == "abs" else rel_err
+        name = str(dt).replace("torch.", "")
+        check(rows, norm + ".y", f"longseq {m}x{LS_DIM} {name} plan {plan[:2]}",
+              err(y, wy), 1e-2 if dt == bf16 else 1e-5, metric)
+        check(rows, norm + ".ln", f"longseq {m}x{LS_DIM} {name} plan {plan[:2]}",
+              err(o, wo), tol, metric)
+    torch.cuda.synchronize()
+
+
+def longseq_times(torch) -> dict:
+    """The three kernels over one longseq_encoder forward's worth of calls
+    at B = 8 (bf16, CUDA-graph replay): flash attention 4 x (8, 2, 2048,
+    128) against ``scaled_dot_product_attention``; w8a16 over the 26 dense
+    layers (embed 16384x64@64x256, per block 4 x 16384x256@256x256,
+    16384x256@256x1024, 16384x1024@1024x256, head 8x256@256x10) against
+    ``matmul`` + scale; the fused norm 4 x (16384, 256), bf16 g and b,
+    against add + ``layer_norm``; each beside its plain version and its
+    bound. The norm also on the runtime-d plan, for the d = 256 plan's
+    gain. Returns kernel name -> times."""
+    import torch.nn.functional as F
+
+    from storm_tpu_torch.ops import fused_norm
+    from storm_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from storm_tpu_torch.ops.quant_matmul import w8a16_matmul, w8a16_matmul_reference
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def qweight(k, n):
+        return (torch.randint(-127, 128, (k, n), device="cuda", generator=g, dtype=torch.int8),
+                torch.rand(n, device="cuda", generator=g) * 1e-2)
+
+    m = B * LS_SEQ
+    out = {}
+    acalls = [tuple(randn(B, LS_HEADS, LS_SEQ, LS_HDIM) for _ in range(3))
+              for _ in range(LS_DEPTH)]
+    bm, by = calls_bound([(tensor_bytes(q, k, v, q), 4.0 * B * LS_HEADS * LS_SEQ ** 2 * LS_HDIM)
+                          for q, k, v in acalls], PEAK_BF16_FLOPS)
+    out["flash_attention_sm90"] = {
+        "shapes": f"{LS_DEPTH} x ({B}, {LS_HEADS}, {LS_SEQ}, {LS_HDIM})",
+        "ms": time_ms(torch, lambda: [flash_attention(*c) for c in acalls]),
+        "plain_ms": time_ms(torch, lambda: [flash_attention_reference(*c) for c in acalls]),
+        "library_ms": time_ms(torch, lambda: [F.scaled_dot_product_attention(*c)
+                                             for c in acalls]),
+        "bound_ms": bm, "bound_by": by, "calls": len(acalls)}
+    xs = {LS_FEAT: randn(m, LS_FEAT), LS_DIM: randn(m, LS_DIM), LS_MLP: randn(m, LS_MLP)}
+    shapes = [(LS_FEAT, LS_DIM)]
+    for _ in range(LS_DEPTH):
+        shapes += [(LS_DIM, LS_DIM)] * 4 + [(LS_DIM, LS_MLP), (LS_MLP, LS_DIM)]
+    mcalls = [(xs[k], *qweight(k, n)) for k, n in shapes]
+    mcalls.append((randn(B, LS_DIM), *qweight(LS_DIM, LS_CLASSES)))
+    wdq = [q.to(bf16) for _, q, _ in mcalls]
+    bm, by = calls_bound([(tensor_bytes(x, q, s) + x.shape[0] * q.shape[1] * 2,
+                           2.0 * x.shape[0] * q.shape[0] * q.shape[1]) for x, q, s in mcalls],
+                         PEAK_BF16_FLOPS)
+    out["w8a16_matmul_sm90"] = {
+        "shapes": "embed 16384x64@64x256, 4 x (4 x 16384x256@256x256, 16384x256@256x1024, "
+                  "16384x1024@1024x256), head 8x256@256x10",
+        "ms": time_ms(torch, lambda: [w8a16_matmul(*c) for c in mcalls]),
+        "plain_ms": time_ms(torch, lambda: [w8a16_matmul_reference(*c) for c in mcalls]),
+        "library_ms": time_ms(torch, lambda: [torch.matmul(c[0], w) * c[2]
+                                             for c, w in zip(mcalls, wdq)]),
+        "bound_ms": bm, "bound_by": by, "calls": len(mcalls)}
+    norms = [(randn(m, LS_DIM), randn(m, LS_DIM), randn(LS_DIM), randn(LS_DIM))
+             for _ in range(LS_DEPTH)]
+    bm, by = calls_bound([(tensor_bytes(x, r, gg, bb, x, x), 10.0 * x.numel())
+                          for x, r, gg, bb in norms], PEAK_F32_FLOPS)
+    vec = fused_norm.VEC[bf16]
+    runtime_plan = (32 * max(1, -(-LS_DIM // (32 * fused_norm.RUNTIME_VECTORS[bf16] * vec))),
+                    fused_norm.RUNTIME_VECTORS[bf16], 1, 1)
+    with mock.patch.object(fused_norm, "norm_plan", lambda *a: runtime_plan):
+        runtime_ms = time_ms(torch, lambda: [fused_norm.fused_add_layernorm(*c) for c in norms])
+    out["residual_layernorm_sm90"] = {
+        "shapes": f"{LS_DEPTH} x ({m}, {LS_DIM}), bf16 g and b, plan "
+                  f"{fused_norm.NORM_PLANS[(bf16, LS_DIM)]}",
+        "ms": time_ms(torch, lambda: [fused_norm.fused_add_layernorm(*c) for c in norms]),
+        "runtime_plan_ms": runtime_ms, "runtime_plan": runtime_plan[:2],
+        "plain_ms": time_ms(torch, lambda: [fused_norm.fused_add_layernorm_reference(*c, 1e-6)
+                                           for c in norms]),
+        "library_ms": time_ms(torch, lambda: [F.layer_norm(x + r, (LS_DIM,), w, b, 1e-6)
+                                             for x, r, w, b in norms]),
+        "bound_ms": bm, "bound_by": by, "calls": len(norms)}
+    torch.cuda.synchronize()
+    for name, t in out.items():
+        log(f"  time {name:21s} per longseq_encoder forward at B={B}, {t['shapes']} "
+            f"({t['calls']} calls, CUDA graph): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    t = out["residual_layernorm_sm90"]
+    log(f"  time residual_layernorm_sm90 at {m}x{LS_DIM} bf16: d = 256 plan "
+        f"{fused_norm.NORM_PLANS[(bf16, LS_DIM)]} {t['ms']:.4f} ms against the runtime-d plan "
+        f"{t['runtime_plan']} {t['runtime_plan_ms']:.4f} ms")
+    return out
+
+
 # ---- phase 4: forward parity --------------------------------------------------
 
 
@@ -701,19 +884,31 @@ KERNEL_FUNCS = {"w8a16_matmul_sm90": "w8a16_sm90_kernel<", "w8a16_matmul": "w8a1
 
 def profiled_kernels(torch, fn) -> tuple:
     """Kernels the card ran in ``fn()`` under ``torch.profiler``: counts by
-    variant and of all CUDA kernels, and their device ms alike."""
+    variant and of all CUDA kernels, and their device ms alike. The
+    profiler can miss the first kernels it records on a stream (one to
+    three of a replay's, seen on the card late in this script): ``fn()``
+    runs once to warm it, then a spin kernel, then ``fn()`` again, and only
+    what the card ran after the spin is counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                      and "Memcpy" not in ev.name and "Memset" not in ev.name),
+                     key=lambda ev: ev.time_range.start)
+    spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
+    if not spins:
+        raise AssertionError("the profiler recorded no separating spin kernel")
     counts = dict.fromkeys(KERNEL_FUNCS, 0)
     counts["all"] = 0
     ms = dict.fromkeys(counts, 0.0)
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or "Memcpy" in ev.name or "Memset" in ev.name:
-            continue
+    for ev in kernels[spins[-1] + 1:]:
         t = (ev.time_range.end - ev.time_range.start) / 1e3
         for name in ["all"] + [n for n, f in KERNEL_FUNCS.items() if f in ev.name]:
             counts[name] += 1
@@ -1600,15 +1795,15 @@ def replay_equals_eager(engine, x: np.ndarray, label: str) -> None:
     log(f"  {label}: graph replay bit-identical to the same engine's eager forward")
 
 
-def forward_times(torch, engine, label: str, card: str) -> dict:
+def forward_times(torch, engine, label: str, card: str, padded: int = B) -> dict:
     from storm_tpu_torch.infer.graphs import eager_ms as graph_eager_ms
     from storm_tpu_torch.infer.graphs import replay_ms
 
-    bucket = engine.graph_for(B)
+    bucket = engine.graph_for(padded)
     t = {"replay_ms": replay_ms(bucket), "eager_ms": graph_eager_ms(bucket)}
     counts, t["profiled_ms"] = profiled_kernels(torch, bucket.replay)
     ours = {n: round(v, 4) for n, v in t["profiled_ms"].items() if n in KERNEL_FUNCS and v}
-    log(f"  {label} B={B}: forward by graph replay {t['replay_ms']:.4f} ms (device), eager "
+    log(f"  {label} B={padded}: forward by graph replay {t['replay_ms']:.4f} ms (device), eager "
         f"{t['eager_ms']:.4f} ms (wall, host included); one profiled replay: "
         f"{counts['all']} kernels, {t['profiled_ms']['all']:.4f} ms of kernel time, "
         f"ours {ours} ({sum(ours.values()):.4f} ms); on {card}")
@@ -1668,6 +1863,320 @@ def full_width_families(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 9: longseq_encoder at S = 2048, engine-direct and served with QoS ------
+
+# The served burst: records spread over the three lanes and two tenants.
+LS_RECORDS = 48
+LS_TENANTS = ("gold", "free")
+LS_LANES = ("high", "normal", "best_effort")
+
+
+def longseq_config(name: str = "longseq_encoder"):
+    from storm_tpu_torch.config import ModelConfig
+
+    shape = (LS_SEQ, LS_FEAT) if name == "longseq_encoder" else (64, 16)
+    return ModelConfig(name=name, dtype="bfloat16", weights="int8_fused",
+                       num_classes=LS_CLASSES, input_shape=shape)
+
+
+def longseq_batch(**kw):
+    """The zoo's batch policy for longseq (max_batch 32, buckets 8 and 32)."""
+    from storm_tpu_torch.config import BatchConfig
+
+    return BatchConfig(max_batch=32, buckets=(8, 32), **kw)
+
+
+def longseq_engine_direct(torch, card: str) -> dict:
+    """Phase 9a: longseq_encoder bf16 int8_fused (seeded) engine-direct at
+    B = 8 and 32: the launch tally of the warm-up and two forwards of each
+    (26 / 4 / 4 per forward, counts zeroed just before building, checked
+    by a profiled replay of each bucket), the kernel path against the
+    plain path, each replay bit-identical to eager, the forward by replay
+    with our kernels' share. Then longseq_tiny (4 heads of D = 8) the same
+    way at B = 8, and in float32 kernel path against plain path."""
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.infer.engine import InferenceEngine, clear_engines
+    from storm_tpu_torch.models import build_model
+    from storm_tpu_torch.ops import _build
+
+    clear_engines()
+    _build.reset_launch_counts()
+    engine = InferenceEngine(longseq_config(), longseq_batch(), device="cuda")
+    engine.warmup()
+    rng = np.random.RandomState(12)
+    xs = {b: rng.randn(b, LS_SEQ, LS_FEAT).astype(np.float32) for b in (8, 32)}
+    for b, x in xs.items():
+        for _ in range(2):
+            probs = engine.predict(x)
+        if probs.shape != (b, LS_CLASSES) or not np.isfinite(probs).all() or \
+                np.abs(probs.sum(-1) - 1).max() > 1e-3:
+            raise AssertionError(f"longseq_encoder B={b}: predictions not finite probabilities")
+    launches = check_tally(torch, engine, LS_LAUNCHES, _build.launch_counts(),
+                           "longseq_encoder")
+    log(f"  longseq_encoder: launch tally {launches} for {engine.forwards} forwards")
+    out = {"launches": launches, "forwards": engine.forwards, "times": {}, "parity": {}}
+    for b, x in xs.items():
+        got, want = kernel_vs_plain(torch, engine.model, torch.from_numpy(x).to(
+            torch.bfloat16).cuda(), 5e-2, f"longseq_encoder int8_fused bfloat16 B={b}")
+        out["parity"][b] = {"rel": rel_err(got, want),
+                            "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum())}
+        replay_equals_eager(engine, x, f"longseq_encoder B={b}")
+        out["times"][b] = forward_times(torch, engine, "longseq_encoder", card, padded=b)
+    del engine
+    clear_engines()
+    _build.reset_launch_counts()
+    tiny = InferenceEngine(longseq_config("longseq_tiny"),
+                           BatchConfig(max_batch=B, buckets=(B,)), device="cuda")
+    tiny.warmup()
+    x = rng.randn(B, 64, 16).astype(np.float32)
+    for _ in range(2):
+        tiny.predict(x)
+    out["tiny_launches"] = check_tally(torch, tiny, LS_TINY_LAUNCHES, _build.launch_counts(),
+                                       "longseq_tiny")
+    out["tiny_forwards"] = tiny.forwards
+    kernel_vs_plain(torch, tiny.model, torch.from_numpy(x).to(torch.bfloat16).cuda(), 5e-2,
+                    "longseq_tiny int8_fused bfloat16 (D = 8)")
+    replay_equals_eager(tiny, x, "longseq_tiny")
+    model = build_model("longseq_tiny", device="cuda", weights="int8_fused",
+                        dtype=torch.float32, seed=0)
+    kernel_vs_plain(torch, model, torch.from_numpy(x).cuda(), 1e-4,
+                    "longseq_tiny int8_fused float32 (D = 8)")
+    del tiny, model
+    clear_engines()
+    return out
+
+
+def longseq_records(n: int = LS_RECORDS) -> list:
+    """``(key, payload, lane)`` of ``n`` seeded (1, 2048, 64) records,
+    keyed ``tenant:lane`` round the lanes and tenants (values to 3
+    decimals: shorter JSON, the same floats on both sides)."""
+    rng = np.random.RandomState(13)
+    out = []
+    for i in range(n):
+        x = np.round(rng.randn(1, LS_SEQ, LS_FEAT), 3)
+        lane, tenant = LS_LANES[i % 3], LS_TENANTS[(i // 3) % 2]
+        out.append((f"{tenant}:{lane}".encode(), json.dumps({"instances": x.tolist()}), lane))
+    return out
+
+
+async def serve_longseq(records: list, continuous: bool = True, shed=None) -> dict:
+    """longseq_encoder through MemoryBroker -> 2x BrokerSpout -> 4x
+    InferenceBolt -> 2x BrokerSink (+ dead-letter sink), QoS on at the
+    spout and the bolt (the lane passed through to the sink), the given
+    batching mode, and one ragged poison record (key ``gold:high``) after
+    the first half; records wait at most 100 ms for a batch (a task
+    decodes its inbox's records back to back on the event loop, so on an
+    idle card a shorter wait ships each task's records alone). With
+    ``shed`` (a QosConfig of low thresholds) a
+    LoadShedController is wired as storm_tpu's main.py wires it, each
+    bolt task's inbox holds 8 tuples and the sink's SLO is 50 ms, so the
+    burst trips it. The engine's dispatch is wrapped to keep every batch
+    it is given. Each run starts from a fresh queue registry (a queue's
+    metrics bind to the first topology that uses it)."""
+    from storm_tpu_torch.config import Config, OffsetsConfig, QosConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.infer.continuous import _reset_registry
+    from storm_tpu_torch.qos import LoadShedController, ShedPolicy
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+
+    _reset_registry()
+    qos = shed or QosConfig(enabled=True)
+    cfg = Config()
+    if shed is not None:
+        cfg.topology.inbox_capacity = 8
+        cfg.tracing.slo_ms = 50.0
+    broker = MemoryBroker(default_partitions=2)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None), qos=qos),
+        parallelism=cfg.topology.spout_parallelism)
+    tb.set_bolt("inference-bolt", InferenceBolt(
+        longseq_config(), longseq_batch(max_wait_ms=100.0, continuous=continuous),
+        device="cuda", passthrough=("qos_lane",), qos=qos),
+        parallelism=cfg.topology.inference_parallelism).shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", cfg.sink),
+                parallelism=cfg.topology.sink_parallelism).shuffle_grouping("inference-bolt")
+    tb.set_bolt("dlq-bolt", BrokerSink(broker, "dead-letter", cfg.sink)) \
+        .shuffle_grouping("inference-bolt", stream="dead_letter")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-longseq", cfg, tb.build())
+    engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+    batches = []
+    dispatch = engine.dispatch
+
+    def recording_dispatch(parts):
+        batches.append(np.concatenate([np.array(p, copy=True) for p in parts]))
+        return dispatch(parts)
+
+    engine.dispatch = recording_dispatch
+    shedder = None
+    if shed is not None:
+        shedder = LoadShedController(rt, ShedPolicy.from_qos(
+            shed, "inference-bolt", "kafka-bolt")).start()
+    spouts = [e.spout for e in rt.spout_execs["kafka-spout"]]
+    t0 = time.perf_counter()
+    for i, (key, payload, _lane) in enumerate(records):
+        broker.produce("input", payload, key=key)
+        if i == len(records) // 2:
+            broker.produce("input", '{"instances": [[1.0, 2.0], [3.0]]}', key=b"gold:high")
+    total = len(records) + 1
+    deadline = time.monotonic() + 300
+    while (broker.topic_size("output") + broker.topic_size("dead-letter")
+           + sum(s.dropped for s in spouts)) < total:
+        if time.monotonic() > deadline:
+            raise TimeoutError("longseq served path: records did not all come out in 300 s")
+        await asyncio.sleep(0.005)
+    wall = time.perf_counter() - t0
+    await rt.drain(timeout_s=60)
+    decisions = []
+    if shedder is not None:
+        await shedder.stop()
+        decisions = list(shedder.decisions)
+    del engine.dispatch
+    snap = rt.metrics.snapshot()
+    errors = list(rt.errors)
+    dropped = sum(s.dropped for s in spouts)
+    outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+    await cluster.shutdown()
+    _reset_registry()
+    return {"outs": outs, "dlq": dlq, "snap": snap, "errors": errors, "wall": wall,
+            "batches": batches, "decisions": decisions, "dropped": dropped}
+
+
+def longseq_served(torch, card: str) -> dict:
+    """Phase 9b: longseq_encoder served through 2/4/2 with QoS (three lanes,
+    two tenants) and continuous batching, native codec. Gates: every good
+    record a prediction, each output record byte-identical to the native
+    encoding of the engine's direct forward of the batch it rode in; the
+    poison record dead-lettered; the per-lane e2e histograms; a batch
+    that merged tasks (``coalesced_sources`` above the batch count); the
+    launch tally 26 / 4 / 4 per forward. Then the shed turn: the real
+    LoadShedController trips on the burst; its level rises; best-effort
+    records come back Overloaded and acked; every high record is served;
+    no record lost (predictions + Overloaded + dead letters + dropped at
+    the spout's admission = produced). Then, information only, the same
+    burst with continuous off and on in turns."""
+    from storm_tpu_torch.api.schema import decode_predictions
+    from storm_tpu_torch.config import QosConfig
+    from storm_tpu_torch.infer.engine import clear_engines, shared_engine
+    from storm_tpu_torch.native import format_predictions
+    from storm_tpu_torch.ops import _build
+
+    records = longseq_records()
+    n = len(records)
+    clear_engines()
+    _build.reset_launch_counts()
+    r = asyncio.run(serve_longseq(records))
+    wrapper_counts = _build.launch_counts()
+    engine = shared_engine(longseq_config(), longseq_batch(), device="cuda")
+    assert_numeric_flags(torch, "longseq served path, engine built")
+    forwards = engine.forwards
+    launches = check_tally(torch, engine, LS_LAUNCHES, wrapper_counts, "longseq served path")
+    outs, dlq, snap = r["outs"], r["dlq"], r["snap"]
+    if r["errors"]:
+        raise AssertionError(f"longseq served path reported errors: {r['errors'][:3]}")
+    if len(outs) != n or len(dlq) != 1 or snap["inference-bolt"]["dead_lettered"] != 1:
+        raise AssertionError(f"longseq served path: {len(outs)} outputs, {len(dlq)} dead "
+                             f"letters for {n} records and one poison")
+    preds = np.concatenate([decode_predictions(rec.value).data for rec in outs])
+    if preds.shape != (n, LS_CLASSES) or not np.isfinite(preds).all() or \
+            np.abs(preds.sum(1) - 1).max() > 1e-3:
+        raise AssertionError(f"longseq predictions {preds.shape} not finite probabilities")
+    want = []
+    for batch in r["batches"]:
+        want += [format_predictions(row[None]) for row in engine.predict(batch)]
+    got = [rec.value.decode() if isinstance(rec.value, bytes) else rec.value for rec in outs]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"longseq served path: {len(set(got) - set(want))} of "
+                             f"{len(got)} records are not the bytes of the engine's direct "
+                             f"forward of their batch")
+    sink, infer = snap["kafka-bolt"], snap["inference-bolt"]
+    lanes = {ln: sink.get(f"e2e_latency_ms_{ln}", {}).get("count", 0) for ln in LS_LANES}
+    if lanes != {ln: n // 3 for ln in LS_LANES}:
+        raise AssertionError(f"per-lane e2e histograms {lanes}")
+    n_batches = infer["batch_fill"]["count"]
+    if infer["coalesced_sources"] <= n_batches:
+        raise AssertionError(f"no batch merged tasks: {infer['coalesced_sources']} sources "
+                             f"over {n_batches} batches")
+    e2e = sink["e2e_latency_ms"]
+    res = {"launches": launches, "forwards": forwards, "e2e_p50_ms": e2e["p50"],
+           "e2e_p99_ms": e2e["p99"], "records_per_s": n / r["wall"],
+           "batches": [len(b) for b in r["batches"]],
+           "coalesced_sources": infer["coalesced_sources"], "batch_count": n_batches,
+           "batch_fill_p50": infer["batch_fill"]["p50"],
+           "e2e_p50_by_lane": {ln: sink[f"e2e_latency_ms_{ln}"]["p50"] for ln in LS_LANES},
+           "decode_ms_p50": infer["decode_ms"]["p50"]}
+    log(f"  longseq served (QoS, continuous): {n} predictions + 1 dead letter in "
+        f"{len(r['batches'])} batches {res['batches']}, every record byte-identical to the "
+        f"native encoding of the engine's direct forward of its batch; "
+        f"{infer['coalesced_sources']} sources over {n_batches} batches; per-lane e2e "
+        f"counts {lanes}; launch tally {launches} for {forwards} forwards")
+    log(f"  longseq served on {card}: e2e p50 {e2e['p50']:.3f} ms, p99 {e2e['p99']:.3f} ms, "
+        f"{res['records_per_s']:.3f} records/s; p50 by lane {res['e2e_p50_by_lane']}; "
+        f"batch_fill p50 {res['batch_fill_p50']:.3f}; bolt decode_ms p50 "
+        f"{res['decode_ms_p50']:.3f}")
+
+    # The shed turn.
+    shed_qos = QosConfig(enabled=True, shed_interval_s=0.02, shed_inbox_frac=0.25,
+                         shed_breach_rate=1.0, shed_hot_steps=1, shed_calm_steps=1000)
+    s = asyncio.run(serve_longseq(records, shed=shed_qos))
+    if s["errors"]:
+        raise AssertionError(f"shed turn reported errors: {s['errors'][:3]}")
+    msgs = [json.loads(rec.value) for rec in s["outs"]]
+    over = [m for m in msgs if m.get("overloaded")]
+    served = [m for m in msgs if "predictions" in m]
+    snap = s["snap"]
+    ups = [d for d in s["decisions"] if d[0] == "shed"]
+    if not ups:
+        raise AssertionError(f"shed turn: the controller never raised its level "
+                             f"({s['decisions']})")
+    if not any(m["lane"] == "best_effort" for m in over):
+        raise AssertionError(f"shed turn: no best-effort record came back Overloaded "
+                             f"({len(over)} Overloaded, {s['dropped']} dropped at the spout)")
+    if any(m["lane"] == "high" for m in over) or \
+            snap["kafka-bolt"].get("e2e_latency_ms_high", {}).get("count") != n // 3 or \
+            snap.get("qos", {}).get("shed_lane_high", 0):
+        raise AssertionError("shed turn: a high record was not served")
+    if len(served) + len(over) + len(s["dlq"]) + s["dropped"] != n + 1 or len(s["dlq"]) != 1:
+        raise AssertionError(f"shed turn lost records: {len(served)} predictions, "
+                             f"{len(over)} Overloaded, {len(s['dlq'])} dead letters, "
+                             f"{s['dropped']} dropped at admission, of {n + 1}")
+    infer, spout = snap["inference-bolt"], snap["kafka-spout"]
+    if infer.get("shed_rejected", 0) != len(over) or spout.get("tree_failed", 0) or \
+            spout["tree_acked"] != n + 1 - s["dropped"]:
+        raise AssertionError(f"shed turn: Overloaded records not acked once each "
+                             f"(shed_rejected {infer.get('shed_rejected')}, spout {spout})")
+    res["shed"] = {"decisions": s["decisions"], "predictions": len(served),
+                   "overloaded": len(over), "overloaded_lanes": sorted({m["lane"] for m in over}),
+                   "dropped_at_spout": s["dropped"], "dead_letters": len(s["dlq"]),
+                   "qos": snap.get("qos", {})}
+    log(f"  shed turn: decisions {s['decisions']}; {len(served)} predictions, {len(over)} "
+        f"Overloaded (lanes {res['shed']['overloaded_lanes']}, acked), {s['dropped']} dropped "
+        f"at the spout's admission, 1 dead letter: all {n + 1} records accounted for; every "
+        f"high record served")
+
+    # Information only: the burst with continuous batching off and on, in turns.
+    turns = []
+    for cont in (False, True, True, False):
+        t = asyncio.run(serve_longseq(records, continuous=cont))
+        if len(t["outs"]) != n or t["errors"]:
+            raise AssertionError(f"continuous={cont} turn: {len(t['outs'])} outputs, errors "
+                                 f"{t['errors'][:3]}")
+        sink, infer = t["snap"]["kafka-bolt"], t["snap"]["inference-bolt"]
+        turns.append({"continuous": cont, "e2e_p50_ms": sink["e2e_latency_ms"]["p50"],
+                      "records_per_s": n / t["wall"],
+                      "batch_fill_p50": infer["batch_fill"]["p50"],
+                      "batches": len(t["batches"])})
+        log(f"  turn continuous={str(cont):5s}: e2e p50 {turns[-1]['e2e_p50_ms']:.3f} ms, "
+            f"{turns[-1]['records_per_s']:.3f} records/s, batch_fill p50 "
+            f"{turns[-1]['batch_fill_p50']:.3f} over {turns[-1]['batches']} batches")
+    res["turns"] = turns
+    del engine
+    clear_engines()
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -1710,8 +2219,13 @@ def run() -> int:
     failed = [r for r in rows if not r["pass"]]
     if failed:
         raise AssertionError(f"kernel parity failed: {failed}")
+    longseq_kernel_cases(torch, rows)
+    failed = [r for r in rows if not r["pass"]]
+    if failed:
+        raise AssertionError(f"kernel parity failed: {failed}")
     times = time_kernels(torch)
     mixer = mixer_times(torch)
+    longseq = longseq_times(torch)
 
     log("[4] forward parity, ViT-B/16 int8_fused")
     forward_parity(torch)
@@ -1733,6 +2247,15 @@ def run() -> int:
     families = full_width_families(torch, card)
     log(json.dumps({"served": {"vit_b16": served, "moe_vit_b16": moe},
                     "families": families, "card": card}, default=float))
+
+    log("[9a] longseq_encoder at S = 2048, bf16 int8_fused, engine-direct at B = 8 and 32; "
+        "longseq_tiny (D = 8)")
+    ls_direct = longseq_engine_direct(torch, card)
+    log("[9b] longseq_encoder served: 2x spout -> 4x InferenceBolt -> 2x sink, QoS lanes, "
+        "continuous batching, shedding")
+    ls_served = longseq_served(torch, card)
+    log(json.dumps({"longseq": {"engine_direct": ls_direct, "served": ls_served},
+                    "card": card}, default=float))
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -1757,6 +2280,11 @@ def run() -> int:
         paths.update({f"{p} int8_fused (phase 8b)": f["launches"][name]
                       for p, f in families.items()})
         paths.update({p: c[name] for p, c in digits["launches"].items()})
+        paths.update({
+            "longseq_encoder int8_fused B=8 and 32 (phase 9a)": ls_direct["launches"][name],
+            "longseq_tiny int8_fused (phase 9a)": ls_direct["tiny_launches"][name],
+            "longseq_encoder served, QoS + continuous (phase 9b)":
+                ls_served["launches"][name]})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],
@@ -1767,6 +2295,8 @@ def run() -> int:
             entry["digits"] = digits["times"][name]
         if name in mixer:
             entry["mixer_s16"] = mixer[name]
+        if name in longseq:
+            entry["longseq_encoder"] = longseq[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -11,7 +11,8 @@ call it.
 
 A malformed payload raises :class:`SchemaError`, which the inference
 operator turns into a :class:`DeadLetter` record — never a silent
-``null``.
+``null``. A record shed under overload is answered with an
+:class:`Overloaded` record.
 """
 
 from __future__ import annotations
@@ -57,6 +58,26 @@ class DeadLetter:
     def to_json(self) -> str:
         return json.dumps(
             {"error": self.error, "stage": self.stage, "payload": self.payload[:4096]})
+
+
+@dataclass(frozen=True)
+class Overloaded:
+    """The typed rejection the inference operator emits for a record that
+    load shedding drops (QoS): an immediate, parseable answer instead of a
+    timeout, told apart from a :class:`DeadLetter` and from predictions by
+    its ``"overloaded"`` key. Its JSON is storm_tpu's, byte for byte."""
+
+    lane: str = ""
+    tenant: str = ""
+    shed_level: int = 0
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "overloaded": True,
+            "lane": self.lane,
+            "tenant": self.tenant,
+            "shed_level": self.shed_level,
+        })
 
 
 def _to_dense_f32(obj: Any) -> np.ndarray:

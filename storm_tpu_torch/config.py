@@ -1,6 +1,6 @@
 """Typed configuration, copied from ``storm_tpu/config.py`` for the fields
-the port reads: model, batching, spout offsets, sink delivery and
-topology knobs, with their validation."""
+the port reads: model, batching, spout offsets, sink delivery, topology
+knobs, QoS and the sink's SLO, with their validation."""
 
 from __future__ import annotations
 
@@ -14,9 +14,9 @@ class BatchConfig:
     """Micro-batching policy for the inference operator: dispatch when
     ``max_batch`` instances wait or the oldest has waited ``max_wait_ms``;
     pad to the smallest of ``buckets`` that fits. The engine's fields
-    (``pipeline_depth`` to ``watchdog_trips``) are storm_tpu's; its
-    ``continuous``, ``starvation_rounds`` and ``frame_egress`` belong to
-    modules the port does not have yet."""
+    (``pipeline_depth`` to ``watchdog_trips``) are storm_tpu's, and so are
+    ``continuous`` and ``starvation_rounds``; its ``frame_egress`` belongs
+    to record frames, which the port does not have yet."""
 
     max_batch: int = 256
     max_wait_ms: float = 5.0
@@ -46,6 +46,14 @@ class BatchConfig:
     # Consecutive watchdog trips that quarantine the engine (it leaves the
     # shared-engine cache and refuses dispatches). 0 = never.
     watchdog_trips: int = 3
+    # Per-engine continuous batching (infer/continuous.py): batch formation
+    # moves out of the operator tasks into one slot-level queue per shared
+    # engine; every task co-batches there, and a dispatcher thread refills
+    # a ring slot the moment it frees. False keeps the per-task batchers.
+    continuous: bool = False
+    # The continuous queue's fairness bound: a tenant:lane key passed over
+    # this many batch formations is served first in the next one.
+    starvation_rounds: int = 4
 
     def __post_init__(self) -> None:
         if int(self.max_batch) < 1:
@@ -93,7 +101,7 @@ class ModelConfig:
     checkpoint: Optional[str] = None
     dtype: str = "bfloat16"  # compute dtype
     num_classes: int = 1000
-    input_shape: tuple = (224, 224, 3)  # per-instance HWC
+    input_shape: tuple = (224, 224, 3)  # per-instance HWC, or (seq, features)
     seed: int = 0
     # Extra keyword arguments for the registry's model function.
     extra: dict = dataclasses.field(default_factory=dict)
@@ -166,9 +174,111 @@ class TopologyConfig:
 
 
 @dataclass
+class TracingConfig:
+    """The part of storm_tpu's tracing config the port reads: the sink's
+    SLO (its ``slo_breaches`` counter, which the shed controller reads).
+    Sampled traces and the flight recorder are not ported yet."""
+
+    # e2e latency above which the sink counts an SLO breach (0 = off).
+    slo_ms: float = 0.0
+
+
+@dataclass
+class QosConfig:
+    """Admission control and QoS: per-tenant token buckets at the spout
+    edge, weighted priority lanes with earliest-deadline-first batch
+    formation in the inference operator, and a load-shedding controller
+    that rejects best-effort traffic while the topology is overloaded.
+
+    Off by default. A record's tenant and lane ride on its broker key,
+    ``tenant:lane`` (both optional): ``b"gold:high"`` is tenant *gold* in
+    lane *high*, ``b"gold"`` tenant *gold* in ``default_lane``, and a
+    key-less record is tenant = its topic, lane = ``default_lane``.
+    """
+
+    enabled: bool = False
+    # Priority lanes, highest first; keys naming an unknown lane (or none)
+    # fall into ``default_lane``.
+    lanes: tuple = ("high", "normal", "best_effort")
+    default_lane: str = "normal"
+    # Per-lane deadlines (ms after broker append), aligned with ``lanes``:
+    # batch formation is earliest-deadline-first over them.
+    lane_deadline_ms: tuple = (50.0, 200.0, 1000.0)
+    # Token-bucket admission at the spout edge: records/s per tenant
+    # (0 = unlimited), split evenly across spout tasks; ``tenant_rates``
+    # overrides the default per tenant.
+    tenant_rate: float = 0.0
+    tenant_burst_s: float = 1.0  # bucket depth, in seconds of rate
+    tenant_rates: dict = field(default_factory=dict)
+    # The shed controller: cadence, signal thresholds, hysteresis.
+    # ``shed_hot_steps`` consecutive hot intervals (any signal above its
+    # threshold) raise the level by one, ``shed_calm_steps`` calm ones
+    # (every signal below half its threshold) lower it. Level N sheds the
+    # N lowest-priority lanes; the top lane never sheds.
+    shed_interval_s: float = 1.0
+    shed_inbox_frac: float = 0.5   # inference inbox occupancy fraction
+    shed_wait_ms: float = 0.0      # batch-wait p95 threshold (0 = off)
+    shed_breach_rate: float = 1.0  # sink SLO breaches/s (needs tracing.slo_ms)
+    shed_hot_steps: int = 2
+    shed_calm_steps: int = 5
+    # storm_tpu routes shed lanes to this cheaper model through a cascade;
+    # the cascade is not ported, so a non-empty value is refused by the
+    # inference operator. "" rejects with a typed ``overloaded`` record.
+    degrade_model: str = ""
+
+    def __post_init__(self) -> None:
+        self.lanes = tuple(str(lane) for lane in self.lanes)
+        self.lane_deadline_ms = tuple(float(x) for x in self.lane_deadline_ms)
+        if not self.lanes or len(set(self.lanes)) != len(self.lanes):
+            raise ValueError("qos.lanes must be non-empty and unique")
+        if len(self.lane_deadline_ms) != len(self.lanes):
+            raise ValueError(
+                f"qos.lane_deadline_ms has {len(self.lane_deadline_ms)} "
+                f"entries for {len(self.lanes)} lanes")
+        if self.default_lane not in self.lanes:
+            raise ValueError(
+                f"qos.default_lane {self.default_lane!r} not in qos.lanes")
+        if self.shed_interval_s <= 0:
+            raise ValueError("qos.shed_interval_s must be > 0")
+        if self.shed_hot_steps < 1 or self.shed_calm_steps < 1:
+            raise ValueError("qos shed hot/calm steps must be >= 1")
+
+    # ---- lane helpers (one definition shared by spout, operator, shedder) ----
+
+    def lane_index(self, lane: Optional[str]) -> int:
+        """Priority index of ``lane`` (0 = highest); an unknown lane gets
+        the default lane's."""
+        try:
+            return self.lanes.index(lane)
+        except ValueError:
+            return self.lanes.index(self.default_lane)
+
+    def deadline_for(self, lane: Optional[str]) -> float:
+        return self.lane_deadline_ms[self.lane_index(lane)]
+
+    @property
+    def max_shed_level(self) -> int:
+        """Highest useful shed level: every lane but the top one shed."""
+        return len(self.lanes) - 1
+
+    def shed_eligible(self, lane: Optional[str], level: int) -> bool:
+        """Does shed ``level`` drop ``lane``? Level N sheds the N
+        lowest-priority lanes; the top lane never sheds."""
+        if level <= 0:
+            return False
+        shed_from = len(self.lanes) - min(int(level), self.max_shed_level)
+        return self.lane_index(lane) >= shed_from
+
+    def rate_for(self, tenant: str) -> float:
+        return float(self.tenant_rates.get(tenant, self.tenant_rate))
+
+
+@dataclass
 class Config:
     topology: TopologyConfig = field(default_factory=TopologyConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
     offsets: OffsetsConfig = field(default_factory=OffsetsConfig)
     sink: SinkConfig = field(default_factory=SinkConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    qos: QosConfig = field(default_factory=QosConfig)

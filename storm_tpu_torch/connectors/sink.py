@@ -1,11 +1,14 @@
 """Egress sink (the KafkaBolt equivalent), copied from
-``storm_tpu/connectors/sink.py`` without transactions, tracing and QoS
-lanes.
+``storm_tpu/connectors/sink.py`` without transactions and tracing.
 
 Delivery modes: 'async' (send with a completion callback, ack on success,
 report + fail on error), 'sync' (await, then ack/fail) and
 'fire_and_forget' (send and ack at once). Records the end-to-end (broker
-append -> delivered) latency histogram ``e2e_latency_ms``.
+append -> delivered) latency histogram ``e2e_latency_ms``; for a tuple
+that carries the QoS lane field (``qos_lane``), also its lane's
+``e2e_latency_ms_<lane>``; and with ``config.tracing.slo_ms`` set, counts
+each delivery slower than it in ``slo_breaches`` (the shed controller's
+breach-rate signal).
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ class BrokerSink(Bolt):
         m, cid = context.metrics, context.component_id
         self._latency = m.histogram(cid, "e2e_latency_ms")
         self._delivered = m.counter(cid, "delivered")
+        tracing = getattr(context.config, "tracing", None)
+        self._slo_ms = float(getattr(tracing, "slo_ms", 0.0) or 0.0)
+        self._m_breach = m.counter(cid, "slo_breaches")
+        # Per-lane e2e histograms, built the first time a lane arrives.
+        self._lane_latency: dict = {}
 
     async def _send(self, t: Tuple) -> None:
         value = t.get("message")
@@ -81,7 +89,17 @@ class BrokerSink(Bolt):
     def _ack_delivered(self, t: Tuple) -> None:
         self._delivered.inc()
         if t.root_ts:
-            self._latency.observe((time.perf_counter() - t.root_ts) * 1e3)
+            ms = (time.perf_counter() - t.root_ts) * 1e3
+            self._latency.observe(ms)
+            lane = t.get("qos_lane", None) if "qos_lane" in t.fields else None
+            if lane:
+                h = self._lane_latency.get(lane)
+                if h is None:
+                    h = self._lane_latency[lane] = self.context.metrics.histogram(
+                        self.context.component_id, f"e2e_latency_ms_{lane}")
+                h.observe(ms)
+            if self._slo_ms and ms > self._slo_ms:
+                self._m_breach.inc()
         self.collector.ack(t)
 
     async def flush(self) -> None:

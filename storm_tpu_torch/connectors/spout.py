@@ -1,6 +1,6 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
 ``storm_tpu/connectors/spout.py`` for the in-process broker, without
-chunks, frames, QoS admission, group coordination and tracing.
+chunks, frames, group coordination and tracing.
 
 Offsets are policy: 'latest' + ``max_behind=0`` starts at the log end and
 drops backlog; 'resume' commits on ack and resumes; 'earliest' replays
@@ -8,6 +8,13 @@ the log. Each record is emitted with ``msg_id=(partition, offset)``;
 failed trees are re-emitted from a replay queue before new fetches unless
 the freshness policy says they are too stale. Partitions are assigned to
 spout tasks round-robin by task index.
+
+With QoS on (``qos=QosConfig(enabled=True)``) each fetched record is
+classified from its key (``tenant:lane``) and run through the task's
+:class:`~storm_tpu_torch.qos.admission.AdmissionController`: a record not
+admitted (its tenant over quota, or its lane shed at the edge) is dropped
+with the cursor advanced, and the lane rides downstream as the declared
+``qos_lane`` field.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from __future__ import annotations
 import collections
 import time
 import uuid
-from typing import Any, Deque, Dict, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from storm_tpu_torch.config import OffsetsConfig
 from storm_tpu_torch.connectors.memory import MemoryBroker, Record
@@ -26,18 +33,34 @@ from storm_tpu_torch.runtime.tuples import Values
 class BrokerSpout(Spout):
     def __init__(self, broker: MemoryBroker, topic: str,
                  offsets: Optional[OffsetsConfig] = None,
-                 fetch_size: int = 256) -> None:
+                 fetch_size: int = 256, qos=None) -> None:
         self.broker = broker
         self.topic = topic
         self.offsets_cfg = offsets or OffsetsConfig()
         self.fetch_size = fetch_size
+        # QosConfig or None; a constructor argument because
+        # declare_output_fields runs when the topology is built.
+        self.qos = qos if (qos is not None and qos.enabled) else None
 
     def clone(self) -> "BrokerSpout":
         """Per-task instance sharing the broker handle."""
-        return type(self)(self.broker, self.topic, self.offsets_cfg, self.fetch_size)
+        return type(self)(self.broker, self.topic, self.offsets_cfg, self.fetch_size,
+                          self.qos)
+
+    def declare_output_fields(self):
+        if self.qos is not None:
+            return {"default": ("message", "qos_lane")}
+        return {"default": ("message",)}
 
     def open(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().open(context, collector)
+        # QoS admission, per task (the tenant's rate is split across tasks).
+        self._admission = None
+        if self.qos is not None:
+            from storm_tpu_torch.qos.admission import AdmissionController
+
+            self._admission = AdmissionController(
+                self.qos, parallelism=context.parallelism, metrics=context.metrics)
         # A random group per run unless the user pins one for resume.
         self.group = self.offsets_cfg.group_id or f"storm-tpu-torch-{uuid.uuid4()}"
         n_parts = self.broker.partitions_for(self.topic)
@@ -75,14 +98,33 @@ class BrokerSpout(Spout):
             records = self.broker.fetch(self.topic, p, self.positions[p], self.fetch_size)
             if not records:
                 continue
+            last_off = records[-1].offset
+            if self._admission is not None:
+                # Records not admitted are dropped with the cursor advanced.
+                records = self._admit_records(records)
             # Emit first, advance the cursor after: an exception mid-loop
             # must re-fetch the unemitted tail (duplicates are the safe
             # direction for at-least-once).
             for rec in records:
                 await self._emit(rec)
-            self.positions[p] = records[-1].offset + 1
+            self.positions[p] = last_off + 1
             return True
         return False
+
+    def _admit_records(self, records: List[Record]) -> List[Record]:
+        """The fetched records the admission controller admits; it counts
+        the others."""
+        admitted = []
+        for rec in records:
+            tenant, lane = self._admission.classify(rec.key, self.topic)
+            if self._admission.admit(tenant, lane)[0]:
+                admitted.append(rec)
+            else:
+                self.dropped += 1
+        return admitted
+
+    def _lane_of(self, rec: Record) -> str:
+        return self._admission.classify(rec.key, self.topic)[1]
 
     def _append_root_ts(self, rec: Record) -> float:
         """E2E ingress clock = broker append time, rebased onto
@@ -95,8 +137,12 @@ class BrokerSpout(Spout):
     async def _emit(self, rec: Record) -> None:
         msg_id = (rec.partition, rec.offset)
         self.pending[msg_id] = rec
-        await self.collector.emit(Values([rec.value.decode("utf-8", "replace")]),
-                                  msg_id=msg_id, root_ts=self._append_root_ts(rec))
+        vals = [rec.value.decode("utf-8", "replace")]
+        if self._admission is not None:
+            # Derived from the key again, so a replay carries the same lane.
+            vals.append(self._lane_of(rec))
+        await self.collector.emit(Values(vals), msg_id=msg_id,
+                                  root_ts=self._append_root_ts(rec))
 
     def ack(self, msg_id: Any) -> None:
         self.pending.pop(msg_id, None)

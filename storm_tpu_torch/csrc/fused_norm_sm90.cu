@@ -355,6 +355,7 @@ extern "C" int residual_layernorm_sm90(int dtype, int param_dtype, const void* x
   if (dtype == DTYPE_BF16) {
     using T = __nv_bfloat16;
     if (lanes == 8 && vectors == 1) return launch<T, 8, 1>(a);     // d = 64
+    if (lanes == 32 && vectors == 1) return launch<T, 32, 1>(a);   // d = 256
     if (lanes == 32 && vectors == 2) return launch<T, 32, 2>(a);   // d = 512
     if (lanes == 32 && vectors == 3) return launch<T, 32, 3>(a);   // d = 768
     if (lanes == 16 && vectors == 6) return launch<T, 16, 6>(a);   // d = 768, sweep
@@ -362,6 +363,7 @@ extern "C" int residual_layernorm_sm90(int dtype, int param_dtype, const void* x
   } else if (dtype == DTYPE_F32) {
     using T = float;
     if (lanes == 16 && vectors == 1) return launch<T, 16, 1>(a);   // d = 64
+    if (lanes == 32 && vectors == 2) return launch<T, 32, 2>(a);   // d = 256
     if (lanes == 32 && vectors == 4) return launch<T, 32, 4>(a);   // d = 512
     if (lanes == 32 && vectors == 6) return launch<T, 32, 6>(a);   // d = 768
     if (lanes % 32 == 0 && vectors == 12) return launch<T, 0, 12>(a);  // runtime d

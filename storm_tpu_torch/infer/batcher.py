@@ -1,5 +1,6 @@
 """Deadline-based micro-batcher, copied from ``storm_tpu/infer/batcher.py``
-without QoS lanes and depth statistics.
+(the QoS lanes' earliest-deadline-first batcher is
+:class:`storm_tpu_torch.qos.lanes.LaneBatcher`, on the same surface).
 
 Dispatch when ``max_batch`` instances are waiting or the oldest has waited
 ``max_wait_ms``. Pure accumulation logic; the operator owns timing and
@@ -24,6 +25,8 @@ class BatchItem:
     ts: float  # deadline clock: root (append) time when known
     # batcher-entry time: what the operator's batch_wait_ms is measured from
     enq: float = 0.0
+    # QoS priority lane (None outside QoS mode), for the lane batcher.
+    lane: Optional[str] = None
 
 
 @dataclass

@@ -1,8 +1,9 @@
 """The inference operator, the counterpart of ``storm_tpu/infer/operator.py``
-on its split-phase path. Still trimmed from it: QoS lanes and shedding,
-cascades, record frames and chunked tuples, continuous batching, tracing
-beyond the ``decode_ms`` and ``encode_ms`` spans and the flight recorder,
-the copy ledger, and ``swap_model``.
+on its split-phase path, with QoS lanes and shedding and continuous
+batching. Still trimmed from it: cascades (and with them
+``qos.degrade_model``), record frames and chunked tuples, tracing beyond
+the ``decode_ms`` and ``encode_ms`` spans and the flight recorder, the
+copy ledger, and ``swap_model``.
 
 Per tuple: decode the ``{"instances": ...}`` payload and check it against
 the model's input shape — a failure emits a :class:`DeadLetter` on the
@@ -19,6 +20,21 @@ When the engine's watchdog quarantines it, every task on that engine
 records it and takes a fresh engine from ``shared_engine`` (built once for
 them all) on a background thread, swapping it in once warm; batches
 dispatched meanwhile fail fast (``EngineQuarantined``) and replay.
+
+With QoS on (``qos=QosConfig(enabled=True)``) the batcher is the
+earliest-deadline-first :class:`~storm_tpu_torch.qos.lanes.LaneBatcher`,
+and while the shed level (gauge ``("qos", "shed_level")``) covers a
+tuple's lane, the tuple is answered before its decode with one
+:class:`Overloaded` record and acked (shed load is never replayed).
+``passthrough`` names input fields copied onto every output tuple
+(``("qos_lane",)`` carries the lane to the sink's per-lane histograms).
+
+With ``BatchConfig(continuous=True)`` the task forms no batches: it
+submits each record to its engine's shared queue
+(:func:`~storm_tpu_torch.infer.continuous.continuous_for`), where every
+task on the engine co-batches, and completes the record from a task of
+its own when the record's rows come back; each task keeps at most
+``max_inflight * max_batch`` rows outstanding.
 """
 
 from __future__ import annotations
@@ -28,13 +44,14 @@ import logging
 import threading
 import time
 import weakref
-from typing import Optional, Set
+from typing import Optional, Sequence, Set
 
 from storm_tpu_torch import native
 from storm_tpu_torch.api.schema import (
-    DeadLetter, SchemaError, decode_instances, encode_predictions)
-from storm_tpu_torch.config import BatchConfig, ModelConfig
+    DeadLetter, Overloaded, SchemaError, decode_instances, encode_predictions)
+from storm_tpu_torch.config import BatchConfig, ModelConfig, QosConfig
 from storm_tpu_torch.infer.batcher import Batch, MicroBatcher
+from storm_tpu_torch.infer.continuous import continuous_for
 from storm_tpu_torch.infer.engine import DEVICE_SUBSTAGES, shared_engine
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, TopologyContext
 from storm_tpu_torch.runtime.tracing import span
@@ -86,23 +103,39 @@ class InferenceBolt(Bolt):
     """``device``: where the shared engine runs (default ``cuda``; pass
     ``"cpu"`` for the CPU). ``engine``: an engine to use instead of the
     shared one (e.g. a ``NullEngine``); ``warmup=False`` skips building
-    the buckets before traffic."""
+    the buckets before traffic. ``passthrough``: input fields copied onto
+    every output tuple. ``qos``: a ``QosConfig`` (on when enabled)."""
 
     def __init__(self, model: Optional[ModelConfig] = None,
                  batch: Optional[BatchConfig] = None, device=None,
-                 engine=None, warmup: bool = True) -> None:
+                 engine=None, warmup: bool = True, passthrough: Sequence[str] = (),
+                 qos: Optional[QosConfig] = None) -> None:
         self.model_cfg = model or ModelConfig()
         self.batch_cfg = batch or BatchConfig()
         self.device = device
         self._engine = engine
         self._warmup = warmup
+        self.passthrough = tuple(passthrough)
+        self.qos = qos if (qos is not None and qos.enabled) else None
+        if self.qos is not None and self.qos.degrade_model:
+            # storm_tpu serves shed lanes on this model through a
+            # two-tier cascade (operator.py:151-164); the cascade is not
+            # ported, and rejecting instead would be a different result.
+            raise NotImplementedError(
+                f"qos.degrade_model={self.qos.degrade_model!r} needs the cascade "
+                "router, which storm_tpu_torch does not have yet")
 
     def clone(self) -> "InferenceBolt":
         return InferenceBolt(self.model_cfg, self.batch_cfg, self.device,
-                             self._engine, self._warmup)
+                             self._engine, self._warmup, self.passthrough, self.qos)
 
     def declare_output_fields(self):
-        return {"default": ("message",), "dead_letter": ("message",)}
+        fields = ("message",) + self.passthrough
+        return {"default": fields, "dead_letter": fields}
+
+    def _extras(self, t: Tuple) -> list:
+        # A stream without a passthrough field yields None for it.
+        return [t.get(f, None) for f in self.passthrough]
 
     def _shared_engine(self):
         return shared_engine(self.model_cfg, self.batch_cfg, device=self.device)
@@ -127,7 +160,14 @@ class InferenceBolt(Bolt):
         self.engine = self._engine or self._shared_engine()
         if self._warmup and not getattr(self, "_prewarmed", False):
             self.engine.warmup()
-        self.batcher = MicroBatcher(self.batch_cfg)
+        if self.qos is not None:
+            # Imported here: qos.lanes imports infer.batcher, whose package
+            # imports this module.
+            from storm_tpu_torch.qos.lanes import LaneBatcher
+
+            self.batcher = LaneBatcher(self.batch_cfg, self.qos)
+        else:
+            self.batcher = MicroBatcher(self.batch_cfg)
         self._flush_task: Optional[asyncio.Task] = None
         self._inflight: Set[asyncio.Task] = set()
         self._dispatch_sem = asyncio.Semaphore(max(1, self.batch_cfg.max_inflight))
@@ -154,6 +194,28 @@ class InferenceBolt(Bolt):
         self._m_quarantined = m.gauge(cid, "engine_quarantined")
         self._m_wd_trips = m.counter(cid, "watchdog_trips")
         _listen_for_quarantine(self.engine, self)
+        # QoS: the shed level is read once per tuple.
+        if self.qos is not None:
+            self._shed_gauge = m.gauge("qos", "shed_level")
+            self._m_shed = m.counter(cid, "shed_rejected")
+        # Continuous batching: formation moves to the engine's shared
+        # queue; this task bounds its outstanding rows at the row
+        # equivalent of max_inflight batches.
+        self._continuous = bool(self.batch_cfg.continuous)
+        if self._continuous:
+            self._cb = self._bind_queue(self.engine)
+            self._cb_cap = max(1, self.batch_cfg.max_inflight) * max(1, self.batch_cfg.max_batch)
+            self._cb_rows = 0
+            self._cb_room = asyncio.Event()
+            self._cb_room.set()
+            self._cb_source = f"{cid}#{context.task_index}"
+
+    def _bind_queue(self, engine):
+        """``engine``'s continuous queue, its metrics bound to this
+        component (the first task to bind wins)."""
+        cb = continuous_for(engine, self.batch_cfg, self.qos)
+        cb.bind(self.context.metrics, self.context.component_id)
+        return cb
 
     # ---- quarantine -> replacement -------------------------------------------
 
@@ -175,6 +237,9 @@ class InferenceBolt(Bolt):
                     eng.warmup()
                 eng.on_compile = old.on_compile
                 _listen_for_quarantine(eng, self)
+                if self._continuous:
+                    # Every task re-aims at the replacement's one queue.
+                    self._cb = self._bind_queue(eng)
                 self.engine = eng
                 self._m_quarantined.set(0)
             except Exception:
@@ -187,6 +252,14 @@ class InferenceBolt(Bolt):
 
     async def execute(self, t: Tuple) -> None:
         payload = t.get("message")
+        lane = t.get("qos_lane", None) if self.qos is not None else None
+        if self.qos is not None:
+            level = int(self._shed_gauge.value)
+            if level > 0 and self.qos.shed_eligible(lane, level):
+                # Shed before the decode: spend nothing on traffic that
+                # will not be served.
+                await self._shed_tuple(t, lane, level)
+                return
         try:
             with span(self.context.metrics, self.context.component_id, "decode"):
                 inst = decode_instances(payload, ts=t.root_ts)
@@ -197,7 +270,14 @@ class InferenceBolt(Bolt):
         except SchemaError as e:
             await self._dead_letter(t, payload, str(e))
             return
-        batch = self.batcher.add(t, inst.data, ts=t.root_ts or None)
+        ts = t.root_ts or None
+        if self._continuous:
+            await self._submit_record(t, inst.data, ts, lane)
+            return
+        if self.qos is not None:
+            batch = self.batcher.add(t, inst.data, ts=ts, lane=lane)
+        else:
+            batch = self.batcher.add(t, inst.data, ts=ts)
         while batch is not None:
             await self._dispatch(batch)
             batch = self.batcher.take_ready()
@@ -209,9 +289,54 @@ class InferenceBolt(Bolt):
         if isinstance(payload, (bytes, bytearray)):
             payload = payload.decode("utf-8", "replace")
         dl = DeadLetter(payload=str(payload), error=error)
-        await self.collector.emit(Values([dl.to_json()]), stream="dead_letter",
-                                  anchors=[t])
+        await self.collector.emit(Values([dl.to_json(), *self._extras(t)]),
+                                  stream="dead_letter", anchors=[t])
         self.collector.ack(t)
+
+    async def _shed_tuple(self, t: Tuple, lane: Optional[str], level: int) -> None:
+        """A tuple shed at ``level``: answered at once with an
+        :class:`Overloaded` record and acked — never replayed (replaying
+        rejected load is more load)."""
+        msg = Overloaded(lane=lane or "", shed_level=level).to_json()
+        await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
+        self._m_shed.inc()
+        self.collector.ack(t)
+
+    # ---- the continuous path ---------------------------------------------------
+
+    async def _submit_record(self, t: Tuple, data, ts, lane) -> None:
+        """Hand one record to the engine's queue and complete it from a
+        task of its own; waits while this task has ``max_inflight *
+        max_batch`` rows outstanding."""
+        n = int(data.shape[0])
+        while self._cb_rows >= self._cb_cap:
+            self._cb_room.clear()
+            await self._cb_room.wait()
+        self._cb_rows += n
+        tenant = t.get("qos_tenant", None) if self.qos is not None else None
+        sub = self._cb.submit(data, payload=t, ts=ts, lane=lane, tenant=tenant,
+                              source=self._cb_source)
+        task = asyncio.get_running_loop().create_task(self._finish_record(sub, n))
+        self._inflight.add(task)
+        task.add_done_callback(self._inflight.discard)
+
+    async def _finish_record(self, sub, n_rows: int) -> None:
+        """Emit and ack one record once its rows come back; a failed batch
+        fails this record's tuple alone (its source replays it)."""
+        t = sub.payload
+        try:
+            preds = await asyncio.wrap_future(sub.future)
+            with span(self.context.metrics, self.context.component_id, "encode"):
+                msg = encode_predictions(preds)
+            await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
+            self.collector.ack(t)
+        except Exception as e:
+            self.collector.report_error(e)
+            self.collector.fail(t)
+        finally:
+            self._cb_rows -= n_rows
+            if self._cb_rows < self._cb_cap:
+                self._cb_room.set()
 
     def _kick_flush(self) -> None:
         try:
@@ -287,7 +412,8 @@ class InferenceBolt(Bolt):
             for item, preds in batch.split(out):
                 with span(self.context.metrics, self.context.component_id, "encode"):
                     msg = encode_predictions(preds)
-                await self.collector.emit(Values([msg]), anchors=[item])
+                await self.collector.emit(Values([msg, *self._extras(item)]),
+                                          anchors=[item])
                 self.collector.ack(item)
         except Exception as e:
             # Device failure: fail every tuple in the batch -> spout replay.
@@ -303,6 +429,8 @@ class InferenceBolt(Bolt):
         """Drain: dispatch whatever is pending and wait for in-flight
         batches (the engine's ring included), so a graceful stop never
         strands acks."""
+        if self._continuous:
+            self._cb.flush()
         batch = self.batcher.take_all()
         if batch is not None:
             await self._dispatch(batch)

@@ -1,8 +1,9 @@
 """Model registry: name -> model function, the counterpart of
 ``storm_tpu/models/registry.py`` for the single-device families the port
 serves (``vit_b16``, ``vit_tiny``, ``moe_vit_b16``, ``moe_vit_tiny``,
-``mixer_s16``, ``mixer_tiny``, ``mobilenetv2``, ``lenet5``, ``resnet20``
-and ``resnet50``), and the loading of exported checkpoints.
+``mixer_s16``, ``mixer_tiny``, ``mobilenetv2``, ``lenet5``, ``resnet20``,
+``resnet50``, ``longseq_encoder`` and ``longseq_tiny``), and the loading of
+exported checkpoints.
 
 A :class:`ModelDef` carries a family's hyperparameters, a seeded numpy
 initializer producing parameters and state in the JAX package's layout,
@@ -46,7 +47,7 @@ class ModelDef:
     (``num_heads`` above all), checked against a checkpoint's record."""
 
     name: str
-    input_shape: tuple  # per-instance (H, W, C)
+    input_shape: tuple  # per-instance: (H, W, C), or (seq, features) for longseq
     num_classes: int
     init: Callable[[np.random.RandomState], Tuple[Any, Any]]
     make: Callable[[Any, Any], nn.Module]
@@ -66,7 +67,7 @@ def register(name: str) -> Callable:
 
 def _load_builtin() -> None:
     from storm_tpu_torch.models import (  # noqa: F401  (registers)
-        lenet, mixer, mobilenet, moe_vit, resnet, vit)
+        lenet, longseq, mixer, mobilenet, moe_vit, resnet, vit)
 
 
 def registry_names() -> list:

@@ -27,13 +27,14 @@ MAX_DIM = 12288
 VEC = {torch.bfloat16: 8, torch.float32: 4}
 # (lanes per row, vectors per lane) of the sm90 kernel's instantiations for
 # the widths the model zoo normalises (vit_b16 and moe_vit_b16 768,
-# mixer_s16 512, vit_tiny and mixer_tiny 64): one warp or part of one per
-# row, the row exactly covered. Mirrored in csrc/fused_norm_sm90.cu.
+# mixer_s16 512, longseq_encoder 256, vit_tiny and mixer_tiny 64): one
+# warp or part of one per row, the row exactly covered. Mirrored in
+# csrc/fused_norm_sm90.cu.
 NORM_PLANS = {
     (torch.bfloat16, 768): (32, 3), (torch.bfloat16, 512): (32, 2),
-    (torch.bfloat16, 64): (8, 1),
+    (torch.bfloat16, 256): (32, 1), (torch.bfloat16, 64): (8, 1),
     (torch.float32, 768): (32, 6), (torch.float32, 512): (32, 4),
-    (torch.float32, 64): (16, 1),
+    (torch.float32, 256): (32, 2), (torch.float32, 64): (16, 1),
 }
 # Vectors per lane of the runtime-d instantiation, which takes every other
 # width: 48 elements a lane, in as many whole warps as the row needs (one

@@ -1,6 +1,8 @@
 """The in-process cluster, copied from ``storm_tpu/runtime/cluster.py``
 without rebalance, model swap, seek, supervision and metrics consumers:
 routing, lifecycle, graceful drain and the at-least-once timeout sweep.
+A runtime's ``bolt_execs`` (each task's bounded inbox) and ``metrics`` are
+what the load-shed controller reads; it hangs itself on ``runtime.qos``.
 
 :class:`AsyncLocalCluster` runs inside an event loop; :class:`LocalCluster`
 is its synchronous facade with its own loop thread (Storm's
@@ -58,6 +60,8 @@ class TopologyRuntime:
         self.spout_execs: Dict[str, List[SpoutExecutor]] = {}
         self.errors: List[Tup[str, int, BaseException]] = []
         self._sweeper: Optional[asyncio.Task] = None
+        # The topology's LoadShedController, once one is attached.
+        self.qos = None
 
     def _make_executors(self) -> None:
         tcfg = self.config.topology

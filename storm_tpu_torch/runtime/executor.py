@@ -3,6 +3,13 @@ checkpoints and tracing: one asyncio task per operator instance.
 
 Each bolt instance owns a bounded inbox (the backpressure point) and each
 spout instance runs a pull loop gated on ``max_spout_pending``.
+
+A bolt task yields to the event loop after each tuple while its inbox
+holds more. storm_tpu's executor takes tuple after tuple without a
+suspension point (``Queue.get`` on a non-empty queue returns at once), so
+one task working through a full inbox holds the loop: under a burst the
+load-shed controller's timer and the other tasks waited until the burst
+was through, and the controller never saw the queues it watches.
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ class BoltExecutor:
                 self.collector.fail(t)
             finally:
                 exec_ms.observe((time.perf_counter() - t0) * 1e3)
+            if not self.inbox.empty():
+                await asyncio.sleep(0)  # let timers and the other tasks run
 
     async def stop(self, drain: bool) -> None:
         if self._task is None:

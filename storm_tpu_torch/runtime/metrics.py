@@ -1,6 +1,7 @@
 """Metrics: counters, gauges and latency histograms with percentiles,
 copied from ``storm_tpu/runtime/metrics.py`` (without the name registry,
-windows, consumers and the Prometheus exposition)."""
+windows, consumers and the Prometheus exposition). The shed controller
+reads a histogram's ``count`` and ``percentile``."""
 
 from __future__ import annotations
 
@@ -49,6 +50,14 @@ class Histogram:
             self._n = min(self._n + 1, len(self._buf))
             self.count += 1
             self.sum += v
+
+    def percentile(self, q: float) -> float:
+        """The ``q``-th percentile of the window (NaN when empty)."""
+        with self._lock:
+            if self._n == 0:
+                return float("nan")
+            window = self._buf[: self._n].copy()
+        return float(np.percentile(window, q))
 
     def snapshot(self) -> Dict[str, float]:
         def clean(v: float):

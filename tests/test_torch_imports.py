@@ -1,5 +1,6 @@
 """The port stands alone: no module of storm_tpu_torch (its native codec,
-MoE layer and model families included), and neither chip_smoke.py nor
+MoE layer, model families, QoS package and continuous batcher included),
+and neither chip_smoke.py nor
 kernel_sweep.py, imports JAX, orbax, scikit-learn or anything of the JAX
 package storm_tpu (the machine with the card has none of them)."""
 
@@ -77,6 +78,16 @@ def test_importing_the_port_loads_no_jax():
         print("CODEC", x.shape, encode_predictions(x[0]))
         for name in ("moe_vit_tiny", "mixer_tiny", "mobilenetv2", "resnet50"):
             build_model(name, device="cpu", num_classes=10, input_shape=(32, 32, 3))
+        build_model("longseq_tiny", device="cpu")
+        from storm_tpu_torch.config import QosConfig
+        from storm_tpu_torch.qos import AdmissionController, LoadShedController
+        tb = TopologyBuilder()
+        qos = QosConfig(enabled=True)
+        tb.set_spout("spout", BrokerSpout(broker, "in", qos=qos))
+        tb.set_bolt("infer", InferenceBolt(ModelConfig(name="longseq_tiny",
+                    input_shape=(64, 16)), BatchConfig(continuous=True), device="cpu",
+                    passthrough=("qos_lane",), qos=qos)).shuffle_grouping("spout")
+        tb.build()
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu"))
@@ -94,5 +105,8 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.native", "storm_tpu_torch.parallel",
                  "storm_tpu_torch.parallel.moe", "storm_tpu_torch.runtime.tracing",
                  "storm_tpu_torch.models.moe_vit", "storm_tpu_torch.models.mixer",
-                 "storm_tpu_torch.models.mobilenet", "storm_tpu_torch.models.resnet"):
+                 "storm_tpu_torch.models.mobilenet", "storm_tpu_torch.models.resnet",
+                 "storm_tpu_torch.models.longseq", "storm_tpu_torch.qos",
+                 "storm_tpu_torch.qos.admission", "storm_tpu_torch.qos.lanes",
+                 "storm_tpu_torch.qos.shedding", "storm_tpu_torch.infer.continuous"):
         assert repr(name) in out.stdout, name

@@ -77,9 +77,25 @@ def test_flash_vit_shape_launches_by_dtype(launches, dtype, variant):
     assert launches[0][1][-4:-1] == (8 * 12, 197, 64)
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "flash_attention_sm90"),
+                                           (torch.float32, "flash_attention")])
+@pytest.mark.parametrize("d,padded", [(8, 16), (24, 32), (48, 64), (96, 128), (128, 128)])
+def test_flash_any_head_dim_launches_at_the_padded_dim(launches, dtype, variant, d, padded):
+    """A head dim the kernels are not built for runs zero-padded to the
+    next one, with the scale of the true D, and comes back at D."""
+    q, k, v = (torch.zeros(2, 4, 64, d, dtype=dtype) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    assert out.shape == (2, 4, 64, d) and out.dtype == dtype
+    assert [c[0] for c in launches] == [variant]
+    args = launches[0][1]
+    assert args[-4:-1] == (2 * 4, 64, padded)
+    assert args[-1] == pytest.approx(d ** -0.5)
+    assert all(t.shape[-1] == padded for t in args if isinstance(t, torch.Tensor))
+
+
 def test_shapes_and_types_no_kernel_takes_raise(launches):
-    with pytest.raises(ValueError, match="D in"):
-        fa.flash_attention(*(torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa.flash_attention(*(torch.zeros(1, 2, 8, 160, dtype=torch.bfloat16)
                              for _ in range(3)))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(*(torch.zeros(1, 2, 8, 64, dtype=torch.float16)
@@ -161,7 +177,7 @@ def test_bf16_products_are_exact_in_f32():
 
 # ---- fused residual + LayerNorm ---------------------------------------------
 
-NORM_WIDTHS = (64, 100, 512, 768, 3072)
+NORM_WIDTHS = (64, 100, 256, 512, 768, 3072)
 NORM_SOURCE = _build.CSRC / "fused_norm_sm90.cu"
 
 
@@ -187,7 +203,7 @@ def test_fused_norm_launches_the_sm90_kernel_with_its_plan(launches, d, dtype):
     # d is a whole number of them (all but bf16 100: 200-byte rows; CPU
     # allocations are 16-byte aligned).
     assert mode == (0 if (d, dtype) == (100, torch.bfloat16) else 1)
-    if d in (64, 512, 768):
+    if d in (64, 256, 512, 768):
         assert (lanes, vectors) == fn.NORM_PLANS[(dtype, d)]
         assert lanes <= 32 and lanes * vectors * fn.VEC[dtype] == d
         assert rows_per_block > 1
@@ -295,5 +311,5 @@ def test_norm_plan_is_one_the_kernel_takes_at_every_width(dtype):
         assert lanes * vectors * vec >= d, d
         assert (dtype, lanes, vectors) in fixed or (
             lanes % 32 == 0 and vectors == runtime[dtype] and rows_per_block == 1), d
-        assert (lanes <= 32) == (d <= 32 * vectors * vec or d in (64, 512, 768)), d
+        assert (lanes <= 32) == (d <= 32 * vectors * vec or d in (64, 256, 512, 768)), d
         assert mode == int(d % vec == 0), d
