@@ -95,7 +95,36 @@ no result):
    then the real LoadShedController tripped by the burst (best-effort
    records answered Overloaded and acked, every high record served, none
    lost), then the burst with continuous batching off and on, in turns;
-10. the ``{"kernels": [...]}`` line, then the card line, then the last line
+10. observe and swap: (a) the main path of phase 5 with every record
+   traced (``tracing.sample_rate=1``), the flight recorder on a file, the
+   copy ledger and the profile store attached, the launch counts zeroed
+   just before and read just after: every delivered record's trace holds
+   ``ingress``, ``execute``, ``queue_wait``, ``device_execute`` and
+   ``egress`` in that order of start; the records of a batch share one
+   device span linked to exactly their ``queue_wait`` spans, whose
+   substages fit in it; each trace lasts the sink's e2e ms, and the e2e
+   histogram's exemplar names a stored trace; the flight file holds
+   ``batch_formed`` and one ``graph_capture`` per bucket captured; the
+   ledger's ``h2d`` bytes are the padded batches' from the shapes; the
+   profile store counts the batches dispatched and one build per bucket,
+   and nothing regressed against its own snapshot; ``device_trace`` of a
+   replay names the three kernels; (b) information only, the same burst
+   with tracing and the ledger off, on, on, off; (c) phase 9b's shed turn
+   with the flight recorder, the controller held to level 1:
+   ``shed_decision`` events with the controller's signals, ``shed_reject``
+   events and Overloaded records of the best-effort lane alone, a
+   ``qos_shed`` span on each; (d) ``lenet5_rgb_digits`` bf16
+   ``int8_fused`` through 1/4/1 in four waves of the 449 held-out rows,
+   with a canary swap of task 0 to ``vit_tiny_digits``, the promotion and
+   the rollback between them, with ``continuous`` off and on: every output
+   the bytes of the direct forward of its batch by the engine that served
+   it, none lost or duplicated, the poison record dead-lettered, the
+   waves served by lenet5, both, vit_tiny (with ``continuous=True`` the
+   ROADMAP C7 check), lenet5, within the transport bound of the model's
+   direct forward and on the JAX reference's argmax where it is decided,
+   the descriptors of ``component_stats``, the rollback building nothing,
+   each engine's launch tally;
+11. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -813,19 +842,23 @@ def forward_parity(torch) -> dict:
 # ---- phase 5: the main path ---------------------------------------------------
 
 
-async def serve(model_cfg, n_good: int = 16):
+async def serve(model_cfg, n_good: int = 16, tracing=None, inspect=None):
     """``model_cfg`` through MemoryBroker -> 2x BrokerSpout -> 4x
     InferenceBolt -> 2x BrokerSink (+ dead-letter sink) on the default
     engine: ``n_good`` seeded 224x224x3 records and one ragged poison
     record. The shared engine's ``dispatch`` is wrapped to keep a copy of
     every batch it is given, so each output can be held to the engine's
-    direct forward of the very batch it was served in."""
+    direct forward of the very batch it was served in. ``tracing``: the
+    config's TracingConfig; ``inspect(rt)``, called before the topology
+    stops, returns the result's ``"inspected"``."""
     from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig
     from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
     from storm_tpu_torch.infer import InferenceBolt
     from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
 
     cfg = Config()
+    if tracing is not None:
+        cfg.tracing = tracing
     batch_cfg = BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0)
     broker = MemoryBroker(default_partitions=2)
     tb = TopologyBuilder()
@@ -870,9 +903,11 @@ async def serve(model_cfg, n_good: int = 16):
     snap = rt.metrics.snapshot()
     errors = list(rt.errors)
     outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+    inspected = inspect(rt) if inspect is not None else None
     await cluster.shutdown()
     return {"inputs": inputs, "payloads": payloads, "outs": outs, "dlq": dlq, "snap": snap,
-            "errors": errors, "wall": wall, "batch_cfg": batch_cfg, "batches": batches}
+            "errors": errors, "wall": wall, "batch_cfg": batch_cfg, "batches": batches,
+            "inspected": inspected}
 
 
 # The CUDA function of each kernel variant, as the profiler names it.
@@ -1959,7 +1994,8 @@ def longseq_records(n: int = LS_RECORDS) -> list:
     return out
 
 
-async def serve_longseq(records: list, continuous: bool = True, shed=None) -> dict:
+async def serve_longseq(records: list, continuous: bool = True, shed=None, tracing=None,
+                        max_level=None, inspect=None) -> dict:
     """longseq_encoder through MemoryBroker -> 2x BrokerSpout -> 4x
     InferenceBolt -> 2x BrokerSink (+ dead-letter sink), QoS on at the
     spout and the bolt (the lane passed through to the sink), the given
@@ -1972,7 +2008,9 @@ async def serve_longseq(records: list, continuous: bool = True, shed=None) -> di
     bolt task's inbox holds 8 tuples and the sink's SLO is 50 ms, so the
     burst trips it. The engine's dispatch is wrapped to keep every batch
     it is given. Each run starts from a fresh queue registry (a queue's
-    metrics bind to the first topology that uses it)."""
+    metrics bind to the first topology that uses it). ``tracing``,
+    ``max_level`` (the controller's highest level) and ``inspect(rt)`` as
+    in ``serve``."""
     from storm_tpu_torch.config import Config, OffsetsConfig, QosConfig
     from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
     from storm_tpu_torch.infer import InferenceBolt
@@ -1983,6 +2021,8 @@ async def serve_longseq(records: list, continuous: bool = True, shed=None) -> di
     _reset_registry()
     qos = shed or QosConfig(enabled=True)
     cfg = Config()
+    if tracing is not None:
+        cfg.tracing = tracing
     if shed is not None:
         cfg.topology.inbox_capacity = 8
         cfg.tracing.slo_ms = 50.0
@@ -2012,8 +2052,10 @@ async def serve_longseq(records: list, continuous: bool = True, shed=None) -> di
     engine.dispatch = recording_dispatch
     shedder = None
     if shed is not None:
-        shedder = LoadShedController(rt, ShedPolicy.from_qos(
-            shed, "inference-bolt", "kafka-bolt")).start()
+        policy = ShedPolicy.from_qos(shed, "inference-bolt", "kafka-bolt")
+        if max_level is not None:
+            policy.max_level = max_level
+        shedder = LoadShedController(rt, policy).start()
     spouts = [e.spout for e in rt.spout_execs["kafka-spout"]]
     t0 = time.perf_counter()
     for i, (key, payload, _lane) in enumerate(records):
@@ -2038,10 +2080,12 @@ async def serve_longseq(records: list, continuous: bool = True, shed=None) -> di
     errors = list(rt.errors)
     dropped = sum(s.dropped for s in spouts)
     outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+    inspected = inspect(rt) if inspect is not None else None
     await cluster.shutdown()
     _reset_registry()
     return {"outs": outs, "dlq": dlq, "snap": snap, "errors": errors, "wall": wall,
-            "batches": batches, "decisions": decisions, "dropped": dropped}
+            "batches": batches, "decisions": decisions, "dropped": dropped,
+            "inspected": inspected}
 
 
 def longseq_served(torch, card: str) -> dict:
@@ -2177,6 +2221,492 @@ def longseq_served(torch, card: str) -> dict:
     return res
 
 
+# ---- phase 10: observe and swap -------------------------------------------------
+
+VIT_B16_LAUNCHES = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
+                    "flash_attention_sm90": 12}
+# Launches per forward of the swap's models (bf16 int8_fused): lenet5's three
+# dense layers; vit_tiny's 2 blocks run six dense layers, one flash attention
+# and one fused norm each, and its head one more dense layer.
+SWAP_LAUNCHES = {"lenet5": {"w8a16_matmul_sm90": 3},
+                 "vit_tiny": {"w8a16_matmul_sm90": 13, "flash_attention_sm90": 2,
+                              "residual_layernorm_sm90": 2}}
+SWAP_TAGS = {"lenet5": "lenet5_rgb_digits", "vit_tiny": "vit_tiny_digits"}
+TO_VIT = {"checkpoint": "checkpoints/vit_tiny_digits", "name": "vit_tiny"}
+TO_LENET = {"checkpoint": "checkpoints/lenet5_rgb_digits", "name": "lenet5"}
+WAVES = 4
+# Every span of a delivered record's trace, by first start.
+TRACE_ORDER = ["ingress", "execute", "queue_wait", "device_execute", "egress"]
+
+
+@contextlib.contextmanager
+def counted_dispatch(keep_batches: bool = False):
+    """Counts every ``InferenceEngine.dispatch`` by (profile key, padded
+    bucket), warm-ups included; with ``keep_batches`` also keeps (engine,
+    rows) of every batch that is not a warm-up's zeros."""
+    from collections import Counter
+
+    from storm_tpu_torch.infer.engine import InferenceEngine
+
+    counts, batches = Counter(), []
+    original = InferenceEngine.dispatch
+
+    def counting(self, parts):
+        n = sum(int(p.shape[0]) for p in parts)
+        counts[(self.profile_key, self.pad_batch(n))] += 1
+        if keep_batches:
+            x = np.concatenate([np.array(p, copy=True) for p in parts])
+            if x.any():
+                batches.append((self, x))
+        return original(self, parts)
+
+    with mock.patch.object(InferenceEngine, "dispatch", counting):
+        yield counts, batches
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def traced_main_path(torch, card: str, tmp: str) -> dict:
+    """10 (a): the main path (as phase 5) with every record traced, the
+    flight recorder on a file, the copy ledger and the profile store
+    attached; the launch counts zeroed just before and read just after."""
+    from storm_tpu_torch.config import TracingConfig
+    from storm_tpu_torch.infer.engine import clear_engines, shared_engine
+    from storm_tpu_torch.obs import copyledger, profile_store
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.runtime.tracing import device_trace
+
+    model_cfg = vit_b16_config()
+    flight_path = os.path.join(tmp, "flight.jsonl")
+    tracing = TracingConfig(sample_rate=1.0, slo_ms=1000.0, flight_path=flight_path)
+    clear_engines()
+    copyledger.set_enabled(True)
+    copyledger.copy_ledger().reset()
+    profile_store().reset()
+
+    def inspect(rt):
+        e2e = rt.metrics.histogram("kafka-bolt", "e2e_latency_ms")
+        ex = e2e.exemplar
+        return {"traces": rt.tracer.store.recent(200), "stats": rt.tracer.store.stats(),
+                "e2e": e2e.values().tolist(),
+                "exemplar_stored": ex is not None and rt.tracer.store.get(ex[0]) is not None}
+
+    _build.reset_launch_counts()
+    with counted_dispatch() as (dispatched, _):
+        r = asyncio.run(serve(model_cfg, tracing=tracing, inspect=inspect))
+    wrapper_counts = _build.launch_counts()
+    ledger = copyledger.copy_ledger().snapshot()
+    profile = profile_store().snapshot()
+    engine = shared_engine(model_cfg, r["batch_cfg"], device="cuda")
+    launches = check_tally(torch, engine, VIT_B16_LAUNCHES, wrapper_counts,
+                           "traced main path")
+    if r["errors"] or len(r["outs"]) != len(r["inputs"]) or len(r["dlq"]) != 1:
+        raise AssertionError(f"traced main path: {len(r['outs'])} outputs, {len(r['dlq'])} "
+                             f"dead letters, errors {r['errors'][:3]}")
+    ins = r["inspected"]
+    traces = ins["traces"]
+    delivered = [t for t in traces if any(s["name"] == "egress" and
+                                          s["component"] == "kafka-bolt" for s in t["spans"])]
+    if len(delivered) != len(r["outs"]) or ins["stats"]["open"]:
+        raise AssertionError(f"traced main path: {len(delivered)} finished traces for "
+                             f"{len(r['outs'])} records, store {ins['stats']}")
+    groups = {}
+    for t in delivered:
+        spans = sorted(t["spans"], key=lambda s: s["offset_ms"])
+        firsts = []
+        for s in spans:
+            if s["name"] not in firsts:
+                firsts.append(s["name"])
+        if firsts != TRACE_ORDER:
+            raise AssertionError(f"trace {t['trace_id']}: spans {firsts}")
+        (dev,), (qw,) = ([s for s in spans if s["name"] == n]
+                         for n in ("device_execute", "queue_wait"))
+        if dev["parent_id"] != qw["span_id"]:
+            raise AssertionError(f"trace {t['trace_id']}: device span not under its queue_wait")
+        groups.setdefault(dev["span_id"], []).append((dev, qw))
+    for sid, members in groups.items():
+        qws = {qw["span_id"] for _, qw in members}
+        if any(set(dev["links"]) != qws for dev, _ in members):
+            raise AssertionError(f"device span {sid}: links are not its members' queue_waits")
+        dev = members[0][0]
+        sub = sum(dev["attrs"][k] for k in ("h2d_ms", "compute_ms", "d2h_ms"))
+        if sub > dev["duration_ms"] + 2e-3:  # each of the four rounded to 1e-3
+            raise AssertionError(f"device span {sid}: substages {sub} ms over its "
+                                 f"{dev['duration_ms']} ms")
+    if len(groups) != len(r["batches"]):
+        raise AssertionError(f"{len(groups)} device spans for {len(r['batches'])} batches")
+    durations = sorted(t["duration_ms"] for t in delivered)
+    if durations != sorted(round(v, 3) for v in ins["e2e"]) or not ins["exemplar_stored"]:
+        raise AssertionError("trace durations are not the sink's e2e ms, or the e2e "
+                             "histogram's exemplar names no stored trace")
+    events = read_jsonl(flight_path)
+    captures = [ev for ev in events if ev["kind"] == "graph_capture"]
+    if not any(ev["kind"] == "batch_formed" for ev in events) or \
+            sorted(ev["batch_shape"] for ev in captures) != sorted(engine.compiled_batches):
+        raise AssertionError(f"flight file: {[ev['kind'] for ev in events]}, buckets "
+                             f"captured {sorted(engine.compiled_batches)}")
+    stages = ledger["stages"]
+    want = ["spout_ingest", "spout_scheme", "json_decode", "tuple_route", "staging", "h2d",
+            "d2h", "json_encode", "sink_encode"]
+    if any(s not in stages for s in want):
+        raise AssertionError(f"copy ledger stages {list(stages)}")
+    # h2d: per batch the padded buffer of the wire dtype (bf16), from the shapes
+    per_batch = {p: p * 224 * 224 * 3 * 2 for (_, p) in dispatched}
+    h2d_want = sum(n * per_batch[p] for (_, p), n in dispatched.items())
+    if stages["h2d"]["calls"] != sum(dispatched.values()) or stages["h2d"]["bytes"] != h2d_want:
+        raise AssertionError(f"h2d row {stages['h2d']} against {dict(dispatched)} batches "
+                             f"({h2d_want} bytes)")
+    eng_prof = profile["engines"][engine.profile_key]
+    got = {int(p): row["batches"] for p, row in eng_prof["buckets"].items()}
+    if got != {p: n for (k, p), n in dispatched.items() if k == engine.profile_key} or \
+            {int(p): c["count"] for p, c in eng_prof["compiles"].items()} != \
+            {p: 1 for p in engine.compiled_batches}:
+        raise AssertionError(f"profile store {got}, compiles {eng_prof['compiles']}, "
+                             f"dispatched {dict(dispatched)}")
+    profile_store().load_baseline(profile)
+    regressions = profile_store().regressions(min_samples=1)
+    if regressions:
+        raise AssertionError(f"regressions against the store's own snapshot: {regressions}")
+    bucket = engine.graph_for(B)
+    trace_dir = os.path.join(tmp, "device_trace")
+    with device_trace(trace_dir):
+        for _ in range(3):
+            bucket.replay()
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        text = fh.read()
+    named = {n: KERNEL_FUNCS[n] in text for n in VIT_B16_LAUNCHES}
+    if not all(named.values()):
+        raise AssertionError(f"device trace names {named}")
+    e2e = r["snap"]["kafka-bolt"]["e2e_latency_ms"]
+    # Each record's e2e cut at its spans' edges: broker append -> its
+    # decode's start (the spout, the hop and the inbox behind the other
+    # records' decodes), its decode (the inference bolt's execute), the
+    # batcher (queue_wait), the device round trip as the event loop sees
+    # it (device_execute), and the rest (encode, emit, the sink).
+    cuts = []
+    for t in delivered:
+        sp = {(s["name"], s["component"]): s for s in t["spans"]}
+        ex, qw = sp[("execute", "inference-bolt")], sp[("queue_wait", "inference-bolt")]
+        dev = sp[("device_execute", "inference-bolt")]
+        end = dev["offset_ms"] + dev["duration_ms"]
+        cuts.append({"before_decode": ex["offset_ms"], "decode": ex["duration_ms"],
+                     "queue_wait": qw["duration_ms"], "device_execute": dev["duration_ms"],
+                     "after_device": t["duration_ms"] - end})
+    breakdown = {k: float(np.median([c[k] for c in cuts])) for k in cuts[0]}
+    decode_sum = sum(c["decode"] for c in cuts)
+    res = {"launches": launches, "forwards": engine.forwards, "batches": len(groups),
+           "e2e_p50_ms": e2e["p50"], "records_per_s": len(r["inputs"]) / r["wall"],
+           "flight_events": len(events), "captures": len(captures),
+           "ledger": {s: (stages[s]["bytes_per_record"], stages[s]["copies_per_record"])
+                      for s in want},
+           "copy_amplification": ledger["copy_amplification"],
+           "breakdown_p50_ms": breakdown, "trace_ms_p50": float(np.median(durations)),
+           "decodes_ms": decode_sum, "burst_ms": r["wall"] * 1e3}
+    log(f"  traced main path on {card}: {len(delivered)} finished traces in span order "
+        f"{TRACE_ORDER}, {len(groups)} device spans each linked to its members' queue_waits, "
+        f"substages within each; durations = the sink's e2e ms; {len(events)} flight events "
+        f"({len(captures)} graph_capture for buckets {sorted(engine.compiled_batches)}); "
+        f"profile {got} batches = dispatches; device trace names {sorted(named)}; launch "
+        f"tally {launches} for {engine.forwards} forwards")
+    log(f"  traced main path: e2e p50 {res['e2e_p50_ms']:.3f} ms, "
+        f"{res['records_per_s']:.3f} records/s; per record p50 (ms): "
+        f"{({k: round(v, 3) for k, v in breakdown.items()})}, whole trace "
+        f"{res['trace_ms_p50']:.3f}; the burst's decodes, serial on the event loop, "
+        f"{decode_sum:.3f} ms of its {res['burst_ms']:.3f} ms")
+    log(f"  copy ledger per record (bytes, copies): {res['ledger']}; amplification "
+        f"{ledger['copy_amplification']}")
+    return res
+
+
+def overhead_turns(card: str) -> list:
+    """10 (b), information only: the main path's burst with tracing off and
+    the copy ledger detached, then on and attached, on, off."""
+    from storm_tpu_torch.config import TracingConfig
+    from storm_tpu_torch.obs import copyledger
+
+    turns = []
+    for on in (False, True, True, False):
+        copyledger.set_enabled(on)
+        r = asyncio.run(serve(vit_b16_config(),
+                              tracing=TracingConfig(sample_rate=1.0 if on else 0.0)))
+        if len(r["outs"]) != len(r["inputs"]) or r["errors"]:
+            raise AssertionError(f"overhead turn {on}: {len(r['outs'])} outputs, errors "
+                                 f"{r['errors'][:3]}")
+        e2e = r["snap"]["kafka-bolt"]["e2e_latency_ms"]
+        turns.append({"traced_and_ledger": on, "e2e_p50_ms": e2e["p50"],
+                      "records_per_s": len(r["inputs"]) / r["wall"]})
+        log(f"  overhead turn tracing+ledger {'on ' if on else 'off'}: e2e p50 "
+            f"{e2e['p50']:.3f} ms, {turns[-1]['records_per_s']:.3f} records/s on {card}")
+    copyledger.set_enabled(True)
+    return turns
+
+
+def shed_with_recorder(card: str, tmp: str) -> dict:
+    """10 (c): phase 9b's shed turn, every record traced and the flight
+    recorder on a file, the controller held to level 1 (best effort
+    only): ``shed_decision`` events carry the controller's signals,
+    ``shed_reject`` events name the best-effort lane alone, and every
+    Overloaded record's trace holds its ``qos_shed`` span."""
+    from storm_tpu_torch.config import QosConfig, TracingConfig
+    from storm_tpu_torch.infer.engine import clear_engines
+
+    records = longseq_records()
+    n = len(records)
+    path = os.path.join(tmp, "shed_flight.jsonl")
+    shed_qos = QosConfig(enabled=True, shed_interval_s=0.02, shed_inbox_frac=0.25,
+                         shed_breach_rate=1.0, shed_hot_steps=1, shed_calm_steps=1000)
+    s = asyncio.run(serve_longseq(
+        records, shed=shed_qos, tracing=TracingConfig(sample_rate=1.0, flight_path=path),
+        max_level=1, inspect=lambda rt: rt.tracer.store.recent(500)))
+    clear_engines()
+    if s["errors"]:
+        raise AssertionError(f"shed turn with recorder: errors {s['errors'][:3]}")
+    msgs = [json.loads(rec.value) for rec in s["outs"]]
+    over = [m for m in msgs if m.get("overloaded")]
+    served = [m for m in msgs if "predictions" in m]
+    if len(served) + len(over) + len(s["dlq"]) + s["dropped"] != n + 1:
+        raise AssertionError(f"shed turn with recorder lost records: {len(served)}, "
+                             f"{len(over)}, {len(s['dlq'])}, {s['dropped']} of {n + 1}")
+    events = read_jsonl(path)
+    decisions = [ev for ev in events if ev["kind"] == "shed_decision"]
+    rejects = [ev for ev in events if ev["kind"] == "shed_reject"]
+    signals = {"direction", "level", "inbox_frac", "wait_p95_ms", "breach_rate", "burn_rate"}
+    if not decisions or any(not signals <= set(ev) for ev in decisions):
+        raise AssertionError(f"shed_decision events {decisions}")
+    if not over or {m["lane"] for m in over} != {"best_effort"} or not rejects or \
+            {ev["lane"] for ev in rejects} != {"best_effort"}:
+        raise AssertionError(f"Overloaded lanes {sorted({m['lane'] for m in over})}, "
+                             f"shed_reject events {rejects}")
+    shed_spans = [sp for t in s["inspected"] for sp in t["spans"] if sp["name"] == "qos_shed"]
+    if len(shed_spans) != len(over) or any(sp["attrs"]["lane"] != "best_effort"
+                                           for sp in shed_spans):
+        raise AssertionError(f"{len(shed_spans)} qos_shed spans for {len(over)} Overloaded")
+    res = {"decisions": s["decisions"], "shed_decision_events": len(decisions),
+           "shed_reject_events": len(rejects), "overloaded": len(over),
+           "predictions": len(served), "dropped_at_spout": s["dropped"]}
+    log(f"  shed turn with the recorder on {card}: {len(decisions)} shed_decision events "
+        f"(first {({k: decisions[0][k] for k in sorted(signals)})}), {len(rejects)} "
+        f"shed_reject (best_effort), {len(over)} Overloaded records each with a qos_shed "
+        f"span, {len(served)} predictions, {s['dropped']} dropped at the spout")
+    return res
+
+
+async def serve_swap(continuous: bool, waves: list, card: str) -> dict:
+    """10 (d): lenet5_rgb_digits bf16 ``int8_fused`` through 1 spout -> 4
+    InferenceBolts -> 1 sink (+ dead-letter sink), a wave at a time:
+    wave A, the canary swap of task 0 to vit_tiny_digits, wave B, the
+    promotion, wave C, the rollback, wave D. One poison record rides in
+    wave A."""
+    from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.obs import profile_store
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+
+    cfg = Config()
+    batch_cfg = BatchConfig(max_batch=32, buckets=(8, 32), max_wait_ms=5.0,
+                            continuous=continuous)
+    broker = MemoryBroker(default_partitions=1)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None)))
+    tb.set_bolt("infer", InferenceBolt(digits_config("lenet5_rgb_digits", "int8_fused"),
+                                       batch_cfg, device="cuda"),
+                parallelism=4).shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", cfg.sink)).shuffle_grouping("infer")
+    tb.set_bolt("dlq-bolt", BrokerSink(broker, "dead-letter", cfg.sink)) \
+        .shuffle_grouping("infer", stream="dead_letter")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-swap", cfg, tb.build())
+    lenet = rt.bolt_execs["infer"][0].bolt.engine
+    outs, out = [], {}
+
+    async def wave(x, poison=False):
+        start = broker.topic_size("output")
+        for i, row in enumerate(x):
+            broker.produce("input", json.dumps({"instances": [row.tolist()]}))
+            if poison and i == len(x) // 2:
+                broker.produce("input", '{"instances": [[1.0, 2.0], [3.0]]}')
+        deadline = time.monotonic() + 120
+        while broker.topic_size("output") < start + len(x):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"swap wave: {broker.topic_size('output') - start} of "
+                                   f"{len(x)} out in 120 s")
+            await asyncio.sleep(0.005)
+        await rt.drain(timeout_s=60)
+        outs.append([r.value.decode() if isinstance(r.value, bytes) else r.value
+                     for r in broker.drain_topic("output")[start:]])
+
+    def models():
+        return [row["model"] for row in rt.component_stats("infer")]
+
+    def built(engine):
+        prof = profile_store().snapshot()["engines"].get(engine.profile_key, {})
+        return (sorted(engine.compiled_batches), prof.get("compiles"),
+                sum(ev["kind"] == "graph_capture" for ev in rt.flight.tail(1000)))
+
+    out["models"] = {"start": models()}
+    await wave(waves[0], poison=True)
+    t0 = time.perf_counter()
+    await rt.swap_model("infer", TO_VIT, tasks=[0])
+    out["canary_ms"] = (time.perf_counter() - t0) * 1e3
+    out["models"]["canary"] = models()
+    await wave(waves[1])
+    t0 = time.perf_counter()
+    await rt.swap_model("infer", TO_VIT)
+    out["promote_ms"] = (time.perf_counter() - t0) * 1e3
+    out["models"]["promoted"] = models()
+    vit = rt.bolt_execs["infer"][0].bolt.engine
+    await wave(waves[2])
+    before = built(lenet)
+    t0 = time.perf_counter()
+    await rt.swap_model("infer", TO_LENET)
+    out["rollback_ms"] = (time.perf_counter() - t0) * 1e3
+    out["models"]["rolled_back"] = models()
+    out["rollback_same_engine"] = all(e.bolt.engine is lenet for e in rt.bolt_execs["infer"])
+    out["rollback_built_nothing"] = built(lenet) == before
+    await wave(waves[3])
+    out["dlq"] = broker.drain_topic("dead-letter")
+    out["errors"] = list(rt.errors)
+    out["spout"] = rt.metrics.snapshot()["kafka-spout"]
+    await cluster.shutdown()
+    out.update(outs=outs, engines={"lenet5": lenet, "vit_tiny": vit})
+    return out
+
+
+def canary_swap(torch, card: str) -> dict:
+    """10 (d), both ``continuous`` settings. Gates: no record lost or
+    duplicated (every output byte-identical to the native encoding of the
+    direct forward, by the engine that served it, of the batch it rode
+    in, each wave's rows matched once), the poison record dead-lettered;
+    waves A and D served by lenet5, wave C by vit_tiny (under
+    ``continuous=True`` the C7 check), wave B by both; every output within
+    the transport bound of its model's direct forward of its row; on rows
+    whose JAX top-2 margin exceeds MARGIN, the argmax of the JAX
+    reference of the model that served the row; the canary's descriptors;
+    the rollback building nothing; each engine's launch tally."""
+    from storm_tpu_torch.data import load_digits_nhwc
+    from storm_tpu_torch.infer.continuous import _reset_registry
+    from storm_tpu_torch.infer.engine import clear_engines
+    from storm_tpu_torch.models.registry import CHECKPOINTS
+    from storm_tpu_torch.native import format_predictions
+    from storm_tpu_torch.ops import _build
+
+    _, _, x, _ = load_digits_nhwc((32, 32, 3))
+    rows_of = {}
+    for i, row in enumerate(x):
+        rows_of.setdefault(row.tobytes(), []).append(i)
+    bounds = np.linspace(0, len(x), WAVES + 1).astype(int)
+    waves = [x[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    with np.load(CHECKPOINTS / "reference_predictions.npz") as f:
+        ref = {m: f[f"{tag}/int8_fused"] for m, tag in SWAP_TAGS.items()}
+    results = {}
+    for continuous in (False, True):
+        clear_engines()
+        _reset_registry()
+        _build.reset_launch_counts()
+        with counted_dispatch(keep_batches=True) as (_, batches):
+            r = asyncio.run(serve_swap(continuous, waves, card))
+        wrapper_counts = _build.launch_counts()
+        _reset_registry()
+        label = f"swap continuous={continuous}"
+        if r["errors"] or len(r["dlq"]) != 1 or r["spout"].get("tree_failed", 0) or \
+                r["spout"]["tree_acked"] != len(x) + 1:
+            raise AssertionError(f"{label}: errors {r['errors'][:3]}, {len(r['dlq'])} dead "
+                                 f"letters, spout {r['spout']}")
+        engines = r["engines"]
+        name_of = {id(e): m for m, e in engines.items()}
+        # every served batch again through the engine that served it
+        expect = {}
+        for eng, xb in batches:
+            for row, pred in zip(xb, eng.predict(xb)):
+                expect.setdefault(format_predictions(pred[None]), []).append(
+                    (name_of[id(eng)], row.tobytes(), pred))
+        direct = {m: np.concatenate([e.predict(x[i:i + 32]) for i in range(0, len(x), 32)])
+                  for m, e in engines.items()}
+        served_by, max_dp, flips = [], 0.0, 0
+        for w, (xw, got) in enumerate(zip(waves, r["outs"])):
+            if len(got) != len(xw):
+                raise AssertionError(f"{label} wave {w}: {len(got)} outputs for {len(xw)}")
+            left = {}
+            for row in xw:
+                left[row.tobytes()] = left.get(row.tobytes(), 0) + 1
+            who = []
+            for text in got:
+                hits = [h for h in expect.get(text, ()) if left.get(h[1], 0) > 0]
+                if not hits:
+                    raise AssertionError(f"{label} wave {w}: an output is not the bytes of "
+                                         f"the direct forward of a row of this wave left "
+                                         f"unserved (lost, duplicated or not its batch's)")
+                model, key, pred = hits[0]
+                expect[text].remove(hits[0])
+                left[key] -= 1
+                i = rows_of[key][0]
+                max_dp = max(max_dp, float(np.abs(pred - direct[model][i]).max()))
+                want = ref[model][i]
+                top2 = np.sort(want)[-2:]
+                if top2[1] - top2[0] > MARGIN and pred.argmax() != want.argmax() and \
+                        pred[want.argmax()] != pred.max():
+                    flips += 1
+                who.append(model)
+            served_by.append(who)
+        if max_dp > TRANSPORT_TOL["int8_fused"] or flips:
+            raise AssertionError(f"{label}: max |dp| to the direct forward {max_dp}, "
+                                 f"{flips} argmax flips on decided rows")
+        kinds = [sorted(set(w)) for w in served_by]
+        n_vit_b = served_by[1].count("vit_tiny")
+        if kinds[0] != ["lenet5"] or kinds[2] != ["vit_tiny"] or kinds[3] != ["lenet5"] or \
+                not 0 < n_vit_b < len(served_by[1]):
+            raise AssertionError(f"{label}: waves served by {kinds}, vit_tiny served "
+                                 f"{n_vit_b} of wave B")
+        lenet_d = "lenet5:checkpoints/lenet5_rgb_digits:int8_fused"
+        vit_d = "vit_tiny:checkpoints/vit_tiny_digits:int8_fused"
+        if r["models"] != {"start": [lenet_d] * 4, "canary": [vit_d] + [lenet_d] * 3,
+                           "promoted": [vit_d] * 4, "rolled_back": [lenet_d] * 4}:
+            raise AssertionError(f"{label}: descriptors {r['models']}")
+        if not (r["rollback_same_engine"] and r["rollback_built_nothing"]):
+            raise AssertionError(f"{label}: the rollback built an engine or a bucket")
+        tally = {}
+        for model, eng in engines.items():
+            t, fw = eng.launch_tally(), eng.forwards
+            want = {k: SWAP_LAUNCHES[model].get(k, 0) * fw for k in KERNEL_FUNCS}
+            if {k: t.get(k, 0) for k in KERNEL_FUNCS} != want:
+                raise AssertionError(f"{label}: {model} tally {t} for {fw} forwards")
+            tally[model] = {"forwards": fw, **{k: v for k, v in want.items() if v}}
+        used = set(SWAP_LAUNCHES["lenet5"]) | set(SWAP_LAUNCHES["vit_tiny"])
+        if any((wrapper_counts[k] > 0) != (k in used) for k in KERNEL_FUNCS):
+            raise AssertionError(f"{label}: eager launches by the wrappers {wrapper_counts}")
+        results[continuous] = {
+            "canary_ms": r["canary_ms"], "promote_ms": r["promote_ms"],
+            "rollback_ms": r["rollback_ms"], "vit_tiny_in_wave_b": n_vit_b,
+            "wave_sizes": [len(w) for w in waves], "max_dp": max_dp, "tally": tally}
+        log(f"  {label} on {card}: {len(x)} rows in {WAVES} waves, each output the bytes "
+            f"of its batch's direct forward; waves served by {kinds} (vit_tiny {n_vit_b} of "
+            f"{len(served_by[1])} in the canary wave); max |dp| to the model's direct "
+            f"forward {max_dp:.4f}; 0 argmax flips on decided rows; canary swap "
+            f"{r['canary_ms']:.3f} ms, promotion {r['promote_ms']:.3f} ms, rollback "
+            f"{r['rollback_ms']:.3f} ms (same engine, nothing built); tally {tally}")
+    clear_engines()
+    return results
+
+
+def observe_and_swap(torch, card: str) -> dict:
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"traced": traced_main_path(torch, card, tmp),
+               "overhead_turns": overhead_turns(card),
+               "shed": shed_with_recorder(card, tmp),
+               "swap": canary_swap(torch, card)}
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 10 took {res['wall_s']:.1f} s")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -2257,6 +2787,11 @@ def run() -> int:
     log(json.dumps({"longseq": {"engine_direct": ls_direct, "served": ls_served},
                     "card": card}, default=float))
 
+    log("[10] observe and swap: the traced main path, the overhead turns, the shed turn "
+        "with the flight recorder, the canary swap and rollback")
+    observed = observe_and_swap(torch, card)
+    log(json.dumps({"observe_and_swap": observed, "card": card}, default=float))
+
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
@@ -2284,7 +2819,11 @@ def run() -> int:
             "longseq_encoder int8_fused B=8 and 32 (phase 9a)": ls_direct["launches"][name],
             "longseq_tiny int8_fused (phase 9a)": ls_direct["tiny_launches"][name],
             "longseq_encoder served, QoS + continuous (phase 9b)":
-                ls_served["launches"][name]})
+                ls_served["launches"][name],
+            "vit_b16 int8_fused traced (phase 10a)": observed["traced"]["launches"][name]})
+        paths.update({f"{m} int8_fused swap, continuous={c} (phase 10d)":
+                      sw["tally"][m].get(name, 0)
+                      for c, sw in observed["swap"].items() for m in sw["tally"]})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

@@ -175,12 +175,31 @@ class TopologyConfig:
 
 @dataclass
 class TracingConfig:
-    """The part of storm_tpu's tracing config the port reads: the sink's
-    SLO (its ``slo_breaches`` counter, which the shed controller reads).
-    Sampled traces and the flight recorder are not ported yet."""
+    """Per-record tracing and the flight recorder (runtime/tracing.py),
+    ``storm_tpu/config.py``'s ``TracingConfig``. Off by default:
+    ``sample_rate=0`` keeps the hot path free of trace contexts."""
 
-    # e2e latency above which the sink counts an SLO breach (0 = off).
+    # Fraction of root tuples that carry a TraceContext (0 = off, 1 = all).
+    sample_rate: float = 0.0
+    # Finished traces kept in the in-process ring.
+    store_capacity: int = 256
+    # e2e latency above which the sink counts an SLO breach (its
+    # ``slo_breaches`` counter, which the shed controller reads) and
+    # records a ``slo_breach`` flight event (0 = off).
     slo_ms: float = 0.0
+    # JSONL flight-recorder file ("" = the in-memory ring only).
+    flight_path: str = ""
+    # In-memory flight-recorder ring size (events).
+    flight_capacity: int = 512
+    # Rotation: flight_path -> .1 -> ... past this size, at most
+    # flight_max_files generations kept.
+    flight_max_bytes: int = 4 * 1024 * 1024
+    flight_max_files: int = 3
+
+    def __post_init__(self) -> None:
+        if not 0.0 <= float(self.sample_rate) <= 1.0:
+            raise ValueError(
+                f"tracing.sample_rate must be in [0, 1], got {self.sample_rate!r}")
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
 ``storm_tpu/connectors/spout.py`` for the in-process broker, without
-chunks, frames, group coordination and tracing.
+chunks, frames and group coordination.
 
 Offsets are policy: 'latest' + ``max_behind=0`` starts at the log end and
 drops backlog; 'resume' commits on ack and resumes; 'earliest' replays
@@ -15,6 +15,13 @@ classified from its key (``tenant:lane``) and run through the task's
 admitted (its tenant over quota, or its lane shed at the edge) is dropped
 with the cursor advanced, and the lane rides downstream as the declared
 ``qos_lane`` field.
+
+Each emitted record rolls the runtime tracer's sampling once: a sampled
+record's trace opens with an ``ingress`` span from its broker append
+time; a miss is passed on as ``NOT_SAMPLED``. With the copy ledger
+attached, each emit records its ``spout_ingest`` row (the payload as it
+arrived, no copy) and its ``spout_scheme`` row (the bytes -> str decode,
+one copy).
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from storm_tpu_torch.config import OffsetsConfig
 from storm_tpu_torch.connectors.memory import MemoryBroker, Record
+from storm_tpu_torch.obs import copyledger as _copyledger
 from storm_tpu_torch.runtime.base import OutputCollector, Spout, TopologyContext
+from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
 from storm_tpu_torch.runtime.tuples import Values
 
 
@@ -54,6 +63,7 @@ class BrokerSpout(Spout):
 
     def open(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().open(context, collector)
+        self._tracer = getattr(context, "tracer", None)
         # QoS admission, per task (the tenant's rate is split across tasks).
         self._admission = None
         if self.qos is not None:
@@ -134,15 +144,43 @@ class BrokerSpout(Spout):
             return now_perf
         return now_perf - max(time.time() - rec.timestamp, 0.0)
 
+    def _mint_trace(self, root_ts: float, rec: Record):
+        """The sampling roll of one root: a TraceContext whose ``ingress``
+        span starts at broker-append time (so it shows queueing in the
+        broker too), or NOT_SAMPLED, so the collector does not roll
+        again."""
+        tracer = self._tracer
+        if tracer is None or not tracer.active:
+            return NOT_SAMPLED
+        ctx = tracer.maybe_trace()
+        if ctx is None:
+            return NOT_SAMPLED
+        tracer.record(ctx, "ingress", self.context.component_id, root_ts,
+                      time.perf_counter(), attrs={"topic": self.topic,
+                                                  "partition": rec.partition,
+                                                  "offset": rec.offset})
+        return ctx
+
+    def _ledger_ingest(self, rec: Record) -> None:
+        if not _copyledger.active():
+            return
+        comp = self.context.component_id
+        _copyledger.record("spout_ingest", len(rec.value), copies=0, allocs=0,
+                           records=1, engine=comp)
+        _copyledger.record("spout_scheme", len(rec.value), copies=1, allocs=1,
+                           records=1, engine=comp)
+
     async def _emit(self, rec: Record) -> None:
         msg_id = (rec.partition, rec.offset)
         self.pending[msg_id] = rec
+        root_ts = self._append_root_ts(rec)
+        self._ledger_ingest(rec)
         vals = [rec.value.decode("utf-8", "replace")]
         if self._admission is not None:
             # Derived from the key again, so a replay carries the same lane.
             vals.append(self._lane_of(rec))
-        await self.collector.emit(Values(vals), msg_id=msg_id,
-                                  root_ts=self._append_root_ts(rec))
+        await self.collector.emit(Values(vals), msg_id=msg_id, root_ts=root_ts,
+                                  trace=self._mint_trace(root_ts, rec))
 
     def ack(self, msg_id: Any) -> None:
         self.pending.pop(msg_id, None)

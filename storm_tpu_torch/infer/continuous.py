@@ -33,9 +33,14 @@ dead engine's finalizer deadlocks the thread on that lock), the port runs
 no finalizer work under its lock: an engine's finalizer only appends its
 key to a lock-free deque, the queue is built outside the lock, and dead
 entries are dropped, and their queues closed, outside the lock on the
-next registry call. Tracing and the flight recorder are not ported, so
-the queue records metrics only (storm_tpu's ``bind`` also takes a tracer
-and a flight recorder).
+next registry call.
+
+Observability, bound with the metrics by the first task: each completed
+batch records a throttled ``batch_formed`` flight event and, for its
+sampled members, a ``queue_wait`` span each (submission -> the batch
+leaving the dispatcher) and one shared device span linked to them all.
+Both run on the engine's fetch thread after the batch's timings are
+taken, and never under the queue's or the registry's lock.
 """
 
 from __future__ import annotations
@@ -45,12 +50,12 @@ import time
 import weakref
 from collections import OrderedDict, deque
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from storm_tpu_torch.config import BatchConfig, QosConfig
-from storm_tpu_torch.infer.engine import DEVICE_SUBSTAGES
+from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES
 
 # How long close() waits for the dispatcher thread, and how often an idle
 # dispatcher checks that its engine is still alive.
@@ -120,22 +125,36 @@ class ContinuousBatcher:
         self.fair_starved: Dict[tuple, int] = {}
         self.last_batch: Optional[dict] = None
         self._fills: deque = deque(maxlen=256)
-        # Metrics, bound by the first task to bind.
+        # Metrics, tracer and flight recorder, bound by the first task to bind.
         self._metrics = None
         self._m: Dict[str, object] = {}
+        self._cid: Optional[str] = None
+        self._tracer = None
+        self._flight = None
+        self._trace_of: Optional[Callable] = None
+        self._span_name = "device_execute"
 
     # ---- binding -------------------------------------------------------------
 
-    def bind(self, metrics, component_id: str) -> None:
+    def bind(self, metrics, component_id: str, tracer=None, flight=None,
+             trace_of: Optional[Callable] = None,
+             span_name: str = "device_execute") -> None:
         """Attach the metrics the queue records (``batch_size``,
         ``batch_fill``, ``device_ms``, ``batch_wait_ms``,
         ``dispatch_wait_ms``, ``instances_inferred``, ``coalesced_sources``
-        and the substages). The first binder wins: the tasks sharing the
+        and the substages), the tracer (``trace_of(payload)`` gives a
+        record's context; the shared span is named ``span_name``) and the
+        flight recorder. The first binder wins: the tasks sharing the
         engine all bind, and the queue's metrics land once."""
         with self._cond:
             if self._metrics is not None:
                 return
             self._metrics = metrics
+            self._cid = component_id
+            self._tracer = tracer
+            self._flight = flight
+            self._trace_of = trace_of
+            self._span_name = span_name
             m, cid = metrics, component_id
             self._m = {
                 "batch_size": m.histogram(cid, "batch_size"),
@@ -367,20 +386,51 @@ class ContinuousBatcher:
         self._fills.append(fill)
         self.last_batch = {"rows": rows, "padded": padded, "fill": round(fill, 4),
                            "records": len(items), "sources": sorted(sources)}
+        timings = getattr(handle, "timings", None) if handle is not None else None
+        if self._tracer is not None and self._tracer.active:
+            self._trace(items, t_disp, t_done, timings, fill, len(sources))
         if self._m:
             self._m["batch_size"].observe(rows)
             self._m["batch_fill"].observe(fill)
             self._m["device_ms"].observe((t_done - t_disp) * 1e3)
             self._m["infer"].inc(rows)
             self._m["coalesced"].inc(len(sources))
-            timings = getattr(handle, "timings", None) if handle is not None else None
             for key, _ in DEVICE_SUBSTAGES:
                 if timings and key in timings:
                     self._m["substage"][key].observe(timings[key])
+        if self._flight is not None:
+            self._flight.event(
+                "batch_formed", throttle_s=1.0, component=self._cid or "continuous",
+                size=rows, records=len(items), fill=round(fill, 3), sources=len(sources),
+                device_ms=round((t_done - t_disp) * 1e3, 3), continuous=True)
         ofs = 0
         for it in items:
             it.future.set_result(out[ofs:ofs + it.rows])
             ofs += it.rows
+
+    def _trace(self, items, t0, t1, timings, fill, n_sources) -> None:
+        """The operator's batch tracing at record granularity: a
+        ``queue_wait`` span per sampled record, one shared device span
+        linked to all of them with the fill, sources and substages."""
+        tracer = self._tracer
+        cid = self._cid or "continuous"
+        traced = []
+        for it in items:
+            ctx = self._trace_of(it.payload) if self._trace_of else None
+            if ctx is not None:
+                traced.append((ctx, tracer.record(ctx, "queue_wait", cid, it.enq or t0, t0)))
+        if not traced:
+            return
+        batch_span = tracer.new_span_id()
+        links = tuple(qid for _, qid in traced)
+        attrs = {"batch_size": sum(it.rows for it in items), "records": len(items),
+                 "fill": round(fill, 3), "sources": n_sources, "continuous": True}
+        for key, _ in DEVICE_SUBSTAGES:
+            if timings and key in timings:
+                attrs[key] = round(timings[key], 3)
+        for ctx, qid in traced:
+            tracer.record(ctx, self._span_name, cid, t0, t1, span_id=batch_span,
+                          parent_id=qid, links=links, attrs=attrs)
 
     # ---- introspection -------------------------------------------------------
 

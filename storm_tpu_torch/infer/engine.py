@@ -17,6 +17,14 @@ same ring runs with the eager forward in place of the replay.
 ``pipeline_depth=0`` is the serialized predict: pad, cast, forward and
 fetch, one batch at a time.
 
+Observability: each batch's ``staging``, ``h2d`` and ``d2h`` hops go to
+the copy ledger (``storm_tpu_torch/obs/copyledger.py``, which says where
+the port's copies differ from storm_tpu's), each completed batch's
+timings and each cold bucket's build time to the process profile sink
+(``set_profile_sink``), and each cold bucket to the engine's
+``on_compile`` hook. None of them runs under the engine's lock or inside
+a timed phase.
+
 ``shared_engine`` keeps one engine per model identity and batch policy per
 process, so the inference operator tasks of a topology share one copy of
 the weights on the card; its cache is bounded by a byte budget (85 % of
@@ -32,7 +40,7 @@ import sys
 import threading
 import time
 import weakref
-from collections import Counter, OrderedDict
+from collections import Counter, OrderedDict, deque
 from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,23 +52,13 @@ from storm_tpu_torch.device import resolve_device
 from storm_tpu_torch.infer.graphs import BucketForward
 from storm_tpu_torch.models.convert import from_jax_params, init_params
 from storm_tpu_torch.models.registry import check_checkpoint, load_checkpoint, model_def
+from storm_tpu_torch.obs import copyledger as _copyledger
 from storm_tpu_torch.resilience.chaos import get_injector
+from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES
 
 logger = logging.getLogger(__name__)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-#: Split-phase substages of one device round trip, in execution order:
-#: ``(timing key, stage label)`` (``storm_tpu/runtime/tracing.py``'s
-#: DEVICE_SUBSTAGES). h2d = staging write + host-to-device copy + replay
-#: launch (+ the capture on a cold bucket); compute = launch -> forward
-#: done on the card; d2h = the device-to-host copy and the rows out of the
-#: pinned buffer.
-DEVICE_SUBSTAGES: Tuple[Tuple[str, str], ...] = (
-    ("h2d_ms", "h2d"),
-    ("compute_ms", "compute"),
-    ("d2h_ms", "d2h"),
-)
 
 
 # ---- split-phase pipeline plumbing --------------------------------------------
@@ -140,7 +138,8 @@ class InflightBatch:
     resolves."""
 
     __slots__ = ("future", "n", "padded", "timings", "profile_key", "_out",
-                 "_buf", "_host_out", "_t_launched", "watchdog_ms", "on_done")
+                 "_buf", "_host_out", "_t_launched", "watchdog_ms", "on_done",
+                 "_owner")
 
     def __init__(self, n: int, padded: int) -> None:
         self.future: Future = Future()
@@ -158,6 +157,10 @@ class InflightBatch:
         # engine only while the batch is in flight.
         self.watchdog_ms = 0.0
         self.on_done = None
+        # The engine, held while the batch is in flight: the cache's
+        # budget evicts only engines nothing else references, so an
+        # engine swapped out under traffic stays until its batches land.
+        self._owner = None
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         return self.future.result(timeout)
@@ -212,6 +215,15 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
             handle.timings["d2h_ms"] = (t2 - t1) * 1e3
             handle._out = None
             handle.future.set_result(res)
+            # Copy ledger, after t2: the card's copy of the padded result
+            # into the pooled pinned output buffer, then the real rows out
+            # of it into a fresh array (storm_tpu's np.asarray of the
+            # device result is one copy of the padded result).
+            if _copyledger.active() and handle._host_out is not None:
+                out = handle._host_out
+                _copyledger.record("d2h", out.numel() * out.element_size() + res.nbytes,
+                                   copies=2, allocs=1, records=handle.n,
+                                   engine=handle.profile_key or "-")
             sink = _profile_sink
             if sink is not None and handle.profile_key is not None:
                 try:
@@ -231,6 +243,7 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
             # reads the buffer, and a later batch's output copy is ordered
             # after its own on the compute stream.
             _release_buffers(handle, staging)
+            handle._owner = None
             ring.release()
 
 
@@ -310,8 +323,8 @@ def _notify_done(handle: InflightBatch, exc) -> None:
 
 # Process-wide observer of completed batches and cold captures: needs
 # ``record_batch(key, padded, rows, timings)`` and ``record_compile(key,
-# padded, ms)``. None = off (the store itself, storm_tpu/obs/profile.py,
-# is not ported yet); the hot path pays one global read per batch.
+# padded, ms)`` (obs/profile.py's ProfileStore). None = off; the hot path
+# pays one global read per batch.
 _profile_sink = None
 
 
@@ -446,8 +459,11 @@ class InferenceEngine:
         # static buffers and the eager forward's transients), largest kept.
         self.graph_pool_bytes = 0
         # Observability hook: ``on_compile(padded_batch, ms)`` the first
-        # time a bucket runs (its eager forward and capture).
+        # time a bucket runs (its eager forward and capture). Cold builds
+        # happen under the lock; their reports wait here until it is
+        # released.
         self.on_compile = None
+        self._cold_reports: deque = deque()
         ckpt = model_cfg.checkpoint
         self.profile_key = f"{model_cfg.name}@{ckpt}" if ckpt else model_cfg.name
         # Forwards run on the card or the CPU (replays and eager forwards,
@@ -518,7 +534,25 @@ class InferenceEngine:
         then the capture on the card); reports a cold build once through
         ``on_compile`` and the profile sink."""
         with self._lock:
-            return self._bucket(padded)
+            bucket = self._bucket(padded)
+        self._report_cold()
+        return bucket
+
+    def _report_cold(self) -> None:
+        """Outside the lock: each cold build's report to the profile sink
+        and ``on_compile``."""
+        while self._cold_reports:
+            try:
+                padded, ms = self._cold_reports.popleft()
+            except IndexError:
+                return  # another thread took it
+            _report_compile(self.profile_key, padded, ms)
+            hook = self.on_compile
+            if hook is not None:
+                try:
+                    hook(padded, ms)
+                except Exception:
+                    pass  # an observability hook must never fail a batch
 
     def _bucket(self, padded: int) -> BucketForward:
         bucket = self._buckets.get(padded)
@@ -539,13 +573,7 @@ class InferenceEngine:
             peak = torch.cuda.max_memory_allocated(self.device) - base
             self.graph_pool_bytes = max(self.graph_pool_bytes, peak)
         self._buckets[padded] = bucket
-        ms = (time.perf_counter() - t0) * 1e3
-        _report_compile(self.profile_key, padded, ms)
-        if self.on_compile is not None:
-            try:
-                self.on_compile(padded, ms)
-            except Exception:
-                pass  # an observability hook must never fail a batch
+        self._cold_reports.append((padded, (time.perf_counter() - t0) * 1e3))
         return bucket
 
     def _note_forward(self, counts) -> None:
@@ -610,12 +638,14 @@ class InferenceEngine:
                 handle.future.set_exception(e)
             return handle
         self._ensure_fetch_thread()
+        handle._owner = self
         self._ring.acquire()
         try:
             self._dispatch_phase(handle, parts)
         except BaseException as e:  # noqa: BLE001 - fail ONLY this batch
             _release_buffers(handle, self._staging)
             self._ring.release()
+            handle._owner = None
             handle.future.set_exception(e)
             return handle
         self._fetch_q.put(handle)
@@ -658,6 +688,23 @@ class InferenceEngine:
         with self._lock:
             result = self._launch(padded, buf, out, scale, offset)
         t1 = time.perf_counter()
+        # After t1, so neither the ledger nor a cold build's report lands
+        # in the h2d_ms it sits beside.
+        if _copyledger.active():
+            nbytes = buf.numel() * buf.element_size()
+            engine = self.profile_key or "-"
+            if self.wire_uint8:
+                # Two passes: the f32 stage write (4 bytes a value), then
+                # the cast into the uint8 wire buffer (1 byte); the affine
+                # passes rewrite the f32 buffer in place and count as no
+                # copy.
+                _copyledger.record("staging", nbytes * 5, copies=2, records=n,
+                                   engine=engine)
+            else:
+                # The one fused pad + cast write into the pinned buffer.
+                _copyledger.record("staging", nbytes, copies=1, records=n, engine=engine)
+            _copyledger.record("h2d", nbytes, copies=1, records=n, engine=engine)
+        self._report_cold()
         hold = self._chaos_hang_s()
         if hold > 0:
             result = _HangingResult(result, time.monotonic() + hold)
@@ -743,6 +790,7 @@ class InferenceEngine:
                           pin_memory=self._streams is not None)
         with self._lock:
             result = self._launch(padded, xt, out, scale, offset, eager=eager)
+        self._report_cold()
         return np.array(np.asarray(result)[:n])
 
 

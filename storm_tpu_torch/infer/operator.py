@@ -1,9 +1,8 @@
 """The inference operator, the counterpart of ``storm_tpu/infer/operator.py``
-on its split-phase path, with QoS lanes and shedding and continuous
-batching. Still trimmed from it: cascades (and with them
-``qos.degrade_model``), record frames and chunked tuples, tracing beyond
-the ``decode_ms`` and ``encode_ms`` spans and the flight recorder, the
-copy ledger, and ``swap_model``.
+on its split-phase path, with QoS lanes and shedding, continuous
+batching, tracing, the flight recorder, the copy ledger and the live
+model swap. Still trimmed from it: cascades (and with them
+``qos.degrade_model``), record frames and chunked tuples.
 
 Per tuple: decode the ``{"instances": ...}`` payload and check it against
 the model's input shape — a failure emits a :class:`DeadLetter` on the
@@ -35,6 +34,27 @@ submits each record to its engine's shared queue
 task on the engine co-batches, and completes the record from a task of
 its own when the record's rows come back; each task keeps at most
 ``max_inflight * max_batch`` rows outstanding.
+
+Observability. A sampled record's trace gets a ``queue_wait`` span (from
+entering the batcher to the device round trip's start) and one
+``device_execute`` span shared by every sampled member of its batch,
+linked to all their ``queue_wait`` spans and carrying the substages
+(``h2d_ms``, ``compute_ms``, ``d2h_ms``); a shed record gets a
+``qos_shed`` span. The flight recorder gets ``batch_formed`` (throttled),
+``shed_reject``, ``engine_quarantined``, ``engine_replaced`` and
+``graph_capture`` (each cold bucket's eager forward and capture, with
+storm_tpu's ``xla_compile`` fields: ``component``, ``batch_shape``,
+``compile_ms``). The copy ledger gets ``json_decode`` and
+``json_encode`` rows. ``prepare`` attaches the copy ledger and the
+profile store before the engine warms, so warm-up's builds are counted.
+
+:meth:`InferenceBolt.swap_model` builds and warms the new model's engine
+on a worker thread, then switches the task to it at once: batches in
+flight finish on the old engine, which stays cached for a rollback. The
+task moves its quarantine hook and its compile hook to the new engine,
+and under continuous batching its queue too (storm_tpu's ``swap_model``
+does neither, ``ROADMAP.md`` C7: its continuous task goes on submitting to
+the old engine's queue).
 """
 
 from __future__ import annotations
@@ -52,9 +72,11 @@ from storm_tpu_torch.api.schema import (
 from storm_tpu_torch.config import BatchConfig, ModelConfig, QosConfig
 from storm_tpu_torch.infer.batcher import Batch, MicroBatcher
 from storm_tpu_torch.infer.continuous import continuous_for
-from storm_tpu_torch.infer.engine import DEVICE_SUBSTAGES, shared_engine
+from storm_tpu_torch.infer.engine import shared_engine
+from storm_tpu_torch.obs import copyledger as _copyledger
+from storm_tpu_torch.obs import profile as _profile
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, TopologyContext
-from storm_tpu_torch.runtime.tracing import span
+from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES, span
 from storm_tpu_torch.runtime.tuples import Tuple, Values
 
 logger = logging.getLogger(__name__)
@@ -76,6 +98,10 @@ class _QuarantineFanout:
         with self._lock:
             self._tasks.add(task)
 
+    def discard(self, task: "InferenceBolt") -> None:
+        with self._lock:
+            self._tasks.discard(task)
+
     def __call__(self, trips: int) -> None:
         with self._lock:
             tasks = list(self._tasks)
@@ -84,6 +110,17 @@ class _QuarantineFanout:
                 task._engine_quarantined(trips)
             except Exception:
                 logger.exception("a task's quarantine handler failed")
+
+
+def _stop_listening(engine, task: "InferenceBolt") -> None:
+    hook = getattr(engine, "on_quarantine", None)
+    if isinstance(hook, _QuarantineFanout):
+        hook.discard(task)
+
+
+def _trace_of(payload):
+    """The trace context of a queued record (its tuple's)."""
+    return payload.trace
 
 
 def _listen_for_quarantine(engine, task: "InferenceBolt") -> None:
@@ -153,11 +190,27 @@ class InferenceBolt(Bolt):
 
     def prepare(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().prepare(context, collector)
+        # The cost profile and the copy ledger attach before the engine
+        # builds or warms, so warm-up's cold builds are counted.
+        _profile.ensure_installed()
+        _copyledger.ensure_installed()
         # The codec is built before traffic (a no-op once prewarmed): its
         # first use would otherwise compile it on the event loop.
         native.load()
+        self._tracer = getattr(context, "tracer", None)
+        self._flight = getattr(context, "flight", None)
+        cid = context.component_id
+        self._on_compile = None
+        if self._flight is not None:
+            # A cold bucket (eager forward and graph capture) rides the
+            # hot path: the latency cliff a post-mortem needs to see.
+            self._on_compile = (
+                lambda padded, ms, fl=self._flight: fl.event(
+                    "graph_capture", component=cid, batch_shape=padded,
+                    compile_ms=round(ms, 1)))
         # One engine per model per process: the tasks share its weights.
         self.engine = self._engine or self._shared_engine()
+        self._hook_compile(self.engine)
         if self._warmup and not getattr(self, "_prewarmed", False):
             self.engine.warmup()
         if self.qos is not None:
@@ -176,7 +229,7 @@ class InferenceBolt(Bolt):
         # locked() alone is optimistic (the task acquires a tick later), and
         # two same-tick arrivals would otherwise each ship a tiny batch.
         self._eager_pending = 0
-        m, cid = context.metrics, context.component_id
+        m = context.metrics
         self._m_batch = m.histogram(cid, "batch_size")
         self._m_device_ms = m.histogram(cid, "device_ms")
         self._m_dead = m.counter(cid, "dead_lettered")
@@ -211,11 +264,21 @@ class InferenceBolt(Bolt):
             self._cb_source = f"{cid}#{context.task_index}"
 
     def _bind_queue(self, engine):
-        """``engine``'s continuous queue, its metrics bound to this
-        component (the first task to bind wins)."""
+        """``engine``'s continuous queue, its metrics, tracer and flight
+        recorder bound to this component (the first task to bind wins)."""
         cb = continuous_for(engine, self.batch_cfg, self.qos)
-        cb.bind(self.context.metrics, self.context.component_id)
+        cb.bind(self.context.metrics, self.context.component_id, tracer=self._tracer,
+                flight=self._flight, trace_of=_trace_of, span_name="device_execute")
         return cb
+
+    def _hook_compile(self, engine) -> None:
+        """Point ``engine``'s cold-build hook at this task's flight
+        recorder (every task of the component sets the same event)."""
+        if self._on_compile is not None:
+            try:
+                engine.on_compile = self._on_compile
+            except AttributeError:
+                pass  # a slotted test double
 
     # ---- quarantine -> replacement -------------------------------------------
 
@@ -228,6 +291,10 @@ class InferenceBolt(Bolt):
         old engine asks for the same key, and the cache builds it once."""
         self._m_quarantined.set(1)
         self._m_wd_trips.inc(trips)
+        cid = self.context.component_id
+        if self._flight is not None:
+            self._flight.event("engine_quarantined", component=cid,
+                               model=self.model_cfg.name, trips=trips)
         old = self.engine
 
         def rebuild() -> None:
@@ -235,18 +302,54 @@ class InferenceBolt(Bolt):
                 eng = self._shared_engine()
                 if self._warmup:
                     eng.warmup()
-                eng.on_compile = old.on_compile
-                _listen_for_quarantine(eng, self)
-                if self._continuous:
-                    # Every task re-aims at the replacement's one queue.
-                    self._cb = self._bind_queue(eng)
-                self.engine = eng
+                if self.engine is not old:
+                    return  # swapped away meanwhile: the swap's engine stays
+                self._adopt(eng, old)
                 self._m_quarantined.set(0)
+                if self._flight is not None:
+                    self._flight.event("engine_replaced", component=cid,
+                                       model=self.model_cfg.name)
             except Exception:
                 logger.exception("replacement engine build failed; the component stays "
                                  "quarantined (batches fail fast and replay)")
 
         threading.Thread(target=rebuild, name="engine-replace", daemon=True).start()
+
+    def _adopt(self, eng, old) -> None:
+        """Switch this task from ``old`` to ``eng``: the compile hook and
+        the quarantine fan-out move with it and, under continuous
+        batching, the task's queue (the new engine's one queue)."""
+        try:
+            eng.on_compile = self._on_compile or getattr(old, "on_compile", None)
+        except AttributeError:
+            pass  # a slotted test double
+        if eng is not old:
+            _stop_listening(old, self)
+        _listen_for_quarantine(eng, self)
+        if self._continuous:
+            self._cb = self._bind_queue(eng)
+        self.engine = eng
+
+    # ---- live model swap -------------------------------------------------------
+
+    async def swap_model(self, model_cfg: ModelConfig) -> None:
+        """Serve ``model_cfg`` from now on, under traffic. Its engine comes
+        from ``shared_engine`` (built and warmed on a worker thread, or
+        the cached one: a swap back to an earlier model builds nothing),
+        then the task switches to it at once. Batches in flight finish on
+        the old engine, which stays cached. A new input shape may fail
+        and replay records still in this task's batcher."""
+
+        def build():
+            eng = shared_engine(model_cfg, self.batch_cfg, device=self.device)
+            self._hook_compile(eng)
+            if self._warmup:
+                eng.warmup()
+            return eng
+
+        new = await asyncio.to_thread(build)
+        self._adopt(new, self.engine)
+        self.model_cfg = model_cfg
 
     # ---- ingest --------------------------------------------------------------
 
@@ -267,6 +370,10 @@ class InferenceBolt(Bolt):
                 raise SchemaError(
                     f"instance shape {tuple(inst.data.shape[1:])} != model "
                     f"input {self.engine.input_shape}")
+            if _copyledger.active():
+                # The parse writes one fresh float32 array.
+                _copyledger.record("json_decode", inst.data.nbytes, copies=1, allocs=1,
+                                   records=1, engine=self.context.component_id)
         except SchemaError as e:
             await self._dead_letter(t, payload, str(e))
             return
@@ -300,7 +407,25 @@ class InferenceBolt(Bolt):
         msg = Overloaded(lane=lane or "", shed_level=level).to_json()
         await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
         self._m_shed.inc()
+        cid = self.context.component_id
+        if self._flight is not None:
+            self._flight.event("shed_reject", throttle_s=1.0, component=cid,
+                               lane=lane, level=level, records=1)
+        if t.trace is not None and self._tracer is not None:
+            now = time.perf_counter()
+            self._tracer.record(t.trace, "qos_shed", cid, t.root_ts or now, now,
+                                attrs={"lane": lane or "", "level": level,
+                                       "action": "reject"})
         self.collector.ack(t)
+
+    def _encode(self, preds):
+        """``encode_predictions`` and its ``json_encode`` ledger row: one
+        fresh payload per emit."""
+        msg = encode_predictions(preds)
+        if _copyledger.active():
+            _copyledger.record("json_encode", len(msg), copies=1, allocs=1, records=1,
+                               engine=self.context.component_id)
+        return msg
 
     # ---- the continuous path ---------------------------------------------------
 
@@ -327,7 +452,7 @@ class InferenceBolt(Bolt):
         try:
             preds = await asyncio.wrap_future(sub.future)
             with span(self.context.metrics, self.context.component_id, "encode"):
-                msg = encode_predictions(preds)
+                msg = self._encode(preds)
             await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
             self.collector.ack(t)
         except Exception as e:
@@ -389,6 +514,33 @@ class InferenceBolt(Bolt):
         self._inflight.add(task)
         task.add_done_callback(self._inflight.discard)
 
+    def _trace_batch(self, batch: Batch, t0: float, t1: float, timings: dict,
+                     fill: float) -> None:
+        """A ``queue_wait`` span per sampled record (batcher entry -> the
+        round trip's start) and one ``device_execute`` span, the same id
+        in every sampled member's trace, parented on the member's
+        ``queue_wait`` and linked to all of them."""
+        tracer = self._tracer
+        cid = self.context.component_id
+        traced = []
+        for it in batch.items:
+            ctx = it.payload.trace
+            if ctx is not None:
+                traced.append((ctx, tracer.record(ctx, "queue_wait", cid,
+                                                  it.enq or t0, t0)))
+        if not traced:
+            return
+        batch_span = tracer.new_span_id()
+        links = tuple(qid for _, qid in traced)
+        attrs = {"batch_size": batch.size, "records": len(batch.items),
+                 "fill": round(fill, 3)}
+        for key, _ in DEVICE_SUBSTAGES:
+            if key in timings:
+                attrs[key] = round(timings[key], 3)
+        for ctx, qid in traced:
+            tracer.record(ctx, "device_execute", cid, t0, t1, span_id=batch_span,
+                          parent_id=qid, links=links, attrs=attrs)
+
     async def _run_batch(self, batch: Batch) -> None:
         engine = self.engine
         try:
@@ -407,11 +559,21 @@ class InferenceBolt(Bolt):
             self._m_batch.observe(batch.size)
             self._m_infer.inc(batch.size)
             padded = handle.padded or self.batch_cfg.bucket_for(batch.size)
-            self._m_fill.observe(batch.size / max(padded, 1))
+            fill = batch.size / max(padded, 1)
+            self._m_fill.observe(fill)
             self._m_coalesced.inc()  # a per-task batch has one source
+            if self._tracer is not None and self._tracer.active:
+                self._trace_batch(batch, t0, t1, handle.timings, fill)
+            if self._flight is not None:
+                # Throttled: enough to see batch sizes and device time in a
+                # post-mortem without a per-batch firehose.
+                self._flight.event(
+                    "batch_formed", throttle_s=1.0, component=self.context.component_id,
+                    size=batch.size, records=len(batch.items), fill=round(fill, 3),
+                    sources=1, device_ms=round((t1 - t0) * 1e3, 3))
             for item, preds in batch.split(out):
                 with span(self.context.metrics, self.context.component_id, "encode"):
-                    msg = encode_predictions(preds)
+                    msg = self._encode(preds)
                 await self.collector.emit(Values([msg, *self._extras(item)]),
                                           anchors=[item])
                 self.collector.ack(item)

@@ -14,10 +14,10 @@ Signals, read from the topology's metrics registry and its executors:
 raise the shed level by one; ``calm_steps`` consecutive intervals with
 every signal below half its threshold lower it. The level is published as
 the gauge ``("qos", "shed_level")``, which the spout's admission and the
-inference operator read. Each change is kept in ``decisions``. The
-observatory's burn-rate signal (``burn``) and the flight recorder's
-events are not ported: ``burn`` stays None, and the runtime has no
-``flight``.
+inference operator read. Each change is kept in ``decisions`` and
+recorded as a ``shed_decision`` flight event with the signals that made
+it. The observatory's burn-rate signal (``burn``) is not ported: it stays
+None (``burn_rate`` 0 in the event).
 """
 
 from __future__ import annotations
@@ -165,4 +165,12 @@ class LoadShedController:
         log.info("shed level %d->%d (%s): inbox=%.0f%% wait_p95=%.1fms breaches/s=%.1f",
                  old, new, direction, signals["inbox_frac"] * 100,
                  signals["wait_p95_ms"], signals["breach_rate"])
+        flight = getattr(self.rt, "flight", None)
+        if flight is not None:
+            flight.event(
+                "shed_decision", component=self.policy.component, direction=direction,
+                level=(old, new), inbox_frac=round(signals["inbox_frac"], 3),
+                wait_p95_ms=round(signals["wait_p95_ms"], 3),
+                breach_rate=round(signals["breach_rate"], 3),
+                burn_rate=round(signals.get("burn_rate", 0.0), 3))
         return new

@@ -1,6 +1,7 @@
 """Operator API: Spout / Bolt / OutputCollector / TopologyContext, copied
-from ``storm_tpu/runtime/base.py`` without the tracing and copy-ledger
-hooks.
+from ``storm_tpu/runtime/base.py``. A tuple's trace context follows
+anchoring, and each emit records its ``tuple_route`` row in the copy
+ledger.
 
 ``execute``/``next_tuple`` are coroutines, because emitting into a bounded
 downstream inbox is a backpressure point; an uncaught exception in
@@ -12,19 +13,26 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
+from storm_tpu_torch.obs import copyledger as _copyledger
+from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
 from storm_tpu_torch.runtime.tuples import Tuple, new_id
 
 
 class TopologyContext:
-    """What an operator instance knows about itself and its surroundings."""
+    """What an operator instance knows about itself and its surroundings.
+    ``tracer`` and ``flight`` are the runtime's (None for a context built
+    outside a runtime)."""
 
     def __init__(self, component_id: str, task_index: int, parallelism: int,
-                 config: Any, metrics: Any = None) -> None:
+                 config: Any, metrics: Any = None, *, tracer: Any = None,
+                 flight: Any = None) -> None:
         self.component_id = component_id
         self.task_index = task_index
         self.parallelism = parallelism
         self.config = config
         self.metrics = metrics
+        self.tracer = tracer
+        self.flight = flight
 
 
 class OutputCollector:
@@ -39,19 +47,23 @@ class OutputCollector:
         self._m_emitted = runtime.metrics.counter(component_id, "emitted")
         self._m_acked = runtime.metrics.counter(component_id, "acked")
         self._m_failed = runtime.metrics.counter(component_id, "failed")
+        self._tracer = getattr(runtime, "tracer", None)
 
     def set_output_fields(self, fields: Dict[str, Sequence[str]]) -> None:
         self._out_fields = fields
 
     async def emit(self, values: Sequence[Any], *, stream: str = "default",
                    anchors: Optional[Iterable[Tuple]] = None,
-                   msg_id: Any = None, root_ts: Optional[float] = None) -> int:
+                   msg_id: Any = None, root_ts: Optional[float] = None,
+                   trace: Any = None) -> int:
         """Emit a tuple downstream; returns the number of deliveries.
 
         Bolts: ``await collector.emit(Values(out), anchors=[in_tuple])``.
         Spouts: ``await collector.emit(Values(x), msg_id=offset)`` — a
         non-None ``msg_id`` opens an at-least-once ledger entry whose
-        completion or failure is reported back to the spout."""
+        completion or failure is reported back to the spout. ``trace``: a
+        spout's own sampled context, or ``NOT_SAMPLED`` when its roll
+        missed; a bolt's tuple takes its anchors' context."""
         fields = self._out_fields.get(stream, ("message",))
         subs = self._rt.router.subscriptions(self.component_id, stream)
 
@@ -62,6 +74,13 @@ class OutputCollector:
             roots = frozenset().union(*(a.anchors for a in anchor_list))
             if root_ts is None:
                 ts = min(a.root_ts for a in anchor_list)
+            if trace is None:
+                # The trace follows anchoring, like root_ts; attribute
+                # reads only, no allocation when nothing is sampled.
+                for a in anchor_list:
+                    if a.trace is not None:
+                        trace = a.trace
+                        break
 
         probe = Tuple(values=list(values), fields=fields,
                       source_component=self.component_id,
@@ -81,6 +100,16 @@ class OutputCollector:
                 root_id, msg_id,
                 self._rt.spout_done_cb(self.component_id, self.task_index), ts)
             roots = frozenset((root_id,))
+            if trace is None and self._tracer is not None and self._tracer.active:
+                # A spout that mints no context of its own (BrokerSpout
+                # does, and passes NOT_SAMPLED on a miss): the root gets a
+                # generic ingress span.
+                trace = self._tracer.maybe_trace()
+                if trace is not None:
+                    self._tracer.record(trace, "ingress", self.component_id,
+                                        ts, time.perf_counter())
+        if trace is NOT_SAMPLED:
+            trace = None
 
         # XOR every new edge into the ledger BEFORE the first (possibly
         # yielding) queue put — otherwise a fast consumer could zero the
@@ -96,9 +125,16 @@ class OutputCollector:
                 values=list(probe.values), fields=fields,
                 source_component=self.component_id,
                 source_task=self.task_index, stream=stream, edge_id=edge,
-                anchors=roots, root_ts=ts))
-        self._m_emitted.inc(len(deliveries))
-        return len(deliveries)
+                anchors=roots, root_ts=ts, trace=trace))
+        n = len(deliveries)
+        self._m_emitted.inc(n)
+        if n and _copyledger.active():
+            # Routing moves references, not payloads: bytes 0 is the
+            # point of the row. Allocations: the probe tuple and one Tuple
+            # (and values list) per delivery.
+            _copyledger.record("tuple_route", 0, copies=0, allocs=n + 1,
+                               records=n, engine=self.component_id)
+        return n
 
     def ack(self, t: Tuple) -> None:
         """Mark the input tuple consumed."""

@@ -1,8 +1,12 @@
 """The in-process cluster, copied from ``storm_tpu/runtime/cluster.py``
-without rebalance, model swap, seek, supervision and metrics consumers:
-routing, lifecycle, graceful drain and the at-least-once timeout sweep.
-A runtime's ``bolt_execs`` (each task's bounded inbox) and ``metrics`` are
-what the load-shed controller reads; it hangs itself on ``runtime.qos``.
+without rebalance, seek, supervision and metrics consumers: routing,
+lifecycle, graceful drain, the at-least-once timeout sweep, the live
+model swap with canary (``swap_model``) and the per-task stats
+(``component_stats``). A runtime's ``bolt_execs`` (each task's bounded
+inbox) and ``metrics`` are what the load-shed controller reads; it hangs
+itself on ``runtime.qos``. Each runtime builds its :class:`Tracer` and
+:class:`FlightRecorder` from ``config.tracing``; every task's context
+carries them.
 
 :class:`AsyncLocalCluster` runs inside an event loop; :class:`LocalCluster`
 is its synchronous facade with its own loop thread (Storm's
@@ -12,16 +16,18 @@ is its synchronous facade with its own loop thread (Storm's
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple as Tup
 
-from storm_tpu_torch.config import Config
+from storm_tpu_torch.config import Config, TracingConfig
 from storm_tpu_torch.runtime.acker import AckLedger
 from storm_tpu_torch.runtime.executor import BoltExecutor, SpoutExecutor, clone_component
 from storm_tpu_torch.runtime.metrics import MetricsRegistry
 from storm_tpu_torch.runtime.topology import Topology
+from storm_tpu_torch.runtime.tracing import FlightRecorder, Tracer
 
 log = logging.getLogger("storm_tpu_torch.cluster")
 
@@ -54,6 +60,11 @@ class TopologyRuntime:
         self.topology = topology
         self.config = config
         self.metrics = MetricsRegistry()
+        tr = getattr(config, "tracing", None) or TracingConfig()
+        self.tracer = Tracer(sample_rate=tr.sample_rate, store_capacity=tr.store_capacity)
+        self.flight = FlightRecorder(path=tr.flight_path, capacity=tr.flight_capacity,
+                                     max_bytes=tr.flight_max_bytes,
+                                     max_files=tr.flight_max_files)
         self.ledger = AckLedger(timeout_s=config.topology.message_timeout_s)
         self.router = Router()
         self.bolt_execs: Dict[str, List[BoltExecutor]] = {}
@@ -103,6 +114,7 @@ class TopologyRuntime:
             n = self.ledger.sweep()
             if n:
                 log.warning("%s: %d tuple trees timed out", self.name, n)
+                self.flight.event("tree_timeout", topology=self.name, trees=n)
             for cid, execs in self.bolt_execs.items():
                 self.metrics.gauge(cid, "inbox_depth").set(
                     sum(e.inbox.qsize() for e in execs))
@@ -163,6 +175,83 @@ class TopologyRuntime:
         for execs in self.bolt_execs.values():
             for e in execs:
                 await e.stop(drain=wait_secs > 0)
+        self.flight.close()
+
+    # ---- live model swap -----------------------------------------------------
+
+    async def swap_model(self, component_id: str, overrides: dict,
+                         tasks: Optional[list] = None):
+        """Roll the inference component's tasks onto a new model under
+        traffic: ``overrides`` (e.g. ``{"checkpoint": "checkpoints/v2"}``)
+        apply to the prototype's ModelConfig. Returns the new config.
+
+        ``tasks=[i, ...]`` swaps only those tasks, a canary: compare their
+        ``component_stats`` rows (the per-task ``model`` descriptor, the
+        execute time, the errors) with the rest, then swap the rest or
+        swap the canary back. A canary leaves the prototype as it was."""
+        execs = self.bolt_execs.get(component_id)
+        if execs is None:
+            raise KeyError(component_id)
+        swappable = [e for e in execs if hasattr(e.bolt, "swap_model")]
+        if not swappable:
+            raise TypeError(f"component {component_id!r} has no model to swap")
+        # Based on the prototype, not a task: after a canary the tasks'
+        # configs differ, and a task's would carry its fields into every
+        # later swap.
+        proto = self.topology.specs[component_id].obj
+        base = proto.model_cfg if hasattr(proto, "model_cfg") else swappable[0].bolt.model_cfg
+        new_cfg = dataclasses.replace(base, **overrides)
+        if tasks is not None:
+            if not tasks:
+                raise ValueError("tasks must be a non-empty list")
+            chosen = [e for e in swappable if e.task_index in set(tasks)]
+            missing = set(tasks) - {e.task_index for e in chosen}
+            if missing:
+                raise KeyError(f"no swappable task(s) {sorted(missing)} in {component_id!r}")
+            for e in chosen:
+                await e.bolt.swap_model(new_cfg)
+            return new_cfg
+        if hasattr(proto, "model_cfg"):
+            proto.model_cfg = new_cfg
+        # The first swap builds and warms the engine (shared per process);
+        # the others take it from the cache.
+        for e in swappable:
+            if e.bolt.model_cfg is not new_cfg:
+                await e.bolt.swap_model(new_cfg)
+        return new_cfg
+
+    def component_stats(self, component_id: str) -> list:
+        """Per-task stats of one component: for a bolt the executed count,
+        mean execute ms, errors, inbox depth and the model descriptor
+        (``name[:checkpoint][:seed=N][:weights]``, as storm_tpu spells it);
+        for a spout the acked and failed trees, errors and in-flight
+        roots."""
+        if component_id in self.bolt_execs:
+            def model_of(e):
+                cfg = getattr(e.bolt, "model_cfg", None)
+                if cfg is None:
+                    return None
+                parts = [cfg.name]
+                if cfg.checkpoint:
+                    parts.append(cfg.checkpoint)
+                if cfg.seed:
+                    parts.append(f"seed={cfg.seed}")
+                if getattr(cfg, "weights", "float") != "float":
+                    parts.append(cfg.weights)
+                return ":".join(parts)
+
+            return [
+                {"task": e.task_index, "executed": e.n_executed,
+                 "avg_execute_ms": round(e.exec_ms_total / e.n_executed, 3)
+                 if e.n_executed else None,
+                 "errors": e.n_errors, "inbox_depth": e.inbox.qsize(),
+                 **({"model": m} if (m := model_of(e)) else {})}
+                for e in self.bolt_execs[component_id]]
+        if component_id in self.spout_execs:
+            return [{"task": e.task_index, "acked": e.n_acked, "failed": e.n_failed,
+                     "errors": e.n_errors, "inflight": e.inflight}
+                    for e in self.spout_execs[component_id]]
+        raise KeyError(component_id)
 
 
 class AsyncLocalCluster:

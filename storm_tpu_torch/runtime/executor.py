@@ -1,5 +1,6 @@
 """Executors, copied from ``storm_tpu/runtime/executor.py`` without state
-checkpoints and tracing: one asyncio task per operator instance.
+checkpoints: one asyncio task per operator instance. A sampled tuple's
+``execute`` is recorded as a span of its trace.
 
 Each bolt instance owns a bounded inbox (the backpressure point) and each
 spout instance runs a pull loop gated on ``max_spout_pending``.
@@ -39,12 +40,14 @@ class BoltExecutor:
         self._task: Optional[asyncio.Task] = None
         self.collector = OutputCollector(runtime, component_id, task_index)
         self.collector.set_output_fields(bolt.declare_output_fields())
+        # Per-task stats (the runtime's component_stats).
+        self.n_executed = 0
+        self.exec_ms_total = 0.0
+        self.n_errors = 0
 
     def start(self) -> None:
-        ctx = TopologyContext(self.component_id, self.task_index,
-                              self.rt.parallelism_of(self.component_id),
-                              self.rt.config, self.rt.metrics)
-        self.bolt.prepare(ctx, self.collector)
+        self.bolt.prepare(_context(self.rt, self.component_id, self.task_index),
+                          self.collector)
         self._task = asyncio.create_task(
             self._run(), name=f"{self.component_id}[{self.task_index}]")
 
@@ -52,22 +55,29 @@ class BoltExecutor:
         m = self.rt.metrics
         executed = m.counter(self.component_id, "executed")
         exec_ms = m.histogram(self.component_id, "execute_ms")
+        tracer = getattr(self.rt, "tracer", None)
         while True:
             item = await self.inbox.get()
             if item is _STOP:
                 break
             t: Tuple = item
             executed.inc()
+            self.n_executed += 1
             t0 = time.perf_counter()
             try:
                 await self.bolt.execute(t)
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # fail the tuple, keep the executor alive
+                self.n_errors += 1
                 self.rt.report_error(self.component_id, self.task_index, e)
                 self.collector.fail(t)
             finally:
-                exec_ms.observe((time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter()
+                exec_ms.observe((t1 - t0) * 1e3)
+                self.exec_ms_total += (t1 - t0) * 1e3
+                if t.trace is not None and tracer is not None:
+                    tracer.record(t.trace, "execute", self.component_id, t0, t1)
             if not self.inbox.empty():
                 await asyncio.sleep(0)  # let timers and the other tasks run
 
@@ -115,6 +125,9 @@ class SpoutExecutor:
         self._active = True
         self.collector = OutputCollector(runtime, component_id, task_index)
         self.collector.set_output_fields(spout.declare_output_fields())
+        self.n_acked = 0
+        self.n_failed = 0
+        self.n_errors = 0
 
     def on_done(self, msg_id: Any, ok: bool) -> None:
         """Ledger callback: the tuple tree for msg_id completed or failed."""
@@ -123,9 +136,11 @@ class SpoutExecutor:
             self._slot.set()
         m = self.rt.metrics
         if ok:
+            self.n_acked += 1
             m.counter(self.component_id, "tree_acked").inc()
             self.spout.ack(msg_id)
         else:
+            self.n_failed += 1
             m.counter(self.component_id, "tree_failed").inc()
             self.spout.fail(msg_id)
 
@@ -136,10 +151,8 @@ class SpoutExecutor:
             self._slot.clear()
 
     def start(self) -> None:
-        ctx = TopologyContext(self.component_id, self.task_index,
-                              self.rt.parallelism_of(self.component_id),
-                              self.rt.config, self.rt.metrics)
-        self.spout.open(ctx, self.collector)
+        self.spout.open(_context(self.rt, self.component_id, self.task_index),
+                        self.collector)
         self._task = asyncio.create_task(
             self._run(), name=f"{self.component_id}[{self.task_index}]")
 
@@ -155,6 +168,7 @@ class SpoutExecutor:
             except asyncio.CancelledError:
                 raise
             except Exception as e:
+                self.n_errors += 1
                 self.rt.report_error(self.component_id, self.task_index, e)
                 emitted = False
             if emitted:
@@ -175,6 +189,12 @@ class SpoutExecutor:
             self.spout.close()
         except Exception as e:  # pragma: no cover
             log.warning("close error in %s: %s", self.component_id, e)
+
+
+def _context(rt: Any, component_id: str, task_index: int) -> TopologyContext:
+    return TopologyContext(component_id, task_index, rt.parallelism_of(component_id),
+                           rt.config, rt.metrics, tracer=getattr(rt, "tracer", None),
+                           flight=getattr(rt, "flight", None))
 
 
 def clone_component(obj: Any) -> Any:

@@ -1,12 +1,15 @@
 """Metrics: counters, gauges and latency histograms with percentiles,
 copied from ``storm_tpu/runtime/metrics.py`` (without the name registry,
-windows, consumers and the Prometheus exposition). The shed controller
-reads a histogram's ``count`` and ``percentile``."""
+consumers and the Prometheus exposition). The shed controller reads a
+histogram's ``count`` and ``percentile``; the copy ledger its named
+windows; a sampled record's trace id rides on the histogram it observes
+as its exemplar."""
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -42,14 +45,56 @@ class Histogram:
         self._i = 0
         self.count = 0
         self.sum = 0.0
+        # The latest sampled (trace_id, value, wall ts): links the
+        # histogram to the trace that produced a point. None until a
+        # sampled record observes.
+        self.exemplar = None
+        # Named windowed-rate cursors: key -> (count, sum, t) at last read.
+        self._windows: Dict[str, tuple] = {}
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
         with self._lock:
             self._buf[self._i] = v
             self._i = (self._i + 1) % len(self._buf)
             self._n = min(self._n + 1, len(self._buf))
             self.count += 1
             self.sum += v
+            if trace_id is not None:
+                self.exemplar = (trace_id, v, time.time())
+
+    def values(self) -> np.ndarray:
+        """The reservoir's values (the most recent window), oldest first."""
+        with self._lock:
+            if self._n < len(self._buf):
+                return self._buf[:self._n].copy()
+            return np.roll(self._buf, -self._i)
+
+    def window(self, key: str = "default") -> Dict[str, float]:
+        """Count and sum since the last ``window(key)`` call. Cursors are
+        named, so independent readers keep their own; the first call with
+        a key reports a zero-length window."""
+        now = time.monotonic()
+        with self._lock:
+            count, total = self.count, self.sum
+            prev = self._windows.get(key)
+            self._windows[key] = (count, total, now)
+        if prev is None:
+            return {"count": 0, "sum": 0.0, "dt_s": 0.0, "rate_per_s": 0.0, "mean": None}
+        dc = max(0, count - prev[0])
+        ds = max(0.0, total - prev[1])
+        dt = max(0.0, now - prev[2])
+        return {"count": dc, "sum": ds, "dt_s": dt,
+                "rate_per_s": dc / dt if dt > 0 else 0.0,
+                "mean": ds / dc if dc else None}
+
+    def drop_window(self, key: str = "default") -> bool:
+        """Forget one named cursor."""
+        with self._lock:
+            return self._windows.pop(key, None) is not None
+
+    def window_keys(self) -> tuple:
+        with self._lock:
+            return tuple(self._windows)
 
     def percentile(self, q: float) -> float:
         """The ``q``-th percentile of the window (NaN when empty)."""

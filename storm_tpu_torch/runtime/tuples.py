@@ -1,5 +1,6 @@
 """Tuples and ack identities, copied from ``storm_tpu/runtime/tuples.py``
-(single-process: no worker tags, no source-log provenance).
+(single-process: no worker tags, no source-log provenance). A tuple
+carries its record's trace context, which follows anchoring.
 
 Every tuple edge has a random 64-bit ``edge_id``; a tuple anchored to one
 or more root (spout) tuples carries their ids in ``anchors``, Storm's
@@ -12,7 +13,7 @@ import os
 import random
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, FrozenSet, Sequence
+from typing import Any, FrozenSet, Optional, Sequence
 
 # Ids only need uniqueness and uniform mixing for the XOR ledger; a
 # process-seeded Mersenne Twister is far cheaper per call than urandom.
@@ -49,6 +50,9 @@ class Tuple:
     # perf_counter timestamp when the root entered the topology; flows with
     # the tuple for end-to-end latency metrics.
     root_ts: float = 0.0
+    # The record's trace context (tracing.TraceContext); None unless the
+    # record was sampled, so tracing off costs only the field.
+    trace: Optional[Any] = None
 
     def __getitem__(self, i: int) -> Any:
         return self.values[i]

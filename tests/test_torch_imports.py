@@ -1,6 +1,7 @@
 """The port stands alone: no module of storm_tpu_torch (its native codec,
-MoE layer, model families, QoS package and continuous batcher included),
-and neither chip_smoke.py nor
+MoE layer, model families, QoS package, continuous batcher, tracing and
+flight recorder, copy ledger and cost profile included), and neither
+chip_smoke.py nor
 kernel_sweep.py, imports JAX, orbax, scikit-learn or anything of the JAX
 package storm_tpu (the machine with the card has none of them)."""
 
@@ -88,6 +89,13 @@ def test_importing_the_port_loads_no_jax():
                     input_shape=(64, 16)), BatchConfig(continuous=True), device="cpu",
                     passthrough=("qos_lane",), qos=qos)).shuffle_grouping("spout")
         tb.build()
+        from storm_tpu_torch.obs import copyledger, profile_store, ensure_installed
+        from storm_tpu_torch.runtime.tracing import FlightRecorder, Tracer, device_trace
+        ensure_installed()
+        copyledger.ensure_installed()
+        Tracer(1.0, seed=0).maybe_trace()
+        FlightRecorder().event("batch_formed", size=1)
+        print("OBS", sorted(profile_store().snapshot()), copyledger.active())
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu"))
@@ -98,6 +106,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     assert "CODEC (1, 1, 2) {\"predictions\": [[1.5, 2]]}" in out.stdout, out.stdout
+    assert "OBS ['engines'] True" in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer
     # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
@@ -108,5 +117,7 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.models.mobilenet", "storm_tpu_torch.models.resnet",
                  "storm_tpu_torch.models.longseq", "storm_tpu_torch.qos",
                  "storm_tpu_torch.qos.admission", "storm_tpu_torch.qos.lanes",
-                 "storm_tpu_torch.qos.shedding", "storm_tpu_torch.infer.continuous"):
+                 "storm_tpu_torch.qos.shedding", "storm_tpu_torch.infer.continuous",
+                 "storm_tpu_torch.obs", "storm_tpu_torch.obs.copyledger",
+                 "storm_tpu_torch.obs.profile"):
         assert repr(name) in out.stdout, name
