@@ -124,7 +124,29 @@ no result):
    direct forward and on the JAX reference's argmax where it is decided,
    the descriptors of ``component_stats``, the rollback building nothing,
    each engine's launch tally;
-11. the ``{"kernels": [...]}`` line, then the card line, then the last line
+11. the binary record plane, ViT-B/16 bf16 ``int8_fused`` through
+   ``storm_tpu_torch.main.build_standard_topology`` (2/4/2, ``max_batch``
+   8, bucket 8, ``max_wait_ms`` 50) with the topology's ``spout_chunk``,
+   ``spout_scheme`` and ``spout_frames``: 64 seeded (1, 224, 224, 3)
+   float32 records as Arrow tensor messages (the port's ``encode_tensor``),
+   one JSON record of the same shape and one poison (a truncated tensor
+   message). (a) raw scheme, chunks of 8 as record frames, frame egress:
+   every record's prediction exactly once, each output payload the bytes
+   of the rows of one (frame, batch) of the engine's direct forward of
+   that batch, the poison dead-lettered, no replay; the ledger's
+   ``json_decode`` and ``marshal_decode`` rows at zero bytes for the
+   tensor records, ``batch_route`` once per frame, ``sink_encode`` only
+   for the dead letter; (b) the same with ``frame_egress=False``: one
+   output a record; (c) the same records as JSON, string scheme, chunks
+   of 8 as lists; (d) phase 9b's longseq_encoder records as tensor
+   messages with its QoS lanes, chunks of 8 in frames, continuous
+   batching on (and off, coalesced): every chunk lane-homogeneous, every
+   record answered once, none lost. Each turn's launch tally exactly
+   forwards x the model's per-forward launches; records/s, e2e p50 per
+   record and per output message, the bolt's ``decode_ms`` and the
+   decodes' share of the burst, the substages and the ledger's
+   amplification printed beside phase 5's JSON turn;
+12. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -923,23 +945,29 @@ def profiled_kernels(torch, fn) -> tuple:
     profiler can miss the first kernels it records on a stream (one to
     three of a replay's, seen on the card late in this script): ``fn()``
     runs once to warm it, then a spin kernel, then ``fn()`` again, and only
-    what the card ran after the spin is counted."""
+    what the card ran after the spin is counted. A trace that lost the spin
+    kernel itself (seen once on the card, in phase 8b) is taken again, up
+    to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(100_000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-                      and "Memcpy" not in ev.name and "Memset" not in ev.name),
-                     key=lambda ev: ev.time_range.start)
-    spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
-    if not spins:
-        raise AssertionError("the profiler recorded no separating spin kernel")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                          and "Memcpy" not in ev.name and "Memset" not in ev.name),
+                         key=lambda ev: ev.time_range.start)
+        spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
+        if spins:
+            break
+        log(f"  the profiler recorded no separating spin kernel (trace {attempt + 1} of 3)")
+    else:
+        raise AssertionError("the profiler recorded no separating spin kernel in 3 traces")
     counts = dict.fromkeys(KERNEL_FUNCS, 0)
     counts["all"] = 0
     ms = dict.fromkeys(counts, 0.0)
@@ -2707,6 +2735,379 @@ def observe_and_swap(torch, card: str) -> dict:
     return res
 
 
+# ---- phase 11: the binary record plane -------------------------------------------
+
+# ViT-B/16 launches per forward (bf16 int8_fused), as phase 5 holds them.
+VIT_LAUNCHES = {"w8a16_matmul_sm90": 73, "residual_layernorm_sm90": 12,
+                "flash_attention_sm90": 12}
+RP_RECORDS = 64   # seeded (1, 224, 224, 3) float32 tensor records a turn
+RP_JSON_AT = 20   # where the one JSON record rides among them
+RP_POISON_AT = 40
+RP_CHUNK = 8
+RP_SHAPE = (224, 224, 3)
+
+
+def record_plane_stream(json_only: bool = False) -> dict:
+    """The record plane's stream in produce order: 65 seeded (1, 224, 224,
+    3) float32 records, 64 of them Arrow tensor messages written by the
+    port's ``encode_tensor`` and one (the 21st) ``{"instances": ...}``
+    JSON, and a poison record (a tensor message cut short: 0xFF-led,
+    truncated) at position 40. ``json_only``: every record JSON, the
+    poison ragged JSON. ``which[k]`` is payload k's row of ``inputs``
+    (None for the poison)."""
+    from storm_tpu_torch.serve.marshal import encode_tensor
+
+    rng = np.random.RandomState(21)
+    inputs = rng.rand(RP_RECORDS + 1, *RP_SHAPE).astype(np.float32)
+    payloads = []
+    for i, x in enumerate(inputs):
+        if json_only or i == RP_JSON_AT:
+            payloads.append(json.dumps({"instances": x[None].tolist()}).encode())
+        else:
+            payloads.append(encode_tensor(x[None]))
+    which = list(range(len(inputs)))
+    poison = (b'{"instances": [[1.0, 2.0], [3.0]]}' if json_only
+              else encode_tensor(inputs[:1])[:4096])
+    payloads.insert(RP_POISON_AT, poison)
+    which.insert(RP_POISON_AT, None)
+    return {"inputs": inputs, "payloads": payloads, "which": which}
+
+
+def longseq_plane_stream() -> tuple:
+    """Phase 9b's 48 longseq records (same seed, keys ``tenant:lane``) as
+    float32 Arrow tensor messages, and a truncated tensor message keyed
+    ``gold:high`` after the first half: (stream, keys)."""
+    from storm_tpu_torch.serve.marshal import encode_tensor
+
+    records = longseq_records()
+    inputs = np.concatenate([np.asarray(json.loads(p)["instances"], np.float32)
+                             for _, p, _ in records])
+    payloads = [encode_tensor(x[None]) for x in inputs]
+    keys = [k for k, _, _ in records]
+    which = list(range(len(inputs)))
+    at = len(inputs) // 2 + 1
+    payloads.insert(at, encode_tensor(inputs[:1])[:4096])
+    keys.insert(at, b"gold:high")
+    which.insert(at, None)
+    return {"inputs": inputs, "payloads": payloads, "which": which}, keys
+
+
+def _rows_of(value) -> int:
+    from storm_tpu_torch.api.schema import decode_predictions
+
+    return decode_predictions(value).data.shape[0]
+
+
+async def serve_record_plane(model_cfg, batch_cfg, stream: dict, *, chunk: int, scheme: str,
+                             frames: bool, qos=None, keys=None) -> dict:
+    """``stream`` through ``build_standard_topology`` (2 spouts / 4
+    inference bolts / 2 sinks and the dead-letter sink, on the card) with
+    the topology's ``spout_chunk``, ``spout_scheme`` and ``spout_frames``
+    set: the user's way in. The engine's dispatch is wrapped to keep a
+    copy of every batch; the copy ledger is reset once the engine is warm;
+    the lanes of every chunk the spouts emit are recorded. Waits until
+    every good record's row and the dead letter are out."""
+    from storm_tpu_torch.config import Config, OffsetsConfig
+    from storm_tpu_torch.connectors import MemoryBroker
+    from storm_tpu_torch.connectors.spout import BrokerSpout
+    from storm_tpu_torch.main import build_standard_topology
+    from storm_tpu_torch.obs import copyledger
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+
+    cfg = Config()
+    cfg.model, cfg.batch = model_cfg, batch_cfg
+    cfg.offsets = OffsetsConfig(policy="earliest", max_behind=None)
+    cfg.topology.spout_chunk, cfg.topology.spout_scheme = chunk, scheme
+    cfg.topology.spout_frames = frames
+    if qos is not None:
+        cfg.qos = qos
+    broker = MemoryBroker(default_partitions=2)
+    groups = []
+    emit_chunk = BrokerSpout._emit_chunk
+
+    async def recording_emit_chunk(self, records):
+        groups.append(sorted({self._lane_of(r) for r in records}) if self.qos else None)
+        await emit_chunk(self, records)
+
+    BrokerSpout._emit_chunk = recording_emit_chunk
+    cluster = AsyncLocalCluster()
+    try:
+        rt = await cluster.submit("chip-smoke-record-plane", cfg,
+                                  build_standard_topology(cfg, broker, device="cuda"))
+        engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+        batches = []
+        dispatch = engine.dispatch
+
+        def recording_dispatch(parts):
+            batches.append(np.concatenate([np.array(p, copy=True) for p in parts]))
+            return dispatch(parts)
+
+        engine.dispatch = recording_dispatch
+        copyledger.copy_ledger().reset()
+        n_good = sum(w is not None for w in stream["which"])
+        t0 = time.perf_counter()
+        for i, p in enumerate(stream["payloads"]):
+            broker.produce("input", p, key=keys[i] if keys else None)
+        rows, cursor = 0, {}
+        deadline = time.monotonic() + 300
+        while rows < n_good or broker.topic_size("dead-letter") < 1:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"record plane: {rows} of {n_good} rows out in 300 s")
+            await asyncio.sleep(0.005)
+            for p in range(broker.partitions_for("output")):
+                new = broker.fetch("output", p, cursor.get(p, 0), 1 << 20)
+                cursor[p] = cursor.get(p, 0) + len(new)
+                rows += sum(_rows_of(rec.value) for rec in new)
+        wall = time.perf_counter() - t0
+        await rt.drain(timeout_s=60)
+        del engine.dispatch
+        snap = rt.metrics.snapshot()
+        errors = list(rt.errors)
+        tree = copyledger.copy_ledger().snapshot()
+        outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+        ins = broker.drain_topic("input")
+    finally:
+        BrokerSpout._emit_chunk = emit_chunk
+        await cluster.shutdown()
+    return {"outs": outs, "dlq": dlq, "ins": ins, "snap": snap, "errors": errors,
+            "wall": wall, "batches": batches, "tree": tree, "groups": groups}
+
+
+def check_record_plane(r: dict, engine, stream: dict, label: str, coalesce: bool,
+                       chunk: int = RP_CHUNK, lanes: bool = False) -> dict:
+    """The gates of one record-plane turn. Every batch the engine was given
+    holds each good record's row exactly once (rows matched to records by
+    their bytes: no record replayed); every output payload is, byte for
+    byte, the native encoding of a run of rows of the engine's direct
+    forward of one batch: one row (``coalesce`` False) or the rows of one
+    frame (with ``coalesce``: the records of one chunk, by partition,
+    offset // chunk and, under QoS, lane); together they answer each good
+    record exactly once. The poison is dead-lettered, no tree failed.
+    Returns the turn's numbers: e2e per record (its own append to its
+    payload's) and per output message (the sink's clock: the chunk's
+    oldest append), records/s, the bolt's decode_ms and the decodes'
+    share of the burst, the substages, the ledger's amplification."""
+    from storm_tpu_torch.native import format_predictions
+
+    inputs, which = stream["inputs"], stream["which"]
+    snap, infer, spout = r["snap"], r["snap"]["inference-bolt"], r["snap"]["kafka-spout"]
+    if r["errors"]:
+        raise AssertionError(f"{label} reported errors: {r['errors'][:3]}")
+    if len(r["dlq"]) != 1 or infer["dead_lettered"] != 1:
+        raise AssertionError(f"{label}: {len(r['dlq'])} dead letters")
+    dl = json.loads(r["dlq"][0].value)
+    if dl["stage"] != "decode":
+        raise AssertionError(f"{label}: dead letter {dl['error']!r}")
+    if spout.get("tree_failed", 0):
+        raise AssertionError(f"{label}: {spout['tree_failed']} trees failed (a replay)")
+    index = {inputs[i].tobytes(): i for i in range(len(inputs))}
+    direct, owner = [], []
+    for b in r["batches"]:
+        direct.append(engine.predict(b))
+        try:
+            owner.append([index[row.tobytes()] for row in b])
+        except KeyError:
+            raise AssertionError(f"{label}: a batch row is no record's input") from None
+    if sorted(i for o in owner for i in o) != list(range(len(inputs))):
+        raise AssertionError(f"{label}: the batches did not hold each record once")
+    runs = {}
+    for k, rows in enumerate(direct):
+        for i in range(len(rows)):
+            for j in (range(i + 1, len(rows) + 1) if coalesce else (i + 1,)):
+                runs.setdefault(format_predictions(rows[i:j]), []).append((k, i, j))
+    # Each record's partition, offset and append time, from the input topic.
+    slot = {p: w for p, w in zip(stream["payloads"], stream["which"]) if w is not None}
+    origin = {slot[rec.value]: rec for rec in r["ins"] if rec.value in slot}
+
+    def frame_of(i):
+        rec = origin[i]
+        lane = rec.key.decode().split(":")[1] if lanes else None
+        return rec.partition, rec.offset // chunk, lane
+
+    used, per_record, per_message = set(), [], []
+    for rec in r["outs"]:
+        text = rec.value.decode() if isinstance(rec.value, bytes) else rec.value
+        cands = [c for c in runs.get(text, ())
+                 if not any((c[0], x) in used for x in range(c[1], c[2]))]
+        if not cands:
+            raise AssertionError(f"{label}: an output is not the bytes of "
+                                 f"{'a run of rows' if coalesce else 'a row'} of the engine's "
+                                 f"direct forward of its batch")
+        k, i, j = cands[0]
+        used.update((k, x) for x in range(i, j))
+        members = [owner[k][x] for x in range(i, j)]
+        if coalesce and len({frame_of(m) for m in members}) != 1:
+            raise AssertionError(f"{label}: an output payload mixes frames")
+        per_record += [(rec.timestamp - origin[m].timestamp) * 1e3 for m in members]
+        per_message.append((rec.timestamp - min(origin[m].timestamp for m in members)) * 1e3)
+    if len(used) != len(inputs):
+        raise AssertionError(f"{label}: {len(used)} of {len(inputs)} records answered")
+    tree = r["tree"]
+    res = {"records": len(inputs), "outputs": len(r["outs"]), "batches": len(r["batches"]),
+           "roots": spout["tree_acked"], "records_per_s": len(inputs) / r["wall"],
+           "e2e_p50_ms_per_record": float(np.median(per_record)),
+           "e2e_p50_ms_per_message": float(np.median(per_message)),
+           "sink_e2e_p50_ms": snap["kafka-bolt"]["e2e_latency_ms"]["p50"],
+           "decode_ms_p50": infer["decode_ms"]["p50"],
+           "decode_share": infer["decode_ms"]["sum"] / (r["wall"] * 1e3),
+           "substages_p50": {s: infer[s]["p50"] for s in ("h2d_ms", "compute_ms", "d2h_ms")},
+           "amplification": tree["copy_amplification"],
+           "ledger": {s: {k: v[k] for k in ("calls", "bytes", "copies", "records")}
+                      for s, v in tree["stages"].items()}}
+    return res
+
+
+def log_turn(label: str, res: dict, card: str) -> None:
+    log(f"  {label} on {card}: {res['records_per_s']:.3f} records/s; e2e p50 "
+        f"{res['e2e_p50_ms_per_record']:.3f} ms per record, "
+        f"{res['e2e_p50_ms_per_message']:.3f} ms per output message (sink "
+        f"{res['sink_e2e_p50_ms']:.3f}); {res['outputs']} outputs over {res['batches']} "
+        f"batches, {res['roots']} roots; bolt decode_ms p50 {res['decode_ms_p50']:.4f}, "
+        f"decodes {100 * res['decode_share']:.1f} % of the burst; substages p50 "
+        f"{res['substages_p50']}; ledger amplification {res['amplification']}")
+
+
+def check_tally_delta(engine, before: dict, forwards_before: int, per_forward: dict,
+                      wrapper_counts: dict, path: str) -> dict:
+    """A later turn on a warm engine: its launches are exactly its forwards
+    x ``per_forward`` (every forward a graph replay: no eager launch)."""
+    tally, n = engine.launch_tally(), engine.forwards - forwards_before
+    delta = {k: tally.get(k, 0) - before.get(k, 0) for k in KERNEL_FUNCS}
+    want = {k: per_forward.get(k, 0) * n for k in KERNEL_FUNCS}
+    if delta != want or any(wrapper_counts.values()) or n <= 0:
+        raise AssertionError(f"{path}: launches {delta} for {n} forwards (want {want}), "
+                             f"eager {wrapper_counts}")
+    return {k: delta[k] for k in KERNEL_FUNCS}
+
+
+def record_plane(torch, card: str, served: dict) -> dict:
+    """Phase 11: the binary record plane on the card (see the module
+    docstring), each turn's launch counts zeroed just before and read just
+    after."""
+    from storm_tpu_torch.config import BatchConfig, QosConfig
+    from storm_tpu_torch.infer.continuous import _reset_registry
+    from storm_tpu_torch.infer.engine import clear_engines, shared_engine
+    from storm_tpu_torch.ops import _build
+
+    out = {"launches": {}, "turns": {}}
+    model = vit_b16_config()
+    tensors = record_plane_stream()
+
+    def batch(egress: bool):
+        return BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0, frame_egress=egress)
+
+    # (a) tensor records in frames, frame egress on: the path this slice adds.
+    clear_engines()
+    _build.reset_launch_counts()
+    r = asyncio.run(serve_record_plane(model, batch(True), tensors, chunk=RP_CHUNK,
+                                       scheme="raw", frames=True))
+    engine = shared_engine(model, batch(True), device="cuda")
+    out["launches"]["a"] = check_tally(torch, engine, VIT_LAUNCHES, _build.launch_counts(),
+                                       "record plane (a)")
+    res = check_record_plane(r, engine, tensors, "record plane (a)", coalesce=True)
+    st = r["tree"]["stages"]
+    n_good = len(tensors["inputs"])
+    if not res["outputs"] < n_good:
+        raise AssertionError(f"record plane (a): {res['outputs']} outputs for {n_good} "
+                             f"records: frame egress did not coalesce")
+    if (st["json_decode"]["records"], st["json_decode"]["bytes"]) != (n_good, int(np.prod(RP_SHAPE)) * 4) \
+            or st["marshal_decode"]["bytes"] != 0 or st["marshal_decode"]["copies"] != 0 \
+            or st["marshal_decode"]["records"] != RP_RECORDS:
+        raise AssertionError(f"record plane (a): decode rows {st['json_decode']}, "
+                             f"{st['marshal_decode']}: a tensor record was copied")
+    if st["batch_route"]["calls"] != res["roots"] or st["batch_route"]["bytes"] != 0 \
+            or st["batch_route"]["records"] != n_good + 1:
+        raise AssertionError(f"record plane (a): batch_route {st['batch_route']} for "
+                             f"{res['roots']} frames")
+    sink_rows = st.get("sink_encode", {}).get("engines", {})
+    if set(sink_rows) != {"dlq-bolt"} or sink_rows["dlq-bolt"]["calls"] != 1:
+        raise AssertionError(f"record plane (a): sink_encode rows {sink_rows}: predictions "
+                             f"re-encoded by the sink")
+    if st["json_encode"]["calls"] != res["outputs"] or st["json_encode"]["records"] != n_good:
+        raise AssertionError(f"record plane (a): json_encode {st['json_encode']}")
+    out["turns"]["a"] = res
+    log(f"  record plane (a) raw + frames + frame egress: {n_good} records + 1 poison, "
+        f"{res['outputs']} output payloads, each the bytes of one (frame, batch) run of its "
+        f"batch's direct forward; every record once, the poison dead-lettered, no replay; "
+        f"ledger: json_decode {st['json_decode']['bytes']:.0f} bytes over "
+        f"{st['json_decode']['records']} records, marshal_decode 0 bytes over "
+        f"{st['marshal_decode']['records']}, batch_route {st['batch_route']['calls']} calls = "
+        f"{res['roots']} frames, sink_encode only the dead letter; launch tally "
+        f"{out['launches']['a']}")
+    log_turn("record plane (a)", res, card)
+
+    # (b) the same stream, one output per record.
+    for name, stream, kw in (
+            ("b", tensors, dict(scheme="raw", frames=True, egress=False)),
+            ("c", record_plane_stream(json_only=True),
+             dict(scheme="string", frames=False, egress=True))):
+        before, fw = engine.launch_tally(), engine.forwards
+        _build.reset_launch_counts()
+        r = asyncio.run(serve_record_plane(model, batch(kw["egress"]), stream, chunk=RP_CHUNK,
+                                           scheme=kw["scheme"], frames=kw["frames"]))
+        out["launches"][name] = check_tally_delta(engine, before, fw, VIT_LAUNCHES,
+                                                  _build.launch_counts(),
+                                                  f"record plane ({name})")
+        res = check_record_plane(r, engine, stream, f"record plane ({name})", coalesce=False)
+        if res["outputs"] != n_good:
+            raise AssertionError(f"record plane ({name}): {res['outputs']} outputs for "
+                                 f"{n_good} records")
+        st = r["tree"]["stages"]
+        if name == "c" and (st["spout_scheme"]["records"] != n_good + 1
+                            or st["sink_encode"]["calls"] != n_good + 1):
+            raise AssertionError(f"record plane (c): string-scheme rows {st['spout_scheme']}, "
+                                 f"{st['sink_encode']}")
+        out["turns"][name] = res
+        log(f"  record plane ({name}) {kw}: {n_good} outputs, one a record, each the bytes of "
+            f"its row of its batch's direct forward; launches {out['launches'][name]}")
+        log_turn(f"record plane ({name})", res, card)
+    del engine
+    clear_engines()
+
+    # (d) longseq_encoder with phase 9b's QoS lanes, chunks of 8 in frames.
+    ls_stream, keys = longseq_plane_stream()
+    for name, cont in (("d", True), ("d2", False)):
+        _reset_registry()
+        clear_engines()
+        _build.reset_launch_counts()
+        r = asyncio.run(serve_record_plane(
+            longseq_config(), longseq_batch(max_wait_ms=100.0, continuous=cont), ls_stream,
+            chunk=RP_CHUNK, scheme="raw", frames=True, qos=QosConfig(enabled=True), keys=keys))
+        engine = shared_engine(longseq_config(), longseq_batch(), device="cuda")
+        out["launches"][name] = check_tally(torch, engine, LS_LAUNCHES, _build.launch_counts(),
+                                            f"record plane ({name})")
+        label = f"record plane ({name}) longseq QoS, continuous={cont}"
+        res = check_record_plane(r, engine, ls_stream, label, coalesce=not cont, lanes=True)
+        if any(g is None or len(g) != 1 for g in r["groups"]) or \
+                len(r["groups"]) != res["roots"]:
+            raise AssertionError(f"{label}: chunks not lane-homogeneous: {r['groups']}")
+        n = len(ls_stream["inputs"])
+        lanes = {ln: r["snap"]["kafka-bolt"].get(f"e2e_latency_ms_{ln}", {}).get("count", 0)
+                 for ln in LS_LANES}
+        if cont and lanes != {ln: n // 3 for ln in LS_LANES}:
+            raise AssertionError(f"{label}: per-lane outputs {lanes}")
+        res["lane_outputs"] = lanes
+        out["turns"][name] = res
+        log(f"  {label}: {n} records + 1 poison in {len(r['groups'])} lane-homogeneous chunks, "
+            f"{res['outputs']} outputs (per lane {lanes}), every record once, none lost; "
+            f"launch tally {out['launches'][name]}")
+        log_turn(label, res, card)
+        del engine
+        clear_engines()
+    _reset_registry()
+
+    log(f"  beside phase 5's JSON turn on {card} (16 records, string scheme, no chunks): "
+        f"{served['records_per_s']:.3f} records/s, e2e p50 {served['e2e_p50_ms']:.3f} ms, "
+        f"decode_ms p50 {served['decode_ms_p50']:.3f}")
+    for name, res in out["turns"].items():
+        log(f"    turn {name:2s}: {res['records_per_s']:.3f} records/s, e2e p50 "
+            f"{res['e2e_p50_ms_per_record']:.3f} ms a record / "
+            f"{res['e2e_p50_ms_per_message']:.3f} ms a message, decode_ms p50 "
+            f"{res['decode_ms_p50']:.4f}, decodes {100 * res['decode_share']:.1f} %, "
+            f"amplification {res['amplification']}")
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -2792,6 +3193,11 @@ def run() -> int:
     observed = observe_and_swap(torch, card)
     log(json.dumps({"observe_and_swap": observed, "card": card}, default=float))
 
+    log("[11] the binary record plane: Arrow tensor records, chunked spouts, record "
+        "frames and frame egress, ViT-B/16 and longseq_encoder")
+    plane = record_plane(torch, card, served)
+    log(json.dumps({"record_plane": plane, "card": card}, default=float))
+
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
@@ -2824,6 +3230,10 @@ def run() -> int:
         paths.update({f"{m} int8_fused swap, continuous={c} (phase 10d)":
                       sw["tally"][m].get(name, 0)
                       for c, sw in observed["swap"].items() for m in sw["tally"]})
+        paths.update({f"vit_b16 int8_fused record plane ({t}) (phase 11)":
+                      plane["launches"][t][name] for t in ("a", "b", "c")})
+        paths.update({f"longseq_encoder int8_fused record plane ({t}) (phase 11)":
+                      plane["launches"][t][name] for t in ("d", "d2")})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

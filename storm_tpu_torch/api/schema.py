@@ -1,17 +1,21 @@
-"""The JSON wire contract, copied from ``storm_tpu/api/schema.py``:
-``{"instances": ...}`` in, ``{"predictions": ...}`` out.
+"""The wire contract, copied from ``storm_tpu/api/schema.py``:
+``{"instances": ...}`` or an Arrow tensor message in, ``{"predictions":
+...}`` out.
 
-:func:`decode_instances` and :func:`encode_predictions` go through the
-native codec (``storm_tpu_torch/native``, the C++ of storm_tpu's
-``fastjson.cpp``), so records parse to the reference's floats and leave as
-the reference's bytes. The pure-Python codec stays beside them as
-:func:`decode_instances_reference` and :func:`encode_predictions_reference`,
-the version the tests hold the native one to; the serving path does not
-call it.
+:func:`decode_instances` reads a record whose first byte is 0xFF as an
+Arrow IPC tensor message (the continuation marker every encapsulated
+Arrow message leads with; no JSON document starts with 0xFF) and returns
+a zero-copy view of its body (``Instances.view``); any other record is
+JSON, parsed by the native codec (``storm_tpu_torch/native``, the C++ of
+storm_tpu's ``fastjson.cpp``), so records parse to the reference's floats.
+:func:`encode_predictions` writes the reference's bytes. The pure-Python
+JSON codec stays beside them as :func:`decode_instances_reference` and
+:func:`encode_predictions_reference`, the version the tests hold the
+native one to; the serving path does not call it.
 
-A malformed payload raises :class:`SchemaError`, which the inference
-operator turns into a :class:`DeadLetter` record — never a silent
-``null``. A record shed under overload is answered with an
+A malformed payload raises :class:`SchemaError`, with storm_tpu's text,
+which the inference operator turns into a :class:`DeadLetter` record —
+never a silent ``null``. A record shed under overload is answered with an
 :class:`Overloaded` record.
 """
 
@@ -38,6 +42,9 @@ class Instances:
     data: np.ndarray
     # Arrival timestamp (perf_counter seconds).
     ts: float = 0.0
+    # True when ``data`` views the payload's buffer (an Arrow tensor
+    # record): the decode wrote nothing, and the ledger's row says so.
+    view: bool = False
 
 
 @dataclass(frozen=True)
@@ -98,11 +105,32 @@ def _check_batch(arr: np.ndarray) -> None:
 
 def decode_instances(payload: str | bytes | bytearray | memoryview, *,
                      ts: float = 0.0) -> Instances:
-    """Parse a ``{"instances": [[[[...]]]]}`` JSON payload into a dense
-    float32 array with the native parser; raises :class:`SchemaError`, with
-    the parser's message, on any contract violation. The parser takes one
-    contiguous ``bytes``: a ``str`` is encoded, any other buffer copied
-    once."""
+    """A record -> its instances as an array of rank >= 2, axis 0 the
+    batch axis; raises :class:`SchemaError`, with storm_tpu's message, on
+    any contract violation.
+
+    A bytes-like record led by 0xFF is an Arrow tensor message: the result
+    views its body (float32 kept as is, another element type cast to
+    float32, which copies). Any other record is ``{"instances":
+    [[[[...]]]]}`` JSON, parsed by the native parser into a fresh float32
+    array; the parser takes one contiguous ``bytes``, so a ``str`` is
+    encoded and any other buffer (a frame's ``memoryview`` record)
+    copied once."""
+    if isinstance(payload, (bytes, bytearray, memoryview)) and len(payload) >= 1 \
+            and payload[0] == 0xFF:
+        # Imported here: marshal imports this module's SchemaError.
+        from storm_tpu_torch.serve.marshal import decode_tensor
+
+        try:
+            arr = decode_tensor(payload)
+        except Exception as e:
+            raise SchemaError(f"payload is not a valid tensor frame: {e}") from e
+        view = True
+        if arr.dtype != np.float32:
+            arr = arr.astype(np.float32)
+            view = False
+        _check_batch(arr)
+        return Instances(data=arr, ts=ts, view=view)
     if isinstance(payload, str):
         try:
             payload = payload.encode("utf-8")

@@ -15,8 +15,7 @@ class BatchConfig:
     ``max_batch`` instances wait or the oldest has waited ``max_wait_ms``;
     pad to the smallest of ``buckets`` that fits. The engine's fields
     (``pipeline_depth`` to ``watchdog_trips``) are storm_tpu's, and so are
-    ``continuous`` and ``starvation_rounds``; its ``frame_egress`` belongs
-    to record frames, which the port does not have yet."""
+    ``continuous``, ``starvation_rounds`` and ``frame_egress``."""
 
     max_batch: int = 256
     max_wait_ms: float = 5.0
@@ -54,6 +53,11 @@ class BatchConfig:
     # The continuous queue's fairness bound: a tenant:lane key passed over
     # this many batch formations is served first in the next one.
     starvation_rounds: int = 4
+    # Frame egress: the records of one RecordFrame leave as ONE
+    # predictions payload per dispatched batch (one encode, one emit, one
+    # output message). False keeps one output message per record for frame
+    # ingress too, with the zero-copy ingress and view decode unchanged.
+    frame_egress: bool = True
 
     def __post_init__(self) -> None:
         if int(self.max_batch) < 1:
@@ -163,12 +167,28 @@ class SinkConfig:
 
 @dataclass
 class TopologyConfig:
-    """Topology-level knobs: parallelism and runtime policies."""
+    """Topology-level knobs: parallelism, the spout's chunks, scheme and
+    frames, and runtime policies. The spout refuses an unknown scheme,
+    and frames without ``scheme="raw"``, as storm_tpu's does."""
 
     spout_parallelism: int = 2
     inference_parallelism: int = 4
     sink_parallelism: int = 2
     max_spout_pending: int = 2048  # in-flight roots per spout instance
+    # Records per emitted spout tuple: 1 is one record a tuple; N > 1
+    # emits up to N consecutive records of one fetch as ONE tuple (one
+    # ledger entry and one executor hop per chunk); failure and replay
+    # granularity becomes the chunk.
+    spout_chunk: int = 1
+    # Tuple-value scheme: "string" decodes each record to str; "raw"
+    # emits the broker bytes untouched (the parser reads bytes, and an
+    # Arrow tensor record must stay bytes).
+    spout_scheme: str = "string"
+    # With scheme "raw" and spout_chunk > 1, each chunk rides as ONE
+    # RecordFrame tuple value (runtime/frames.py): routing moves one
+    # reference instead of N payloads, and egress coalesces to one
+    # predictions payload per frame and batch (BatchConfig.frame_egress).
+    spout_frames: bool = False
     message_timeout_s: float = 30.0  # at-least-once replay timeout
     inbox_capacity: int = 4096  # bounded executor queues (backpressure)
 

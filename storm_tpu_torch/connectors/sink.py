@@ -11,8 +11,10 @@ each delivery slower than it in ``slo_breaches`` (the shed controller's
 breach-rate signal) and records a throttled ``slo_breach`` flight event.
 A sampled record's trace closes here: an ``egress`` span from the send's
 start, the trace finished with the record's e2e ms, and its id the e2e
-histogram's exemplar. With the copy ledger attached, the str -> bytes
-encode of each record is its ``sink_encode`` row.
+histogram's exemplar. A bytes value (what the inference operator emits
+after raw-scheme ingress) is produced verbatim, with no ``sink_encode``
+row; with the copy ledger attached, the str -> bytes encode of any other
+value is its ``sink_encode`` row.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
-``storm_tpu/connectors/spout.py`` for the in-process broker, without
-chunks, frames and group coordination.
+``storm_tpu/connectors/spout.py`` for the in-process broker, without group
+coordination, seeks and transactional offsets.
 
 Offsets are policy: 'latest' + ``max_behind=0`` starts at the log end and
 drops backlog; 'resume' commits on ack and resumes; 'earliest' replays
@@ -9,19 +9,31 @@ failed trees are re-emitted from a replay queue before new fetches unless
 the freshness policy says they are too stale. Partitions are assigned to
 spout tasks round-robin by task index.
 
+``scheme``: "string" emits each record decoded to ``str``; "raw" emits
+the broker bytes untouched. ``chunk`` > 1 slices one fetch into tuples of
+up to ``chunk`` consecutive records, each emitted with ``msg_id=("c",
+partition, first offset, last offset)``, its ``root_ts`` the oldest
+record's append time and one sampling roll; a chunk acks, fails and
+replays whole, and offsets commit per chunk. ``frames=True`` (raw scheme
+only) carries a chunk as one :class:`~storm_tpu_torch.runtime.frames.
+RecordFrame` value instead of a list of payloads; a replay rebuilds the
+frame from the same pending records.
+
 With QoS on (``qos=QosConfig(enabled=True)``) each fetched record is
 classified from its key (``tenant:lane``) and run through the task's
 :class:`~storm_tpu_torch.qos.admission.AdmissionController`: a record not
 admitted (its tenant over quota, or its lane shed at the edge) is dropped
 with the cursor advanced, and the lane rides downstream as the declared
-``qos_lane`` field.
+``qos_lane`` field. A chunk is lane-homogeneous: each slice is split by
+lane, highest priority first.
 
-Each emitted record rolls the runtime tracer's sampling once: a sampled
-record's trace opens with an ``ingress`` span from its broker append
-time; a miss is passed on as ``NOT_SAMPLED``. With the copy ledger
-attached, each emit records its ``spout_ingest`` row (the payload as it
-arrived, no copy) and its ``spout_scheme`` row (the bytes -> str decode,
-one copy).
+Each emitted tuple rolls the runtime tracer's sampling once: a sampled
+tuple's trace opens with an ``ingress`` span from its broker append time;
+a miss is passed on as ``NOT_SAMPLED``. With the copy ledger attached,
+each emit records its ``spout_ingest`` row (the payloads as they arrived,
+no copy), under the string scheme its ``spout_scheme`` row (the bytes ->
+str decode, one copy a record), and for a frame its ``batch_route`` row
+(one reference moved: zero bytes, zero copies).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from storm_tpu_torch.config import OffsetsConfig
 from storm_tpu_torch.connectors.memory import MemoryBroker, Record
 from storm_tpu_torch.obs import copyledger as _copyledger
 from storm_tpu_torch.runtime.base import OutputCollector, Spout, TopologyContext
+from storm_tpu_torch.runtime.frames import RecordFrame
 from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
 from storm_tpu_torch.runtime.tuples import Values
 
@@ -42,19 +55,31 @@ from storm_tpu_torch.runtime.tuples import Values
 class BrokerSpout(Spout):
     def __init__(self, broker: MemoryBroker, topic: str,
                  offsets: Optional[OffsetsConfig] = None,
-                 fetch_size: int = 256, qos=None) -> None:
+                 fetch_size: int = 256, chunk: int = 0, scheme: str = "string",
+                 qos=None, frames: bool = False) -> None:
         self.broker = broker
         self.topic = topic
         self.offsets_cfg = offsets or OffsetsConfig()
         self.fetch_size = fetch_size
+        self.chunk = chunk
         # QosConfig or None; a constructor argument because
         # declare_output_fields runs when the topology is built.
         self.qos = qos if (qos is not None and qos.enabled) else None
+        if scheme not in ("string", "raw"):
+            raise ValueError(f"unknown spout scheme {scheme!r}")
+        self.scheme = scheme
+        if frames and scheme != "raw":
+            raise ValueError(
+                "spout frames need scheme='raw' (record frames carry "
+                "broker bytes by reference; the string scheme decodes "
+                "per record). Set topology.spout_scheme='raw' or disable "
+                "topology.spout_frames.")
+        self.frames = bool(frames)
 
     def clone(self) -> "BrokerSpout":
         """Per-task instance sharing the broker handle."""
         return type(self)(self.broker, self.topic, self.offsets_cfg, self.fetch_size,
-                          self.qos)
+                          self.chunk, self.scheme, self.qos, self.frames)
 
     def declare_output_fields(self):
         if self.qos is not None:
@@ -76,8 +101,9 @@ class BrokerSpout(Spout):
         n_parts = self.broker.partitions_for(self.topic)
         self.my_partitions = [p for p in range(n_parts)
                               if p % context.parallelism == context.task_index]
-        self.pending: Dict[Tuple[int, int], Record] = {}
-        self.replay: Deque[Record] = collections.deque()
+        # msg_id -> a Record, or a chunk's list of Records.
+        self.pending: Dict[Any, Any] = {}
+        self.replay: Deque[Any] = collections.deque()
         self.dropped = 0
         self._rr = 0
         self.positions = {p: self._initial_position(p) for p in self.my_partitions}
@@ -100,7 +126,11 @@ class BrokerSpout(Spout):
     async def next_tuple(self) -> bool:
         # Replays first: failed trees take priority over new data.
         if self.replay:
-            await self._emit(self.replay.popleft())
+            entry = self.replay.popleft()
+            if isinstance(entry, list):
+                await self._emit_chunk(entry)
+            else:
+                await self._emit(entry)
             return True
         for _ in range(len(self.my_partitions)):
             p = self.my_partitions[self._rr % len(self.my_partitions)]
@@ -115,8 +145,15 @@ class BrokerSpout(Spout):
             # Emit first, advance the cursor after: an exception mid-loop
             # must re-fetch the unemitted tail (duplicates are the safe
             # direction for at-least-once).
-            for rec in records:
-                await self._emit(rec)
+            if self.chunk > 1:
+                # One fetch sliced into chunk tuples; under QoS each slice
+                # splits into lane-homogeneous groups.
+                for i in range(0, len(records), self.chunk):
+                    for group in self._lane_groups(records[i: i + self.chunk]):
+                        await self._emit_chunk(group)
+            else:
+                for rec in records:
+                    await self._emit(rec)
             self.positions[p] = last_off + 1
             return True
         return False
@@ -136,6 +173,19 @@ class BrokerSpout(Spout):
     def _lane_of(self, rec: Record) -> str:
         return self._admission.classify(rec.key, self.topic)[1]
 
+    def _lane_groups(self, records: List[Record]):
+        """One chunk slice split into lane-homogeneous groups, highest
+        priority first (the lane comes from the key, so a replayed chunk
+        keeps its lane); without QoS the slice whole."""
+        if self._admission is None:
+            yield records
+            return
+        groups: Dict[str, List[Record]] = {}
+        for rec in records:
+            groups.setdefault(self._lane_of(rec), []).append(rec)
+        for lane in sorted(groups, key=self.qos.lane_index):
+            yield groups[lane]
+
     def _append_root_ts(self, rec: Record) -> float:
         """E2E ingress clock = broker append time, rebased onto
         ``perf_counter`` and clamped to now."""
@@ -144,7 +194,10 @@ class BrokerSpout(Spout):
             return now_perf
         return now_perf - max(time.time() - rec.timestamp, 0.0)
 
-    def _mint_trace(self, root_ts: float, rec: Record):
+    def _scheme_value(self, value: bytes):
+        return value if self.scheme == "raw" else value.decode("utf-8", "replace")
+
+    def _mint_trace(self, root_ts: float, partition: int, offset: int, records: int = 1):
         """The sampling roll of one root: a TraceContext whose ``ingress``
         span starts at broker-append time (so it shows queueing in the
         broker too), or NOT_SAMPLED, so the collector does not roll
@@ -155,56 +208,99 @@ class BrokerSpout(Spout):
         ctx = tracer.maybe_trace()
         if ctx is None:
             return NOT_SAMPLED
+        attrs = {"topic": self.topic, "partition": partition, "offset": offset}
+        if records > 1:
+            attrs["records"] = records
         tracer.record(ctx, "ingress", self.context.component_id, root_ts,
-                      time.perf_counter(), attrs={"topic": self.topic,
-                                                  "partition": rec.partition,
-                                                  "offset": rec.offset})
+                      time.perf_counter(), attrs=attrs)
         return ctx
 
-    def _ledger_ingest(self, rec: Record) -> None:
+    def _ledger_ingest(self, records: List[Record]) -> None:
+        """One call per emit: the payloads as they arrived (not a copy)
+        and, under the string scheme, their bytes -> str decode."""
         if not _copyledger.active():
             return
+        payload = sum(len(r.value) for r in records)
         comp = self.context.component_id
-        _copyledger.record("spout_ingest", len(rec.value), copies=0, allocs=0,
-                           records=1, engine=comp)
-        _copyledger.record("spout_scheme", len(rec.value), copies=1, allocs=1,
-                           records=1, engine=comp)
+        _copyledger.record("spout_ingest", payload, copies=0, allocs=0,
+                           records=len(records), engine=comp)
+        if self.scheme != "raw":
+            _copyledger.record("spout_scheme", payload, copies=len(records),
+                               allocs=len(records), records=len(records), engine=comp)
+
+    async def _emit_chunk(self, records: List[Record]) -> None:
+        first, last = records[0], records[-1]
+        msg_id = ("c", first.partition, first.offset, last.offset)
+        self.pending[msg_id] = records
+        root_ts = self._append_root_ts(first)
+        self._ledger_ingest(records)
+        if self.frames:
+            # The chunk rides as ONE frame: routing moves a reference.
+            frame = RecordFrame([r.value for r in records])
+            if _copyledger.active():
+                _copyledger.record("batch_route", 0, copies=0, allocs=1,
+                                   records=len(records), engine=self.context.component_id)
+            vals = [frame]
+        else:
+            vals = [[self._scheme_value(r.value) for r in records]]
+        if self.qos is not None:
+            # Lane-homogeneous: the first record's lane is the chunk's.
+            vals.append(self._lane_of(first))
+        # The oldest record's append time: its queueing is the one that counts.
+        await self.collector.emit(Values(vals), msg_id=msg_id, root_ts=root_ts,
+                                  trace=self._mint_trace(root_ts, first.partition,
+                                                         first.offset, len(records)))
 
     async def _emit(self, rec: Record) -> None:
         msg_id = (rec.partition, rec.offset)
         self.pending[msg_id] = rec
         root_ts = self._append_root_ts(rec)
-        self._ledger_ingest(rec)
-        vals = [rec.value.decode("utf-8", "replace")]
+        self._ledger_ingest([rec])
+        vals = [self._scheme_value(rec.value)]
         if self._admission is not None:
             # Derived from the key again, so a replay carries the same lane.
             vals.append(self._lane_of(rec))
         await self.collector.emit(Values(vals), msg_id=msg_id, root_ts=root_ts,
-                                  trace=self._mint_trace(root_ts, rec))
+                                  trace=self._mint_trace(root_ts, rec.partition, rec.offset))
+
+    @staticmethod
+    def _msg_part_off(msg_id) -> Tuple[int, int]:
+        """(partition, last offset) of a record's or a chunk's msg id."""
+        if msg_id[0] == "c":
+            return msg_id[1], msg_id[3]
+        return msg_id
 
     def ack(self, msg_id: Any) -> None:
         self.pending.pop(msg_id, None)
         if self.offsets_cfg.policy != "resume":
             return
-        p, off = msg_id
+        p, off = self._msg_part_off(msg_id)
         # Commit the contiguous low-water mark of the partition, counting
-        # failed records awaiting replay, so a restart never skips them.
-        open_offs = [o for (pp, o) in self.pending if pp == p]
-        open_offs += [r.offset for r in self.replay if r.partition == p]
+        # the first offset of every open record or chunk and the records
+        # awaiting replay, so a restart never skips them.
+        open_offs = [mid[2] if mid[0] == "c" else mid[1] for mid in self.pending
+                     if self._msg_part_off(mid)[0] == p]
+        for entry in self.replay:
+            recs = entry if isinstance(entry, list) else [entry]
+            open_offs += [r.offset for r in recs if r.partition == p]
         low = min(open_offs) if open_offs else off + 1
         prev = self.broker.committed(self.group, self.topic, p)
         if prev is None or low > prev:
             self.broker.commit(self.group, self.topic, p, low)
 
     def fail(self, msg_id: Any) -> None:
-        rec = self.pending.pop(msg_id, None)
-        if rec is None:
+        entry = self.pending.pop(msg_id, None)
+        if entry is None:
             return
         max_behind = self.offsets_cfg.max_behind
+        # Staleness by the entry's newest record: a chunk stays whole while
+        # its tail is fresh.
+        rec = entry[-1] if isinstance(entry, list) else entry
         if max_behind is not None and \
                 self.broker.latest_offset(self.topic, rec.partition) - rec.offset > max_behind:
             # Too stale to replay under the freshness policy.
-            self.dropped += 1
-            self.context.metrics.counter(self.context.component_id, "dropped_stale").inc()
+            n = len(entry) if isinstance(entry, list) else 1
+            self.dropped += n
+            self.context.metrics.counter(self.context.component_id, "dropped_stale").inc(n)
             return
-        self.replay.append(rec)
+        self.replay.append(entry)

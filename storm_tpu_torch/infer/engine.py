@@ -214,11 +214,13 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
             handle.timings["compute_ms"] = (t1 - handle._t_launched) * 1e3
             handle.timings["d2h_ms"] = (t2 - t1) * 1e3
             handle._out = None
-            handle.future.set_result(res)
             # Copy ledger, after t2: the card's copy of the padded result
             # into the pooled pinned output buffer, then the real rows out
             # of it into a fresh array (storm_tpu's np.asarray of the
-            # device result is one copy of the padded result).
+            # device result is one copy of the padded result). Recorded,
+            # with the cost profile's batch, before the future resolves, so
+            # a caller that has the result finds its rows (storm_tpu
+            # records them after, and a reader can miss the last batch's).
             if _copyledger.active() and handle._host_out is not None:
                 out = handle._host_out
                 _copyledger.record("d2h", out.numel() * out.element_size() + res.nbytes,
@@ -231,6 +233,7 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
                                       handle.timings)
                 except Exception:
                     pass  # an observability hook must never fail a batch
+            handle.future.set_result(res)
         except BaseException as e:  # noqa: BLE001 - fail ONLY this batch
             handle._out = None
             handle.future.set_exception(e)

@@ -1,12 +1,13 @@
 """The inference operator, the counterpart of ``storm_tpu/infer/operator.py``
 on its split-phase path, with QoS lanes and shedding, continuous
 batching, tracing, the flight recorder, the copy ledger and the live
-model swap. Still trimmed from it: cascades (and with them
-``qos.degrade_model``), record frames and chunked tuples.
+model swap, chunked tuples and record frames. Still trimmed from it:
+cascades (and with them ``qos.degrade_model``).
 
-Per tuple: decode the ``{"instances": ...}`` payload and check it against
-the model's input shape — a failure emits a :class:`DeadLetter` on the
-``dead_letter`` stream and acks (replaying poison can never succeed); feed
+Per tuple: decode the record (``{"instances": ...}`` JSON, or an Arrow
+tensor message viewed zero-copy) and check it against the model's input
+shape — a failure emits a :class:`DeadLetter` on the ``dead_letter``
+stream and acks (replaying poison can never succeed); feed
 the micro-batcher; a full batch, the deadline, or (with ``eager``) a free
 dispatch slot sends the batch to the shared engine's ``dispatch`` on a
 worker thread (it may park on the engine's ring), and the batch's future
@@ -14,6 +15,16 @@ resolves from the engine's fetch thread, so the event loop keeps consuming
 while the card computes. Then one ``{"predictions": ...}`` tuple per
 record, anchored to it, and the ack. A failed batch fails every tuple in
 it, which the spout replays.
+
+A chunked tuple (a list of records, or a
+:class:`~storm_tpu_torch.runtime.frames.RecordFrame`) is decoded record by
+record into one :class:`_ChunkHandle`, acked once every record completes
+and failed (once) if any record's batch fails; a poison record
+dead-letters alone, anchored to the chunk, which lives on. With frame
+ingress and ``BatchConfig.frame_egress`` (the default) the records of one
+frame that share a dispatched batch leave as ONE predictions payload.
+Once a raw-scheme tuple arrives (bytes, a memoryview or a frame), the
+task's predictions leave as utf-8 bytes, which the sink produces verbatim.
 
 When the engine's watchdog quarantines it, every task on that engine
 records it and takes a fresh engine from ``shared_engine`` (built once for
@@ -44,9 +55,11 @@ linked to all their ``queue_wait`` spans and carrying the substages
 ``shed_reject``, ``engine_quarantined``, ``engine_replaced`` and
 ``graph_capture`` (each cold bucket's eager forward and capture, with
 storm_tpu's ``xla_compile`` fields: ``component``, ``batch_shape``,
-``compile_ms``). The copy ledger gets ``json_decode`` and
-``json_encode`` rows. ``prepare`` attaches the copy ledger and the
-profile store before the engine warms, so warm-up's builds are counted.
+``compile_ms``). The copy ledger gets ``json_decode`` rows (zero bytes and
+copies for a tensor record's view) and ``json_encode`` rows (one per
+payload, its ``records`` the rows it carries). ``prepare`` attaches the
+copy ledger and the profile store before the engine warms, so warm-up's
+builds are counted.
 
 :meth:`InferenceBolt.swap_model` builds and warms the new model's engine
 on a worker thread, then switches the task to it at once: batches in
@@ -66,6 +79,8 @@ import time
 import weakref
 from typing import Optional, Sequence, Set
 
+import numpy as np
+
 from storm_tpu_torch import native
 from storm_tpu_torch.api.schema import (
     DeadLetter, Overloaded, SchemaError, decode_instances, encode_predictions)
@@ -76,6 +91,7 @@ from storm_tpu_torch.infer.engine import shared_engine
 from storm_tpu_torch.obs import copyledger as _copyledger
 from storm_tpu_torch.obs import profile as _profile
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, TopologyContext
+from storm_tpu_torch.runtime.frames import RecordFrame
 from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES, span
 from storm_tpu_torch.runtime.tuples import Tuple, Values
 
@@ -118,9 +134,38 @@ def _stop_listening(engine, task: "InferenceBolt") -> None:
         hook.discard(task)
 
 
+class _ChunkHandle:
+    """Ref-counted completion of a chunked input tuple (``BrokerSpout``
+    ``chunk=N``): its N records share the one upstream tuple, which is
+    acked when every record completes and failed (once) if any record's
+    batch fails. A poison record dead-letters alone and counts as
+    completed: one bad record must not replay the chunk forever."""
+
+    __slots__ = ("tuple", "remaining", "failed", "frame")
+
+    def __init__(self, t: Tuple, n: int, frame: bool = False) -> None:
+        self.tuple = t
+        self.remaining = n
+        self.failed = False
+        # The chunk arrived as a RecordFrame with frame egress on: its
+        # records leave as one payload per dispatched batch.
+        self.frame = frame
+
+    def done(self, ok: bool, collector: OutputCollector) -> None:
+        self.failed |= not ok
+        self.remaining -= 1
+        if self.remaining == 0:
+            (collector.fail if self.failed else collector.ack)(self.tuple)
+
+
+def _anchor_of(item) -> Tuple:
+    """The input tuple a queued record completes: its own, or its chunk's."""
+    return item.tuple if isinstance(item, _ChunkHandle) else item
+
+
 def _trace_of(payload):
     """The trace context of a queued record (its tuple's)."""
-    return payload.trace
+    return _anchor_of(payload).trace
 
 
 def _listen_for_quarantine(engine, task: "InferenceBolt") -> None:
@@ -229,6 +274,10 @@ class InferenceBolt(Bolt):
         # locked() alone is optimistic (the task acquires a tick later), and
         # two same-tick arrivals would otherwise each ship a tiny batch.
         self._eager_pending = 0
+        # Set by the first raw-scheme tuple (bytes, memoryview or frame):
+        # predictions then leave as utf-8 bytes, produced verbatim by the
+        # sink. A topology's scheme is uniform, so it stays set.
+        self._bytes_egress = False
         m = context.metrics
         self._m_batch = m.histogram(cid, "batch_size")
         self._m_device_ms = m.histogram(cid, "device_ms")
@@ -353,64 +402,143 @@ class InferenceBolt(Bolt):
 
     # ---- ingest --------------------------------------------------------------
 
+    @staticmethod
+    def _egress_groups(emit):
+        """An emit list split into egress groups, order kept: the members
+        of one frame handle coalesce under it (consecutive or not); every
+        other record stays alone, keyed ``None``. Returns ``[(handle or
+        None, [(item, preds), ...]), ...]``."""
+        out = []
+        index = {}
+        for item, preds in emit:
+            if isinstance(item, _ChunkHandle) and item.frame:
+                i = index.get(id(item))
+                if i is None:
+                    index[id(item)] = len(out)
+                    out.append((item, [(item, preds)]))
+                else:
+                    out[i][1].append((item, preds))
+            else:
+                out.append((None, [(item, preds)]))
+        return out
+
+    def _complete(self, item, ok: bool) -> None:
+        """Ack or fail a queued record: its own tuple, or one of its chunk's
+        records."""
+        if isinstance(item, _ChunkHandle):
+            item.done(ok, self.collector)
+        elif ok:
+            self.collector.ack(item)
+        else:
+            self.collector.fail(item)
+
+    def _decode_checked(self, payload, root_ts):
+        """Decode one record and check its shape (raises SchemaError), with
+        its ``json_decode`` row: the parse's fresh float32 array, or zero
+        bytes and copies for a tensor record's view."""
+        with span(self.context.metrics, self.context.component_id, "decode"):
+            inst = decode_instances(payload, ts=root_ts)
+        if tuple(inst.data.shape[1:]) != self.engine.input_shape:
+            raise SchemaError(
+                f"instance shape {tuple(inst.data.shape[1:])} != model "
+                f"input {self.engine.input_shape}")
+        if _copyledger.active():
+            if inst.view:
+                _copyledger.record("json_decode", 0, copies=0, allocs=0, records=1,
+                                   engine=self.context.component_id)
+            else:
+                _copyledger.record("json_decode", inst.data.nbytes, copies=1, allocs=1,
+                                   records=1, engine=self.context.component_id)
+        return inst
+
     async def execute(self, t: Tuple) -> None:
         payload = t.get("message")
+        if not self._bytes_egress and isinstance(
+                payload, (bytes, bytearray, memoryview, RecordFrame)):
+            self._bytes_egress = True
         lane = t.get("qos_lane", None) if self.qos is not None else None
         if self.qos is not None:
             level = int(self._shed_gauge.value)
             if level > 0 and self.qos.shed_eligible(lane, level):
                 # Shed before the decode: spend nothing on traffic that
                 # will not be served.
-                await self._shed_tuple(t, lane, level)
+                await self._shed_tuple(t, payload, lane, level)
                 return
+        if isinstance(payload, (list, tuple, RecordFrame)):
+            await self._execute_chunk(t, payload, lane)
+            return
         try:
-            with span(self.context.metrics, self.context.component_id, "decode"):
-                inst = decode_instances(payload, ts=t.root_ts)
-            if tuple(inst.data.shape[1:]) != self.engine.input_shape:
-                raise SchemaError(
-                    f"instance shape {tuple(inst.data.shape[1:])} != model "
-                    f"input {self.engine.input_shape}")
-            if _copyledger.active():
-                # The parse writes one fresh float32 array.
-                _copyledger.record("json_decode", inst.data.nbytes, copies=1, allocs=1,
-                                   records=1, engine=self.context.component_id)
+            inst = self._decode_checked(payload, t.root_ts)
         except SchemaError as e:
             await self._dead_letter(t, payload, str(e))
             return
-        ts = t.root_ts or None
+        await self._ingest(t, inst.data, t.root_ts or None, lane)
+        self._kick_flush()
+
+    async def _ingest(self, item, data, ts, lane) -> None:
+        """One record into the batcher (or the engine's continuous queue),
+        dispatching every batch that comes due."""
         if self._continuous:
-            await self._submit_record(t, inst.data, ts, lane)
+            await self._submit_record(item, data, ts, lane)
             return
         if self.qos is not None:
-            batch = self.batcher.add(t, inst.data, ts=ts, lane=lane)
+            batch = self.batcher.add(item, data, ts=ts, lane=lane)
         else:
-            batch = self.batcher.add(t, inst.data, ts=ts)
+            batch = self.batcher.add(item, data, ts=ts)
         while batch is not None:
             await self._dispatch(batch)
             batch = self.batcher.take_ready()
+
+    async def _execute_chunk(self, t: Tuple, payloads, lane=None) -> None:
+        # frame_egress=False keeps one output message per record for frame
+        # ingress: the handle is not marked as a frame, so egress never
+        # coalesces (the zero-copy ingress and decode are unchanged).
+        handle = _ChunkHandle(t, len(payloads),
+                              frame=(isinstance(payloads, RecordFrame)
+                                     and self.batch_cfg.frame_egress))
+        for payload in payloads:
+            try:
+                inst = self._decode_checked(payload, t.root_ts)
+            except SchemaError as e:
+                # Dead-letter the record and keep the chunk alive: anchored
+                # to the chunk's tuple, completed as handled.
+                await self._emit_dead_letter(t, payload, str(e))
+                handle.done(True, self.collector)
+                continue
+            await self._ingest(handle, inst.data, t.root_ts or None, lane)
         self._kick_flush()
+
+    async def _emit_dead_letter(self, anchor: Tuple, payload, error: str) -> None:
+        self._m_dead.inc()
+        if isinstance(payload, memoryview):
+            # A frame record's view: materialized before the envelope.
+            payload = bytes(payload)
+        if isinstance(payload, (bytes, bytearray)):
+            # Raw-scheme records: the envelope is JSON, so the payload goes
+            # in as text, not as a bytes repr.
+            payload = payload.decode("utf-8", "replace")
+        dl = DeadLetter(payload=str(payload), error=error)
+        await self.collector.emit(Values([dl.to_json(), *self._extras(anchor)]),
+                                  stream="dead_letter", anchors=[anchor])
 
     async def _dead_letter(self, t: Tuple, payload, error: str) -> None:
         """Poison input: route to the dead-letter stream and ack."""
-        self._m_dead.inc()
-        if isinstance(payload, (bytes, bytearray)):
-            payload = payload.decode("utf-8", "replace")
-        dl = DeadLetter(payload=str(payload), error=error)
-        await self.collector.emit(Values([dl.to_json(), *self._extras(t)]),
-                                  stream="dead_letter", anchors=[t])
+        await self._emit_dead_letter(t, payload, error)
         self.collector.ack(t)
 
-    async def _shed_tuple(self, t: Tuple, lane: Optional[str], level: int) -> None:
-        """A tuple shed at ``level``: answered at once with an
-        :class:`Overloaded` record and acked — never replayed (replaying
-        rejected load is more load)."""
+    async def _shed_tuple(self, t: Tuple, payload, lane: Optional[str], level: int) -> None:
+        """A tuple shed at ``level``: answered at once with one
+        :class:`Overloaded` record per record it carries, and acked —
+        never replayed (replaying rejected load is more load)."""
+        payloads = payload if isinstance(payload, (list, tuple, RecordFrame)) else [payload]
         msg = Overloaded(lane=lane or "", shed_level=level).to_json()
-        await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
-        self._m_shed.inc()
+        for _ in payloads:
+            await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
+        self._m_shed.inc(len(payloads))
         cid = self.context.component_id
         if self._flight is not None:
             self._flight.event("shed_reject", throttle_s=1.0, component=cid,
-                               lane=lane, level=level, records=1)
+                               lane=lane, level=level, records=len(payloads))
         if t.trace is not None and self._tracer is not None:
             now = time.perf_counter()
             self._tracer.record(t.trace, "qos_shed", cid, t.root_ts or now, now,
@@ -418,18 +546,22 @@ class InferenceBolt(Bolt):
                                        "action": "reject"})
         self.collector.ack(t)
 
-    def _encode(self, preds):
+    def _encode_ledgered(self, preds, records: int = 1):
         """``encode_predictions`` and its ``json_encode`` ledger row: one
-        fresh payload per emit."""
+        fresh payload per emit, ``records`` the records it answers. After
+        raw-scheme ingress the payload is utf-8 bytes, which the sink
+        produces as they are (no ``sink_encode`` re-encode)."""
         msg = encode_predictions(preds)
+        if self._bytes_egress:
+            msg = msg.encode("utf-8")
         if _copyledger.active():
-            _copyledger.record("json_encode", len(msg), copies=1, allocs=1, records=1,
+            _copyledger.record("json_encode", len(msg), copies=1, allocs=1, records=records,
                                engine=self.context.component_id)
         return msg
 
     # ---- the continuous path ---------------------------------------------------
 
-    async def _submit_record(self, t: Tuple, data, ts, lane) -> None:
+    async def _submit_record(self, item, data, ts, lane) -> None:
         """Hand one record to the engine's queue and complete it from a
         task of its own; waits while this task has ``max_inflight *
         max_batch`` rows outstanding."""
@@ -438,26 +570,28 @@ class InferenceBolt(Bolt):
             self._cb_room.clear()
             await self._cb_room.wait()
         self._cb_rows += n
-        tenant = t.get("qos_tenant", None) if self.qos is not None else None
-        sub = self._cb.submit(data, payload=t, ts=ts, lane=lane, tenant=tenant,
+        tenant = _anchor_of(item).get("qos_tenant", None) if self.qos is not None else None
+        sub = self._cb.submit(data, payload=item, ts=ts, lane=lane, tenant=tenant,
                               source=self._cb_source)
         task = asyncio.get_running_loop().create_task(self._finish_record(sub, n))
         self._inflight.add(task)
         task.add_done_callback(self._inflight.discard)
 
     async def _finish_record(self, sub, n_rows: int) -> None:
-        """Emit and ack one record once its rows come back; a failed batch
-        fails this record's tuple alone (its source replays it)."""
-        t = sub.payload
+        """Emit and complete one record once its rows come back (one
+        payload per record, chunk records included); a failed batch fails
+        this record alone (its source, or its chunk, replays)."""
+        item = sub.payload
         try:
             preds = await asyncio.wrap_future(sub.future)
+            anchor = _anchor_of(item)
             with span(self.context.metrics, self.context.component_id, "encode"):
-                msg = self._encode(preds)
-            await self.collector.emit(Values([msg, *self._extras(t)]), anchors=[t])
-            self.collector.ack(t)
+                msg = self._encode_ledgered(preds)
+            await self.collector.emit(Values([msg, *self._extras(anchor)]), anchors=[anchor])
+            self._complete(item, True)
         except Exception as e:
             self.collector.report_error(e)
-            self.collector.fail(t)
+            self._complete(item, False)
         finally:
             self._cb_rows -= n_rows
             if self._cb_rows < self._cb_cap:
@@ -524,7 +658,7 @@ class InferenceBolt(Bolt):
         cid = self.context.component_id
         traced = []
         for it in batch.items:
-            ctx = it.payload.trace
+            ctx = _trace_of(it.payload)
             if ctx is not None:
                 traced.append((ctx, tracer.record(ctx, "queue_wait", cid,
                                                   it.enq or t0, t0)))
@@ -571,17 +705,31 @@ class InferenceBolt(Bolt):
                     "batch_formed", throttle_s=1.0, component=self.context.component_id,
                     size=batch.size, records=len(batch.items), fill=round(fill, 3),
                     sources=1, device_ms=round((t1 - t0) * 1e3, 3))
-            for item, preds in batch.split(out):
+            # The records of one frame leave together: their predictions
+            # concatenate into ONE payload per (frame, dispatched batch).
+            # Every other record keeps one payload of its own.
+            for handle, group in self._egress_groups(batch.split(out)):
+                if handle is None:
+                    item, preds = group[0]
+                    records = 1
+                else:
+                    item = handle
+                    preds = (group[0][1] if len(group) == 1
+                             else np.concatenate([p for _, p in group], axis=0))
+                    records = len(group)
+                anchor = _anchor_of(item)
                 with span(self.context.metrics, self.context.component_id, "encode"):
-                    msg = self._encode(preds)
-                await self.collector.emit(Values([msg, *self._extras(item)]),
-                                          anchors=[item])
-                self.collector.ack(item)
+                    msg = self._encode_ledgered(preds, records=records)
+                await self.collector.emit(Values([msg, *self._extras(anchor)]),
+                                          anchors=[anchor])
+                for member, _ in group:
+                    self._complete(member, True)
         except Exception as e:
-            # Device failure: fail every tuple in the batch -> spout replay.
+            # Device failure: fail every record in the batch -> spout replay
+            # (a chunk fails once, however many of its records it held).
             self.collector.report_error(e)
             for item in batch.items:
-                self.collector.fail(item.payload)
+                self._complete(item.payload, False)
         finally:
             self._dispatch_sem.release()
             # A slot is free: eagerly pull whatever queued meanwhile.

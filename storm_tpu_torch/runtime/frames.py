@@ -1,0 +1,122 @@
+"""Record frames, copied from ``storm_tpu/runtime/frames.py``: N broker
+records riding ONE tuple value, by reference.
+
+With ``BrokerSpout(..., scheme="raw", frames=True)`` the spout packs a
+fetched chunk's payloads into one :class:`RecordFrame` and emits ONE tuple
+whose value is the frame: routing moves a single reference (the
+``batch_route`` ledger row records ``bytes=0, copies=0, records=N``), and
+the frame acks and replays as one anchor tree.
+
+List-backed: the frame holds the per-record buffers it was given
+(``bytes`` from the broker, or zero-copy ``memoryview`` slices from
+:meth:`RecordFrame.from_buffer`) and never joins them. Serialized, a
+frame's body is::
+
+    u32 count | count * u32 record-length | records back-to-back
+
+``encode_parts`` returns ``[header, rec0, rec1, ...]`` — references, not
+a join; ``from_buffer`` reverses it over any buffer without copying. (In
+storm_tpu this body is the dist wire's frame slot, which the port does
+not have yet.)
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Iterator, List, Sequence, Union
+
+__all__ = ["RecordFrame"]
+
+_u32 = struct.Struct("<I")
+
+Buf = Union[bytes, bytearray, memoryview]
+
+
+class RecordFrame(Sequence[Buf]):
+    """An immutable sequence of per-record payload buffers.
+
+    Supports ``len``, indexing, and iteration like the list of raw
+    payloads it replaces; ``nbytes`` is the total payload size (cached).
+    """
+
+    __slots__ = ("_records", "_nbytes")
+
+    def __init__(self, records: Sequence[Buf]):
+        self._records: List[Buf] = list(records)
+        self._nbytes = sum(
+            r.nbytes if isinstance(r, memoryview) else len(r)
+            for r in self._records)
+
+    # -- sequence protocol -------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def __getitem__(self, i):
+        return self._records[i]
+
+    def __iter__(self) -> Iterator[Buf]:
+        return iter(self._records)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"RecordFrame(n={len(self._records)}, nbytes={self._nbytes})"
+
+    @property
+    def nbytes(self) -> int:
+        return self._nbytes
+
+    # -- materialization ---------------------------------------------------
+    def tolist(self) -> List[bytes]:
+        """Per-record ``bytes`` objects (copies memoryview-backed
+        records)."""
+        return [bytes(r) if not isinstance(r, bytes) else r
+                for r in self._records]
+
+    # -- wire layout -------------------------------------------------------
+    def encode_parts(self) -> List[Buf]:
+        """``[header, rec0, rec1, ...]`` — the serialized frame as a list
+        of buffer references with NO join. ``b"".join(parts)`` yields the
+        canonical frame body."""
+        n = len(self._records)
+        head = bytearray(4 + 4 * n)
+        _u32.pack_into(head, 0, n)
+        off = 4
+        for r in self._records:
+            _u32.pack_into(
+                head, off, r.nbytes if isinstance(r, memoryview) else len(r))
+            off += 4
+        parts: List[Buf] = [bytes(head)]
+        parts.extend(self._records)
+        return parts
+
+    def encoded_nbytes(self) -> int:
+        """Length of the serialized body without building it."""
+        return 4 + 4 * len(self._records) + self._nbytes
+
+    @classmethod
+    def from_buffer(cls, buf: Buf) -> "RecordFrame":
+        """Decode a serialized frame body into a frame of zero-copy
+        ``memoryview`` slices over ``buf``. Raises ``ValueError`` on a
+        malformed body (short header, lengths overrunning the buffer,
+        trailing garbage)."""
+        mv = memoryview(buf)
+        if len(mv) < 4:
+            raise ValueError("record frame shorter than its count header")
+        (n,) = _u32.unpack_from(mv, 0)
+        head_len = 4 + 4 * n
+        if len(mv) < head_len:
+            raise ValueError(
+                f"record frame header truncated: {n} records need "
+                f"{head_len} header bytes, have {len(mv)}")
+        lens = struct.unpack_from(f"<{n}I", mv, 4) if n else ()
+        off = head_len
+        records: List[Buf] = []
+        for ln in lens:
+            end = off + ln
+            if end > len(mv):
+                raise ValueError("record length overruns frame body")
+            records.append(mv[off:end])
+            off = end
+        if off != len(mv):
+            raise ValueError(
+                f"record frame has {len(mv) - off} trailing bytes")
+        return cls(records)

@@ -1,7 +1,15 @@
 """The port's native JSON codec against storm_tpu's, on the CPU.
 
 The port builds its own copy of ``fastjson.cpp`` (``storm_tpu_torch/native``)
-with g++ at first use; storm_tpu loads its committed ``libstormtpu.so``.
+with g++ at first use. storm_tpu loads ``storm_tpu/native/libstormtpu.so``
+when it exists and otherwise falls back to its Python codec; that library
+is a build product, not in the repository. So the module fixture
+:func:`storm_tpu_native` builds it here, from storm_tpu's sources with its
+Makefile's flags, into a private file under ``build/`` (written under a
+temporary name, then renamed), points storm_tpu's loader at it for the
+module and restores the loader after. The comparisons hold the port to
+storm_tpu's native codec whatever ran before, and other test files that
+compare with storm_tpu's native path use the same fixture.
 On a seeded corpus of payloads:
 
 - every payload both parse gives the same array, bit for bit (the same
@@ -20,22 +28,70 @@ On a seeded corpus of payloads:
 - the inference bolt records ``decode_ms`` and ``encode_ms``.
 """
 
+import hashlib
 import json
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import storm_tpu.api.schema as jax_schema
+import storm_tpu.native as jax_native
 from storm_tpu.native import native_available
 from storm_tpu_torch import native
 from storm_tpu_torch.api import schema
 from tests.test_torch_topology import _run
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_NATIVE_SOURCES = tuple(ROOT / "storm_tpu" / "native" / f
+                           for f in ("fastjson.cpp", "arrow_tensor.cpp", "crc32c.cpp"))
+# storm_tpu/native/Makefile's CXXFLAGS and LDFLAGS.
+JAX_NATIVE_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+
+
+def build_storm_tpu_library() -> Path:
+    """storm_tpu's ``libstormtpu.so``, built from its sources into
+    ``build/storm_tpu_reference/``, named by a hash of the sources and the
+    flags; a concurrent build in another process never loads a half-written
+    file (private name, then rename)."""
+    h = hashlib.sha256(" ".join(JAX_NATIVE_FLAGS).encode())
+    for src in JAX_NATIVE_SOURCES:
+        h.update(src.read_bytes())
+    out = ROOT / "build" / "storm_tpu_reference" / f"libstormtpu-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cxx = shutil.which("g++") or "g++"
+        proc = subprocess.run([cxx, *JAX_NATIVE_FLAGS, "-o", str(tmp),
+                               *map(str, JAX_NATIVE_SOURCES)],
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        os.replace(tmp, out)
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def storm_tpu_native():
+    """storm_tpu's loader pointed at :func:`build_storm_tpu_library`'s file
+    for the module (its cached load reset), restored on teardown."""
+    saved = (jax_native._LIB_PATH, jax_native._load_attempted, jax_native._lib)
+    jax_native._LIB_PATH = build_storm_tpu_library()
+    jax_native._load_attempted, jax_native._lib = False, None
+    try:
+        yield jax_native
+    finally:
+        jax_native._LIB_PATH, jax_native._load_attempted, jax_native._lib = saved
 
 
 def test_storm_tpu_native_library_loads():
     """The comparisons below hold the port to storm_tpu's native codec,
     not to its Python fallback."""
     assert native_available()
+    assert jax_native._LIB_PATH.parent.name == "storm_tpu_reference"
 
 
 def _floats(rng: np.random.RandomState, n: int) -> list:
@@ -214,13 +270,15 @@ def test_library_is_built_once_and_cached_by_source_hash():
     native.load()
     assert path.exists() and path.parent.name == "storm_tpu_torch"
     assert native.load() is native.load()
-    # The port's copy keeps the JSON codec only: record frames and the
-    # CRC come with the parts of the port that use them.
+    # The port's library holds the JSON codec and the Arrow tensor codec;
+    # the CRC comes with the dist wire, which uses it.
     lib = native.load()
-    for fn in ("stpu_parse_instances", "stpu_format_predictions", "stpu_free"):
+    for fn in ("stpu_parse_instances", "stpu_format_predictions", "stpu_free",
+               "stpu_tensor_encode", "stpu_tensor_decode", "stpu_tensor_decode_layout"):
         assert hasattr(lib, fn)
-    for fn in ("stpu_tensor_encode", "stpu_tensor_decode", "stpu_crc32c"):
-        assert not hasattr(lib, fn)
+    assert not hasattr(lib, "stpu_crc32c")
+    # the hash covers both sources
+    assert [s.name for s in native.SOURCES] == ["fastjson.cpp", "arrow_tensor.cpp"]
     with pytest.raises(native.ParseError, match="payload missing"):
         native.parse_instances(b'{"x": 1}')
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -109,6 +110,22 @@ def test_copy_snapshot_prunes_retired_hops():
     led.reset()
 
 
+def settled_snapshot(ledger_mod, timeout_s: float = 10.0) -> dict:
+    """The ledger's tree once every batch's ``d2h`` row has landed (as many
+    ``d2h`` calls as ``h2d`` calls), or as it stands after ``timeout_s``.
+    storm_tpu's fetch thread records a batch's ``d2h`` row after the
+    batch's future resolves, so a snapshot taken the moment the last
+    output arrives can miss that batch's row on a loaded machine."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        tree = ledger_mod.copy_ledger().snapshot()
+        st = tree["stages"]
+        if st.get("d2h", {}).get("calls", 0) >= st.get("h2d", {}).get("calls", 0) \
+                or time.monotonic() > deadline:
+            return tree
+        time.sleep(0.01)
+
+
 def _payload(i):
     x = np.random.RandomState(i).rand(1, *SHAPE).astype(np.float32)
     return json.dumps({"instances": x.tolist()})
@@ -145,7 +162,7 @@ async def _serve(impl, n, batch):
     await rt.drain(timeout_s=30)
     outs = broker.drain_topic("output")
     await cluster.shutdown()
-    tree = impl.ledger.copy_ledger().snapshot()
+    tree = settled_snapshot(impl.ledger)
     impl.ledger.copy_ledger().reset()
     return tree, payloads, outs
 

@@ -1,9 +1,10 @@
 """The port stands alone: no module of storm_tpu_torch (its native codec,
 MoE layer, model families, QoS package, continuous batcher, tracing and
-flight recorder, copy ledger and cost profile included), and neither
-chip_smoke.py nor
-kernel_sweep.py, imports JAX, orbax, scikit-learn or anything of the JAX
-package storm_tpu (the machine with the card has none of them)."""
+flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
+record frames and topology builder included), and neither chip_smoke.py
+nor kernel_sweep.py, imports JAX, orbax, scikit-learn, pyarrow or anything
+of the JAX package storm_tpu (the machine with the card has none of
+them)."""
 
 import ast
 import os
@@ -26,7 +27,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "orbax", "sklearn", "storm_tpu")
+    return top in ("jax", "jaxlib", "flax", "orbax", "sklearn", "storm_tpu", "pyarrow")
 
 
 def test_no_jax_or_storm_tpu_imports_in_source():
@@ -96,9 +97,23 @@ def test_importing_the_port_loads_no_jax():
         Tracer(1.0, seed=0).maybe_trace()
         FlightRecorder().event("batch_formed", size=1)
         print("OBS", sorted(profile_store().snapshot()), copyledger.active())
+        import numpy as np
+        from storm_tpu_torch.config import Config
+        from storm_tpu_torch.main import build_standard_topology
+        from storm_tpu_torch.runtime.frames import RecordFrame
+        from storm_tpu_torch.serve import decode_tensor, encode_tensor
+        msg = encode_tensor(np.ones((1, 2, 3), np.float32))
+        frame = RecordFrame([msg, b'{{"instances": [[1.0]]}}'])
+        print("TENSOR", decode_instances(frame[0]).data.shape, decode_instances(frame[0]).view,
+              RecordFrame.from_buffer(b"".join(frame.encode_parts())).nbytes == frame.nbytes)
+        cfg = Config()
+        cfg.model = ModelConfig(name="vit_tiny", input_shape=(32, 32, 3))
+        cfg.topology.spout_chunk, cfg.topology.spout_scheme = 8, "raw"
+        cfg.topology.spout_frames = True
+        build_standard_topology(cfg, broker, device="cpu")
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
-                                               "storm_tpu"))
+                                               "storm_tpu", "pyarrow"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -107,6 +122,7 @@ def test_importing_the_port_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
     assert "CODEC (1, 1, 2) {\"predictions\": [[1.5, 2]]}" in out.stdout, out.stdout
     assert "OBS ['engines'] True" in out.stdout, out.stdout
+    assert "TENSOR (1, 2, 3) True True" in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer
     # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
@@ -119,5 +135,7 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.qos.admission", "storm_tpu_torch.qos.lanes",
                  "storm_tpu_torch.qos.shedding", "storm_tpu_torch.infer.continuous",
                  "storm_tpu_torch.obs", "storm_tpu_torch.obs.copyledger",
-                 "storm_tpu_torch.obs.profile"):
+                 "storm_tpu_torch.obs.profile", "storm_tpu_torch.serve",
+                 "storm_tpu_torch.serve.marshal", "storm_tpu_torch.runtime.frames",
+                 "storm_tpu_torch.main"):
         assert repr(name) in out.stdout, name
