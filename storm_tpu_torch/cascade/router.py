@@ -1,0 +1,364 @@
+"""The cascade's runtime, copied from ``storm_tpu/cascade/router.py``: one
+shared engine and one residue batcher per tier.
+
+:class:`CascadeRouter` owns the per-tier state the inference operator
+drives: the tier engines (from the process's ``shared_engine`` cache on
+the operator's device, so two bolts cascading over the same models share
+their weights), a batcher per tier for the escalated residue, the
+accept-or-escalate decision (the math of
+:mod:`storm_tpu_torch.cascade.policy`) and the escalation-budget window.
+
+The operator keeps its tasks, the dispatch semaphore (``max_inflight``
+now bounds device round trips across tiers), the deferred acks and the
+replay; the router never touches a tuple's lifecycle. A record's original
+payload (its tuple, or its chunk's handle) rides every tier inside an
+:class:`Escalated` wrapper that completion unwraps, so a failure at any
+tier fails the original tuple, which replays from tier 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, List, Optional
+
+import numpy as np
+
+from storm_tpu_torch.cascade.policy import CascadeConfig, uncertainty
+from storm_tpu_torch.config import BatchConfig, ModelConfig
+
+if TYPE_CHECKING:  # the infer package imports this module through its operator
+    from storm_tpu_torch.infer.batcher import Batch
+
+
+class Escalated:
+    """A record's batch payload while it rides an escalation tier.
+
+    ``payload`` is the ORIGINAL payload (runtime tuple or chunk handle) —
+    completion always targets it, whatever tier it lands on. ``link_span``
+    carries the device span id of the tier that escalated it, so the next
+    tier's queue_wait span links back and the trace shows the full
+    tier-to-tier journey of a hard record.
+
+    Escalation granularity is the ROW: a multi-instance record's
+    confident rows accept where they are and only the uncertain residue
+    rides up, so ``partial`` holds the already-accepted rows (full
+    (n_rows, K) buffer in original row order) and ``row_idx`` the
+    original positions of the rows still undecided. Both stay ``None``
+    while the record escalates whole. The record's single output message
+    is merged from ``partial`` when its last row decides — the ack tree
+    never sees a partially-answered record."""
+
+    __slots__ = ("payload", "link_span", "partial", "row_idx")
+
+    def __init__(self, payload, link_span: Optional[str] = None) -> None:
+        self.payload = payload
+        self.link_span = link_span
+        self.partial = None
+        self.row_idx = None
+
+
+class _Residue:
+    """The escalated rows of one record, shaped like a BatchItem for the
+    next tier's ``batcher.add`` (payload/data/ts/lane)."""
+
+    __slots__ = ("payload", "data", "ts", "lane")
+
+    def __init__(self, payload, data, ts, lane) -> None:
+        self.payload = payload
+        self.data = data
+        self.ts = ts
+        self.lane = lane
+
+
+class _Tier:
+    __slots__ = ("index", "model_cfg", "engine", "batcher", "m_device",
+                 "m_accepted")
+
+    def __init__(self, index: int, model_cfg: ModelConfig) -> None:
+        self.index = index
+        self.model_cfg = model_cfg
+        self.engine = None
+        self.batcher = None
+        self.m_device = None
+        self.m_accepted = None
+
+    @property
+    def name(self) -> str:
+        return self.model_cfg.name
+
+
+class CascadeRouter:
+    def __init__(self, cfg: CascadeConfig, qos=None) -> None:
+        self.cfg = cfg
+        self.qos = qos if (qos is not None and qos.enabled) else None
+        self.tiers: List[_Tier] = [
+            _Tier(i, None) for i in range(len(cfg.tiers))]
+        # Sliding escalation-budget window (tier-0 decisions): halved in
+        # place at budget_window so the rate tracks recent traffic without
+        # per-record history.
+        self._win_total = 0
+        self._win_escalated = 0
+        self._m = None
+
+    # ---- construction --------------------------------------------------------
+
+    def tier_model(self, i: int, base: ModelConfig) -> ModelConfig:
+        """The tier's ModelConfig: the operator's config with the tier's
+        registry name + checkpoint swapped in (dtype/shape/wire knobs are
+        shared — every tier must accept the same decoded records)."""
+        name = self.cfg.tiers[i]
+        if self.cfg.checkpoints:
+            ckpt = self.cfg.checkpoints[i] or None
+        else:
+            ckpt = base.checkpoint if name == base.name else None
+        if name == base.name and ckpt == base.checkpoint:
+            return base
+        return dataclasses.replace(base, name=name, checkpoint=ckpt)
+
+    def build(self, base: ModelConfig, batch_cfg: BatchConfig, build_engine,
+              flagship=None, warmup: bool = False) -> None:
+        """Build/fetch one engine per tier via ``build_engine`` (the
+        operator's ``shared_engine`` closure) plus one batcher per tier
+        for escalated residue. ``flagship`` (the operator's already-built
+        engine) is reused for the tier whose config matches it — injected
+        test/bench engines included."""
+        for tier in self.tiers:
+            mc = self.tier_model(tier.index, base)
+            tier.model_cfg = mc
+            if flagship is not None and mc is base:
+                tier.engine = flagship
+            else:
+                tier.engine = build_engine(mc)
+                if warmup:
+                    tier.engine.warmup()
+            if self.qos is not None:
+                from storm_tpu_torch.qos.lanes import LaneBatcher
+
+                tier.batcher = LaneBatcher(batch_cfg, self.qos)
+            else:
+                from storm_tpu_torch.infer.batcher import MicroBatcher
+
+                tier.batcher = MicroBatcher(batch_cfg)
+        shapes = {tuple(t.engine.input_shape) for t in self.tiers}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"cascade tiers disagree on input_shape: "
+                f"{ {t.name: tuple(t.engine.input_shape) for t in self.tiers} }"
+                " — every tier sees the same decoded records")
+
+    def bind_metrics(self, metrics, component_id: str) -> None:
+        self._m = metrics
+        self._cid = component_id
+        for tier in self.tiers:
+            tier.m_device = metrics.histogram(
+                component_id, f"tier{tier.index}_device_ms")
+            tier.m_accepted = metrics.counter(
+                component_id, f"cascade_accepted_tier{tier.index}")
+        self._m_escalations = metrics.counter(
+            component_id, "cascade_escalations")
+        self._m_capped = metrics.counter(
+            component_id, "cascade_budget_capped")
+        self._m_pinned = metrics.counter(
+            component_id, "cascade_shed_pinned")
+        self._g_rate = metrics.gauge("cascade", "escalation_rate")
+
+    # ---- routing -------------------------------------------------------------
+
+    @property
+    def last_tier(self) -> int:
+        return len(self.tiers) - 1
+
+    def entry_tier(self, lane: Optional[str], shed_level: int) -> int:
+        return self.cfg.entry_tier(lane, shed_level, self.qos)
+
+    def escalation_rate(self) -> float:
+        return (self._win_escalated / self._win_total
+                if self._win_total else 0.0)
+
+    def _budget_allows(self) -> bool:
+        if self.cfg.escalation_budget >= 1.0:
+            return True
+        if self.cfg.escalation_budget <= 0.0:
+            return False
+        return (self._win_escalated + 1) <= (
+            self.cfg.escalation_budget * (self._win_total + 1))
+
+    @staticmethod
+    def _merge(wrapper, preds):
+        """The record's final output: its partial buffer with the rows
+        just decided filled in, or the tier output as-is for records that
+        never split."""
+        if wrapper is None or wrapper.partial is None:
+            return preds
+        wrapper.partial[wrapper.row_idx] = preds
+        return wrapper.partial
+
+    def decide_item(self, payload, data, preds, lane, tier_idx: int,
+                    shed_level: int, ts=None):
+        """Accept-or-escalate ONE record's tier output.
+
+        Returns ``(merged_preds_or_None, residue_or_None, info)``: when
+        the record (or its last undecided rows) accepts here,
+        ``merged_preds`` is the full output in original row order and
+        ``residue`` is None; when any rows escalate, ``merged_preds`` is
+        None and ``residue`` is the :class:`_Residue` for tier
+        ``tier_idx + 1`` (data sliced to the uncertain rows, lane/ts
+        preserved). ``info`` carries this record's row counts
+        (accepted/escalated/pinned/budget_capped).
+
+        Decision granularity is the ROW: each row accepts where its own
+        uncertainty clears the tier's threshold, and only the uncertain
+        residue escalates — a multi-instance record with one hard image
+        sends ONE row up, not all of them (record-level worst-row gating
+        collapses to flagship-only as record width grows: P(all n rows
+        confident) -> 0). Accepted rows park in the record's
+        :class:`Escalated` partial buffer; the record emits once, merged
+        in original row order, when its last row decides. Pinned (shed)
+        and budget-capped records accept all remaining rows at this
+        tier. Counters (``cascade_accepted_tier{i}``,
+        ``cascade_escalations``, lane counters, the budget window) all
+        count ROWS, which for single-instance records is identical to
+        counting records. This is the unit both dispatch paths share:
+        the batch path (:meth:`decide`) loops it over a fetched batch;
+        the continuous path calls it per resolved submission."""
+        tier = self.tiers[tier_idx]
+        n = int(data.shape[0])
+        wrapper = payload if isinstance(payload, Escalated) else None
+        pinned = capped = 0
+        if tier_idx == self.last_tier:
+            esc_mask = np.zeros(n, dtype=bool)
+        elif self.cfg.pinned(lane, shed_level, self.qos):
+            pinned = n
+            esc_mask = np.zeros(n, dtype=bool)
+            for _ in range(n):
+                self._charge(tier_idx, escalate=False)
+        else:
+            row_u = uncertainty(preds, self.cfg.metric, self.cfg.temperature)
+            thr = self.cfg.threshold_for(tier_idx, lane, shed_level)
+            esc_mask = np.asarray(row_u >= thr).reshape(-1).copy()
+            # Row-order budget walk, window charges interleaved with
+            # decisions exactly as record-level gating charged them.
+            for j in range(n):
+                if esc_mask[j] and not self._budget_allows():
+                    esc_mask[j] = False
+                    capped += 1
+                self._charge(tier_idx, escalate=bool(esc_mask[j]))
+        n_esc = int(esc_mask.sum())
+        if n_esc == 0:
+            merged, residue = self._merge(wrapper, preds), None
+        else:
+            if wrapper is None:
+                wrapper = Escalated(payload)
+            if n_esc < n:
+                cur_idx = wrapper.row_idx if wrapper.row_idx is not None \
+                    else np.arange(n)
+                if wrapper.partial is None:
+                    wrapper.partial = np.zeros(
+                        (n, preds.shape[-1]), dtype=preds.dtype)
+                keep = ~esc_mask
+                wrapper.partial[cur_idx[keep]] = preds[keep]
+                wrapper.row_idx = cur_idx[esc_mask]
+                residue = _Residue(wrapper, data[esc_mask], ts, lane)
+            else:
+                residue = _Residue(wrapper, data, ts, lane)
+            merged = None
+        rows_accepted = n - n_esc
+        if self._m is not None:
+            lane_key = lane or "default"
+            self._m.counter(
+                self._cid, f"cascade_decided_lane_{lane_key}").inc(n)
+            if n_esc:
+                self._m.counter(
+                    self._cid, f"cascade_escalated_lane_{lane_key}").inc(
+                    n_esc)
+            if rows_accepted:
+                tier.m_accepted.inc(rows_accepted)
+            if n_esc:
+                self._m_escalations.inc(n_esc)
+            if capped:
+                self._m_capped.inc(capped)
+            if pinned:
+                self._m_pinned.inc(pinned)
+            self._g_rate.set(self.escalation_rate())
+        info = {"accepted": rows_accepted, "escalated": n_esc,
+                "pinned": pinned, "budget_capped": capped}
+        return merged, residue, info
+
+    def decide(self, batch: "Batch", out, tier_idx: int, shed_level: int):
+        """Split one fetched tier output into accepts and escalations.
+
+        Returns ``(accepted, escalated, info)``: ``accepted`` is
+        ``[(payload, merged_preds)]`` ready for the operator's emit+ack
+        loop, ``escalated`` the per-record residue items (original
+        data/ts/lane preserved, data sliced to the uncertain rows) to
+        re-batch into tier ``tier_idx + 1``, and ``info`` the decision
+        stats for the flight-recorder event. Each record's decision is
+        one :meth:`decide_item` call — the same unit the continuous
+        batcher drives per resolved submission."""
+        accepted, escalated = [], []
+        agg = {"accepted": 0, "escalated": 0, "pinned": 0,
+               "budget_capped": 0}
+        ofs = 0
+        for it in batch.items:
+            n = it.data.shape[0]
+            preds = out[ofs:ofs + n]
+            ofs += n
+            merged, residue, info = self.decide_item(
+                it.payload, it.data, preds, it.lane, tier_idx, shed_level,
+                ts=it.ts)
+            if residue is None:
+                accepted.append((it.payload, merged))
+            else:
+                escalated.append(residue)
+            for k in agg:
+                agg[k] += info[k]
+        info = {"tier": tier_idx, "model": self.tiers[tier_idx].name,
+                **agg, "escalation_rate": round(self.escalation_rate(), 4)}
+        return accepted, escalated, info
+
+    def _charge(self, tier_idx: int, escalate: bool) -> None:
+        # Budget window counts TIER-0 decisions only: the budget caps how
+        # much of the ingress stream may leave tier 0; records already
+        # past the gate aren't re-charged at later tiers.
+        if tier_idx != 0:
+            return
+        self._win_total += 1
+        if escalate:
+            self._win_escalated += 1
+        if self._win_total >= max(1, int(self.cfg.budget_window)):
+            self._win_total //= 2
+            self._win_escalated //= 2
+
+    # ---- observability -------------------------------------------------------
+
+    def inventory(self) -> list:
+        """Per tier: the model that serves it, its gate, the bytes its
+        weights occupy on the device, and its measured cost, so a
+        multi-engine bolt reads as N sized tiers.
+
+        ``cost`` is the cost profile's per-row device cost of the tier's
+        engine (``storm_tpu_torch/obs/profile.py``), measured from this
+        process's own traffic: the cheapest-first order the config claims
+        is checked here by numbers. None until the tier served a batch."""
+        from storm_tpu_torch.obs.profile import profile_store
+
+        store = profile_store()
+        rows = []
+        for tier in self.tiers:
+            eng = tier.engine
+            row = {
+                "tier": tier.index,
+                "model": tier.name,
+                "checkpoint": tier.model_cfg.checkpoint,
+                "threshold": (None if tier.index == self.last_tier
+                              else self.cfg.thresholds[tier.index]),
+                "pending_records": len(tier.batcher)
+                if tier.batcher is not None else 0,
+                "cost": store.cost_of(
+                    getattr(eng, "profile_key", tier.name)),
+            }
+            for attr in ("param_bytes", "param_bytes_per_device"):
+                fn = getattr(eng, attr, None)
+                row[attr] = int(fn()) if callable(fn) else None
+            rows.append(row)
+        return rows

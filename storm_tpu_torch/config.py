@@ -1,12 +1,15 @@
 """Typed configuration, copied from ``storm_tpu/config.py`` for the fields
 the port reads: model, batching, spout offsets, sink delivery, topology
-knobs, QoS and the sink's SLO, with their validation."""
+knobs, QoS, the sink's SLO, the observatory and the cascade, with their
+validation."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+from storm_tpu_torch.cascade.policy import CascadeConfig
 
 
 @dataclass
@@ -260,9 +263,9 @@ class QosConfig:
     shed_breach_rate: float = 1.0  # sink SLO breaches/s (needs tracing.slo_ms)
     shed_hot_steps: int = 2
     shed_calm_steps: int = 5
-    # storm_tpu routes shed lanes to this cheaper model through a cascade;
-    # the cascade is not ported, so a non-empty value is refused by the
-    # inference operator. "" rejects with a typed ``overloaded`` record.
+    # Shed lanes are served by this cheaper model instead of rejected: the
+    # inference operator synthesizes a two-tier shed-only cascade (this
+    # model, then its own). "" rejects with a typed ``overloaded`` record.
     degrade_model: str = ""
 
     def __post_init__(self) -> None:
@@ -313,6 +316,78 @@ class QosConfig:
 
 
 @dataclass
+class ObsConfig:
+    """The observatory (``storm_tpu_torch/obs/``). The cost profile itself
+    is always on; ``enabled`` gates the *control loop*: the Observatory
+    task that steps the burn tracker, publishes occupancy gauges, steps
+    the bottleneck attribution and runs the regression sentinel. The burn
+    tracker needs ``tracing.slo_ms`` set: without it the sink never counts
+    breaches and burn stays 0.
+    """
+
+    enabled: bool = False
+    # Observatory step cadence (burn tracker + occupancy gauges).
+    interval_s: float = 1.0
+    # SLO objective: fraction of delivered records inside tracing.slo_ms.
+    # The error budget is 1 - slo_objective.
+    slo_objective: float = 0.99
+    # Multi-window burn: both windows must exceed burn_threshold to trip
+    # (fast reacts, slow de-flaps). Burn 1.0 = spending budget exactly.
+    burn_fast_window_s: float = 60.0
+    burn_slow_window_s: float = 600.0
+    burn_threshold: float = 1.0
+    # Regression sentinel: compare live stage costs against this
+    # PROFILE_*.json snapshot ("" = sentinel off); flag a (engine,
+    # bucket, stage) cell when live mean > regression_factor x baseline,
+    # once it has at least min_samples live observations.
+    baseline_path: str = ""
+    regression_factor: float = 1.5
+    sentinel_interval_s: float = 10.0
+    min_samples: int = 20
+    # Bottleneck attribution (obs/bottleneck.py): a component counts as
+    # "at capacity" above capacity_hot busy-fraction of the wallclock
+    # window;
+    # an edge is "growing" above lag_growth_eps rows/s; a saturated but
+    # no-longer-growing inbox still attributes above lag_depth_hot
+    # queued records; no leader is named below bottleneck_min_score
+    # (an idle topology has no bottleneck).
+    capacity_hot: float = 0.8
+    lag_growth_eps: float = 1.0
+    lag_depth_hot: int = 64
+    bottleneck_min_score: float = 0.4
+    # Copy ledger (obs/copyledger.py): a ``copy_amplification_high``
+    # flight event fires when the windowed amplification ratio (bytes
+    # moved / bytes ingested) exceeds this ceiling; 0 disables the
+    # check. De-flapped: the event re-arms only after the ratio falls
+    # back under 80% of the ceiling.
+    copy_amp_ceiling: float = 32.0
+
+    def __post_init__(self) -> None:
+        if self.interval_s <= 0 or self.sentinel_interval_s <= 0:
+            raise ValueError("obs intervals must be > 0")
+        if not 0.0 < float(self.capacity_hot) <= 1.0:
+            raise ValueError(
+                f"obs.capacity_hot must be in (0, 1], got "
+                f"{self.capacity_hot!r}")
+        if self.lag_growth_eps < 0 or self.lag_depth_hot < 0:
+            raise ValueError("obs lag thresholds must be >= 0")
+        if self.bottleneck_min_score < 0:
+            raise ValueError("obs.bottleneck_min_score must be >= 0")
+        if not 0.0 < float(self.slo_objective) < 1.0:
+            raise ValueError(
+                f"obs.slo_objective must be in (0, 1), got "
+                f"{self.slo_objective!r}")
+        if (self.burn_fast_window_s <= 0
+                or self.burn_slow_window_s < self.burn_fast_window_s):
+            raise ValueError(
+                "need 0 < obs.burn_fast_window_s <= obs.burn_slow_window_s")
+        if self.regression_factor <= 1.0:
+            raise ValueError("obs.regression_factor must be > 1")
+        if self.copy_amp_ceiling < 0:
+            raise ValueError("obs.copy_amp_ceiling must be >= 0")
+
+
+@dataclass
 class Config:
     topology: TopologyConfig = field(default_factory=TopologyConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -321,3 +396,5 @@ class Config:
     sink: SinkConfig = field(default_factory=SinkConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     qos: QosConfig = field(default_factory=QosConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    cascade: CascadeConfig = field(default_factory=CascadeConfig)

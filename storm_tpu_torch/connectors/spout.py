@@ -108,6 +108,19 @@ class BrokerSpout(Spout):
         self._rr = 0
         self.positions = {p: self._initial_position(p) for p in self.my_partitions}
 
+    def ingress_lag(self) -> dict:
+        """How far this task's cursors trail the broker's log end, summed
+        over its partitions: the observatory's ingress row. The memory
+        broker answers offsets at once, so ``records_behind`` is always
+        a number (storm_tpu's wire brokers give None)."""
+        behind = 0
+        for p in self.my_partitions:
+            pos = self.positions.get(p)
+            if pos is None:
+                continue
+            behind += max(0, self.broker.latest_offset(self.topic, p) - pos)
+        return {"records_behind": behind, "partitions": len(self.my_partitions)}
+
     def _initial_position(self, p: int) -> int:
         cfg = self.offsets_cfg
         if cfg.policy == "latest":

@@ -64,6 +64,22 @@ class MicroBatcher:
     def oldest_ts(self) -> Optional[float]:
         return self._items[0].ts if self._items else None
 
+    def stats(self) -> dict:
+        """Depth and age, with ``LaneBatcher.stats``'s keys (the
+        observatory reads every batching mode through this one shape).
+        Age runs from batcher entry (``enq``): how long work has sat here,
+        not how late it is."""
+        now = time.perf_counter()
+        oldest = self._items[0].enq if self._items else None
+        return {
+            "kind": "fifo",
+            "pending_rows": self._count,
+            "depth": len(self._items),
+            "oldest_ms": (round(max(0.0, (now - oldest) * 1e3), 3)
+                          if oldest is not None else 0.0),
+            "pending_by_lane": {},
+        }
+
     def add(self, payload: Any, data: np.ndarray,
             ts: Optional[float] = None) -> Optional[Batch]:
         """Add one record (n_i instances); returns a ready Batch when

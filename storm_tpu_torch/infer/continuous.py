@@ -66,10 +66,12 @@ IDLE_CHECK_S = 1.0
 class Submission:
     """One submitted record in the queue. ``future`` resolves (on the
     engine's fetch thread) to this record's ``(n, K)`` prediction rows, or
-    to the exception that failed the batch it rode in."""
+    to the exception that failed the batch it rode in. ``batch_span`` is
+    that batch's shared device span id once traced (a cascade links the
+    next tier's ``queue_wait`` to it)."""
 
     __slots__ = ("data", "payload", "ts", "enq", "lane", "tenant", "source",
-                 "deadline", "future")
+                 "deadline", "future", "batch_span")
 
     def __init__(self, data, payload, ts: float, enq: float, lane: Optional[str],
                  tenant: Optional[str], source: str, deadline: float) -> None:
@@ -82,6 +84,7 @@ class Submission:
         self.source = source
         self.deadline = deadline
         self.future: Future = Future()
+        self.batch_span: Optional[str] = None
 
     @property
     def rows(self) -> int:
@@ -132,19 +135,22 @@ class ContinuousBatcher:
         self._tracer = None
         self._flight = None
         self._trace_of: Optional[Callable] = None
+        self._link_of: Optional[Callable] = None
         self._span_name = "device_execute"
 
     # ---- binding -------------------------------------------------------------
 
     def bind(self, metrics, component_id: str, tracer=None, flight=None,
              trace_of: Optional[Callable] = None,
+             link_of: Optional[Callable] = None,
              span_name: str = "device_execute") -> None:
         """Attach the metrics the queue records (``batch_size``,
         ``batch_fill``, ``device_ms``, ``batch_wait_ms``,
         ``dispatch_wait_ms``, ``instances_inferred``, ``coalesced_sources``
         and the substages), the tracer (``trace_of(payload)`` gives a
-        record's context; the shared span is named ``span_name``) and the
-        flight recorder. The first binder wins: the tasks sharing the
+        record's context, ``link_of(payload)`` the span its ``queue_wait``
+        links back to, if any; the shared span is named ``span_name``) and
+        the flight recorder. The first binder wins: the tasks sharing the
         engine all bind, and the queue's metrics land once."""
         with self._cond:
             if self._metrics is not None:
@@ -154,6 +160,7 @@ class ContinuousBatcher:
             self._tracer = tracer
             self._flight = flight
             self._trace_of = trace_of
+            self._link_of = link_of
             self._span_name = span_name
             m, cid = metrics, component_id
             self._m = {
@@ -388,7 +395,10 @@ class ContinuousBatcher:
                            "records": len(items), "sources": sorted(sources)}
         timings = getattr(handle, "timings", None) if handle is not None else None
         if self._tracer is not None and self._tracer.active:
-            self._trace(items, t_disp, t_done, timings, fill, len(sources))
+            batch_span = self._trace(items, t_disp, t_done, timings, fill, len(sources))
+            if batch_span is not None:
+                for it in items:
+                    it.batch_span = batch_span
         if self._m:
             self._m["batch_size"].observe(rows)
             self._m["batch_fill"].observe(fill)
@@ -408,19 +418,23 @@ class ContinuousBatcher:
             it.future.set_result(out[ofs:ofs + it.rows])
             ofs += it.rows
 
-    def _trace(self, items, t0, t1, timings, fill, n_sources) -> None:
+    def _trace(self, items, t0, t1, timings, fill, n_sources) -> Optional[str]:
         """The operator's batch tracing at record granularity: a
-        ``queue_wait`` span per sampled record, one shared device span
-        linked to all of them with the fill, sources and substages."""
+        ``queue_wait`` span per sampled record (linked back to the span
+        that escalated it, if any), one shared device span linked to all
+        of them with the fill, sources and substages. Returns the shared
+        span's id (None when no member is sampled)."""
         tracer = self._tracer
         cid = self._cid or "continuous"
         traced = []
         for it in items:
             ctx = self._trace_of(it.payload) if self._trace_of else None
             if ctx is not None:
-                traced.append((ctx, tracer.record(ctx, "queue_wait", cid, it.enq or t0, t0)))
+                back = self._link_of(it.payload) if self._link_of else None
+                traced.append((ctx, tracer.record(ctx, "queue_wait", cid, it.enq or t0, t0,
+                                                  links=(back,) if back else ())))
         if not traced:
-            return
+            return None
         batch_span = tracer.new_span_id()
         links = tuple(qid for _, qid in traced)
         attrs = {"batch_size": sum(it.rows for it in items), "records": len(items),
@@ -431,6 +445,7 @@ class ContinuousBatcher:
         for ctx, qid in traced:
             tracer.record(ctx, self._span_name, cid, t0, t1, span_id=batch_span,
                           parent_id=qid, links=links, attrs=attrs)
+        return batch_span
 
     # ---- introspection -------------------------------------------------------
 

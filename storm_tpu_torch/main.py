@@ -19,12 +19,14 @@ def build_standard_topology(cfg: Config, broker, *, input_topic: str = "input",
     ``kafka-bolt`` -> ``output_topic``, and the operator's dead letters ->
     ``dlq-bolt`` -> ``dead_letter_topic``. With ``cfg.qos`` enabled the
     spout classifies and admits records and the lane rides to the sink
-    (``passthrough=("qos_lane",)``)."""
+    (``passthrough=("qos_lane",)``); with ``cfg.cascade`` enabled the
+    operator serves through the cascade's tiers."""
     from storm_tpu_torch.connectors import BrokerSink, BrokerSpout
     from storm_tpu_torch.infer import InferenceBolt
     from storm_tpu_torch.runtime import TopologyBuilder
 
     qos = cfg.qos if cfg.qos.enabled else None
+    cascade = cfg.cascade if cfg.cascade.enabled else None
     topo = cfg.topology
     tb = TopologyBuilder()
     tb.set_spout("kafka-spout",
@@ -33,7 +35,7 @@ def build_standard_topology(cfg: Config, broker, *, input_topic: str = "input",
                  parallelism=topo.spout_parallelism)
     tb.set_bolt("inference-bolt",
                 InferenceBolt(cfg.model, cfg.batch, device=device, engine=engine, qos=qos,
-                              passthrough=("qos_lane",) if qos else ()),
+                              cascade=cascade, passthrough=("qos_lane",) if qos else ()),
                 parallelism=topo.inference_parallelism).shuffle_grouping("kafka-spout")
     tb.set_bolt("kafka-bolt", BrokerSink(broker, output_topic, cfg.sink),
                 parallelism=topo.sink_parallelism).shuffle_grouping("inference-bolt")

@@ -1,0 +1,278 @@
+"""Bottleneck attribution, copied from ``storm_tpu/obs/bottleneck.py``:
+capacity, lag slope and stage costs fused into one ranked verdict.
+
+Each step samples per-component utilization and the edge lag watermarks,
+folds in the stage histograms (ingest lag, batch wait, dispatch wait,
+device with its substages) and ranks components by an explainable score:
+
+- base = the component's capacity (busy fraction of the window per task);
+- ``+0.3`` when its inbound edges grow faster than ``obs.lag_growth_eps``
+  rows/s (a busy component whose inbox also fills is the limiter);
+- ``+0.2`` when its inbound depth sits above ``obs.lag_depth_hot`` (a
+  full bounded inbox stops growing: pressure without slope);
+- ``+0.2`` for a spout whose ingress backlog grows while the spout
+  itself is near capacity.
+
+No component is named below ``obs.bottleneck_min_score``. A change of
+leader records a ``bottleneck_shift`` flight event with the signals that
+drove it, and the verdict carries a critical-path decomposition of the
+mean end-to-end latency, each stage beside the copy-ledger bytes behind
+it (``_attach_bytes``). Stage histograms observe per dispatch while e2e
+observes per record, so the decomposition is a share of the mean path,
+not an exact additive split.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+__all__ = ["BottleneckAttributor", "STAGE_HISTOGRAMS"]
+
+#: (histogram name, stage label) fused into the critical path, in path
+#: order. Device substages decompose device_ms and are nested under it.
+STAGE_HISTOGRAMS = (
+    ("ingest_lag_ms", "queue_wait_ingest"),
+    ("batch_wait_ms", "queue_wait_batch"),
+    ("dispatch_wait_ms", "queue_wait_dispatch"),
+    ("device_ms", "device"),
+)
+DEVICE_SUBSTAGES = (("h2d_ms", "h2d"), ("compute_ms", "compute"),
+                    ("d2h_ms", "d2h"))
+
+#: Time stage -> copy-ledger stages that move that stage's bytes: the
+#: critical path pairs each millisecond row with the bytes behind it.
+STAGE_BYTES = {
+    "queue_wait_ingest": ("spout_ingest", "spout_scheme"),
+    "queue_wait_batch": ("json_decode", "tuple_route"),
+    "queue_wait_dispatch": ("staging",),
+    "device": ("h2d", "d2h"),
+    "other_wire_routing_sink": ("wire_encode", "wire_decode",
+                                "marshal_encode", "marshal_decode",
+                                "json_encode", "sink_encode"),
+}
+
+_WINDOW_KEY = "bottleneck"  # named cursor on every histogram we read
+
+
+class BottleneckAttributor:
+    def __init__(self, runtime, cfg, capacity, lag,
+                 clock=time.monotonic) -> None:
+        self.rt = runtime
+        self.cfg = cfg
+        self.capacity = capacity
+        self.lag = lag
+        self.clock = clock
+        self.leader: Optional[str] = None
+        self.last_verdict: dict = {}
+        self._prev_ingress: Dict[str, tuple] = {}  # comp -> (behind, t)
+
+    # ---- the step ------------------------------------------------------------
+
+    def step(self) -> dict:
+        caps = self.capacity.sample(key=_WINDOW_KEY)
+        lag = self.lag.sample()
+        verdict = self._attribute(caps, lag)
+        self.last_verdict = verdict
+        leader = verdict["leader"]
+        if leader is not None and leader != self.leader:
+            previous, self.leader = self.leader, leader
+            self._flight(previous, verdict)
+        g = self.rt.metrics.gauge
+        for row in verdict["ranked"]:
+            g("obs", f"bottleneck_score_{row['component']}").set(row["score"])
+        return verdict
+
+    def _flight(self, previous: Optional[str], verdict: dict) -> None:
+        flight = getattr(self.rt, "flight", None)
+        if flight is None:
+            return
+        top = verdict["ranked"][0]
+        cp = verdict["critical_path"]
+        flight.event(
+            "bottleneck_shift", throttle_s=5.0,
+            component=top["component"], previous=previous,
+            capacity=top["capacity"], score=top["score"],
+            reasons=top["reasons"],
+            inflow_growth_per_s=top["inflow_growth_per_s"],
+            device_frac=cp.get("device_frac"),
+            e2e_p95_ms=cp.get("e2e_p95_ms"))
+
+    # ---- scoring -------------------------------------------------------------
+
+    def _attribute(self, caps: Dict[str, dict], lag: dict) -> dict:
+        now = self.clock()
+        inflow_depth: Dict[str, int] = {}
+        inflow_growth: Dict[str, float] = {}
+        for e in lag["edges"]:
+            inflow_depth[e["dst"]] = inflow_depth.get(e["dst"], 0) + e["depth"]
+            if e["growth_per_s"] is not None:
+                inflow_growth[e["dst"]] = (
+                    inflow_growth.get(e["dst"], 0.0) + e["growth_per_s"])
+        ingress_behind: Dict[str, int] = {}
+        for r in lag["ingress"]:
+            if r.get("records_behind") is not None:
+                ingress_behind[r["component"]] = (
+                    ingress_behind.get(r["component"], 0)
+                    + r["records_behind"])
+        # Ingress slope cursors advance for EVERY reporting spout, not just
+        # those with a capacity row yet (capacity rows appear one sample
+        # later than lag rows — the zero-length first window).
+        ingress_growth: Dict[str, float] = {}
+        for comp, behind in ingress_behind.items():
+            prev = self._prev_ingress.get(comp)
+            self._prev_ingress[comp] = (behind, now)
+            if prev is not None and now > prev[1]:
+                ingress_growth[comp] = (behind - prev[0]) / (now - prev[1])
+        for comp in [k for k in self._prev_ingress if k not in ingress_behind]:
+            del self._prev_ingress[comp]
+
+        ranked: List[dict] = []
+        for comp, row in caps.items():
+            cap = row["capacity"] or 0.0
+            depth = inflow_depth.get(comp, 0)
+            growth = inflow_growth.get(comp)
+            behind = ingress_behind.get(comp)
+            score = cap
+            reasons = [f"busy {cap:.2f}"]
+            if cap >= self.cfg.capacity_hot:
+                reasons.append("at capacity")
+            if (growth is not None and growth > self.cfg.lag_growth_eps
+                    and depth > 0):
+                score += 0.3
+                reasons.append(f"inflow growing +{growth:.0f} rows/s")
+            elif depth > self.cfg.lag_depth_hot:
+                score += 0.2
+                reasons.append(f"inflow backlog {depth}")
+            ig = ingress_growth.get(comp)
+            if (ig is not None and ig > self.cfg.lag_growth_eps
+                    and cap >= 0.75 * self.cfg.capacity_hot):
+                score += 0.2
+                reasons.append(f"ingress lag growing +{ig:.0f} rows/s")
+            ranked.append({
+                "component": comp, "capacity": row["capacity"],
+                "busy_frac": row["busy_frac"],
+                "wait_frac": row["wait_frac"],
+                "flush_frac": row["flush_frac"], "tasks": row["tasks"],
+                "inflow_depth": depth,
+                "inflow_growth_per_s": growth,
+                "ingress_behind": behind,
+                "score": round(min(score, 1.5), 4), "reasons": reasons,
+            })
+        ranked.sort(key=lambda r: -r["score"])
+        leader = (ranked[0]["component"]
+                  if ranked and ranked[0]["score"]
+                  >= self.cfg.bottleneck_min_score else None)
+        return {
+            "leader": leader,
+            "ranked": ranked,
+            "edges": lag["edges"],
+            "queues": lag["queues"],
+            "ingress": lag["ingress"],
+            "transport": lag["transport"],
+            "critical_path": self.critical_path(),
+            "window_s": round(max((r["dt_s"] for r in caps.values()),
+                                  default=0.0), 3),
+        }
+
+    # ---- latency decomposition -----------------------------------------------
+
+    def critical_path(self) -> dict:
+        """Windowed mean e2e decomposed into stage shares.
+
+        Reads the registry's stage histograms through the shared windowed
+        cursor, merging same-named histograms across components (multiple
+        sinks / inference tasks). ``other_ms`` is the un-instrumented
+        remainder (wire transit, routing, sink publish)."""
+        hists = getattr(self.rt.metrics, "_histograms", {})
+        sums: Dict[str, float] = {}
+        counts: Dict[str, int] = {}
+        e2e_p95 = None
+        for (comp, name), h in list(hists.items()):
+            if name == "e2e_latency_ms":
+                w = h.window(_WINDOW_KEY)
+                if w["count"]:
+                    sums["e2e"] = sums.get("e2e", 0.0) + w["sum"]
+                    counts["e2e"] = counts.get("e2e", 0) + w["count"]
+                    p95 = h.percentile(95)
+                    if p95 == p95:  # not NaN
+                        e2e_p95 = max(e2e_p95 or 0.0, p95)
+                continue
+            for hname, label in STAGE_HISTOGRAMS + DEVICE_SUBSTAGES:
+                if name == hname:
+                    w = h.window(_WINDOW_KEY)
+                    if w["count"]:
+                        sums[label] = sums.get(label, 0.0) + w["sum"]
+                        counts[label] = counts.get(label, 0) + w["count"]
+                    break
+
+        def mean(label) -> Optional[float]:
+            c = counts.get(label)
+            return round(sums[label] / c, 3) if c else None
+
+        e2e_mean = mean("e2e")
+        stages: Dict[str, dict] = {}
+        known = 0.0
+        for _hname, label in STAGE_HISTOGRAMS:
+            ms = mean(label)
+            if ms is None:
+                continue
+            frac = (round(min(1.0, ms / e2e_mean), 4)
+                    if e2e_mean else None)
+            stages[label] = {"mean_ms": ms, "frac_of_e2e": frac}
+            known += ms
+        device = stages.get("device")
+        if device is not None:
+            sub = {label: mean(label) for _h, label in DEVICE_SUBSTAGES}
+            device["substages_ms"] = {k: v for k, v in sub.items()
+                                      if v is not None}
+        if e2e_mean is not None:
+            other = max(0.0, e2e_mean - known)
+            stages["other_wire_routing_sink"] = {
+                "mean_ms": round(other, 3),
+                "frac_of_e2e": round(other / e2e_mean, 4) if e2e_mean else None,
+            }
+        amp = self._attach_bytes(stages)
+        return {
+            "e2e_mean_ms": e2e_mean,
+            "e2e_p95_ms": round(e2e_p95, 3) if e2e_p95 is not None else None,
+            "records": counts.get("e2e", 0),
+            "stages": stages,
+            "device_frac": (stages.get("device", {}).get("frac_of_e2e")
+                            if stages else None),
+            "copy_amplification": amp,
+        }
+
+    def _attach_bytes(self, stages: Dict[str, dict]) -> Optional[float]:
+        """Pair each time stage with its copy-ledger byte row (the
+        STAGE_BYTES mapping) through the shared ``bottleneck`` windowed
+        cursor — same cadence as the stage-time deltas above, so the
+        milliseconds and the bytes describe the same traffic window.
+        Returns the window's copy-amplification ratio (None before
+        traffic or with the ledger detached)."""
+        from storm_tpu_torch.obs import copyledger
+
+        try:
+            tree = copyledger.copy_ledger().windowed(_WINDOW_KEY)
+        except Exception:
+            return None
+        ledger_stages = tree.get("stages") or {}
+        if not ledger_stages:
+            return None
+        for label, row in stages.items():
+            src = STAGE_BYTES.get(label, ())
+            bpr = cpr = total = 0.0
+            hit = False
+            for name in src:
+                ls = ledger_stages.get(name)
+                if ls is None:
+                    continue
+                hit = True
+                total += ls["bytes"]
+                bpr += ls["bytes_per_record"] or 0.0
+                cpr += ls["copies_per_record"] or 0.0
+            if hit:
+                row["bytes_per_record"] = round(bpr, 1)
+                row["copies_per_record"] = round(cpr, 3)
+                row["bytes"] = round(total, 1)
+        return tree.get("copy_amplification")

@@ -1,0 +1,138 @@
+"""The SLO error-budget burn tracker (multi-window), copied from
+``storm_tpu/obs/slo.py``.
+
+The sink counts every delivery and every SLO breach (``delivered`` and
+``slo_breaches``). With an objective ``slo_objective`` (the fraction of
+records inside ``tracing.slo_ms``) the budget is ``1 - slo_objective``,
+and over a window
+
+    burn = (breaches / delivered) / budget
+
+Burn 1.0 spends the budget exactly; 10 spends it ten times too fast. Two
+windows (fast and slow) give the multi-window alert: the tracker *trips*
+only when both exceed the threshold, and that trip is an extra hot signal
+for the :class:`~storm_tpu_torch.qos.shedding.LoadShedController` (its
+``burn``).
+
+Published: gauges ``("slo", "burn_rate")`` (fast window),
+``("slo", "burn_rate_slow")``, ``("slo", "tripped")``; a ``slo_burn``
+flight event on each untripped -> tripped transition.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Optional, Sequence
+
+
+class SloBurnTracker:
+    """Step-driven: call :meth:`step` on a fixed cadence (the
+    :class:`~storm_tpu_torch.obs.Observatory` loop does; tests drive it
+    with a fake clock). Counters are read from the shared metrics
+    registry, so the sink needs no new plumbing."""
+
+    def __init__(self, metrics, components: Sequence[str] = ("kafka-bolt",),
+                 objective: float = 0.99,
+                 fast_window_s: float = 60.0, slow_window_s: float = 600.0,
+                 threshold: float = 1.0, flight=None,
+                 clock=time.monotonic) -> None:
+        if not 0.0 < objective < 1.0:
+            raise ValueError(f"objective must be in (0, 1), got {objective!r}")
+        if fast_window_s <= 0 or slow_window_s < fast_window_s:
+            raise ValueError("need 0 < fast_window_s <= slow_window_s")
+        self.metrics = metrics
+        self.components = tuple(components)
+        self.budget = 1.0 - objective
+        self.fast_window_s = float(fast_window_s)
+        self.slow_window_s = float(slow_window_s)
+        self.threshold = float(threshold)
+        self.flight = flight
+        self.clock = clock
+        self.tripped = False
+        self.fast_burn = 0.0
+        self.slow_burn = 0.0
+        self.trips = 0
+        # (t, delivered, breaches) samples, trimmed to the slow window.
+        self._samples: deque = deque()
+        self._g_fast = metrics.gauge("slo", "burn_rate")
+        self._g_slow = metrics.gauge("slo", "burn_rate_slow")
+        self._g_tripped = metrics.gauge("slo", "tripped")
+        self._g_fast.set(0.0)
+        self._g_slow.set(0.0)
+        self._g_tripped.set(0.0)
+
+    # ---- counter reads -------------------------------------------------------
+
+    def _totals(self) -> tuple:
+        delivered = breaches = 0
+        for cid in self.components:
+            delivered += self.metrics.counter(cid, "delivered").value
+            breaches += self.metrics.counter(cid, "slo_breaches").value
+        return delivered, breaches
+
+    def _burn_over(self, now: float, window_s: float) -> float:
+        """Burn rate over the trailing ``window_s``: delta against the
+        oldest sample still inside the window (a partially-filled window
+        uses the span it has — a young tracker is reactive, not blind)."""
+        cutoff = now - window_s
+        anchor = None
+        for t, d, b in self._samples:
+            if t >= cutoff:
+                anchor = (d, b)
+                break
+        if anchor is None:
+            return 0.0
+        d_now, b_now = self._samples[-1][1], self._samples[-1][2]
+        dd = d_now - anchor[0]
+        db = b_now - anchor[1]
+        if dd <= 0:
+            # No deliveries in the window: breaches with zero throughput
+            # means everything is breaching upstream of the sink — treat
+            # any breach delta as full burn rather than dividing by zero.
+            return (db / max(1, db)) / self.budget if db > 0 else 0.0
+        return (db / dd) / self.budget
+
+    # ---- the control step ----------------------------------------------------
+
+    def step(self) -> dict:
+        now = self.clock()
+        delivered, breaches = self._totals()
+        self._samples.append((now, delivered, breaches))
+        cutoff = now - self.slow_window_s
+        # Keep ONE sample older than the cutoff as the slow anchor.
+        while len(self._samples) > 2 and self._samples[1][0] <= cutoff:
+            self._samples.popleft()
+        self.fast_burn = self._burn_over(now, self.fast_window_s)
+        self.slow_burn = self._burn_over(now, self.slow_window_s)
+        self._g_fast.set(round(self.fast_burn, 4))
+        self._g_slow.set(round(self.slow_burn, 4))
+        tripped = (self.fast_burn > self.threshold
+                   and self.slow_burn > self.threshold)
+        if tripped and not self.tripped:
+            self.trips += 1
+            if self.flight is not None:
+                self.flight.event(
+                    "slo_burn",
+                    fast_burn=round(self.fast_burn, 3),
+                    slow_burn=round(self.slow_burn, 3),
+                    threshold=self.threshold,
+                    budget=self.budget,
+                    delivered=delivered, breaches=breaches)
+        self.tripped = tripped
+        self._g_tripped.set(1.0 if tripped else 0.0)
+        return {"fast_burn": self.fast_burn, "slow_burn": self.slow_burn,
+                "tripped": tripped}
+
+    def snapshot(self) -> dict:
+        return {
+            "components": list(self.components),
+            "budget": self.budget,
+            "threshold": self.threshold,
+            "fast_window_s": self.fast_window_s,
+            "slow_window_s": self.slow_window_s,
+            "fast_burn": round(self.fast_burn, 4),
+            "slow_burn": round(self.slow_burn, 4),
+            "tripped": self.tripped,
+            "trips": self.trips,
+        }

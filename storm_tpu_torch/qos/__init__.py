@@ -9,8 +9,11 @@
   controller, which publishes its level as the gauge
   ``("qos", "shed_level")`` for the spout and the operator to read.
 
-Wired by :class:`storm_tpu_torch.config.QosConfig`. The shed controller's
-flight-recorder events and the observatory's burn signal wait for tracing.
+Wired by :class:`storm_tpu_torch.config.QosConfig`. The shed controller
+records each decision as a ``shed_decision`` flight event, and takes the
+observatory's SLO burn tracker as an extra hot signal
+(``shedder.burn = observatory.burn``). ``QosConfig.degrade_model`` serves
+shed lanes on a cheaper model through the operator's cascade.
 """
 
 from storm_tpu_torch.qos.admission import AdmissionController, TokenBucket

@@ -8,7 +8,10 @@ Signals, read from the topology's metrics registry and its executors:
   the inbox's capacity, the fullest task);
 - the **batch-wait p95** of the inference component (``batch_wait_ms``);
 - the **SLO-breach rate**: the sink's ``slo_breaches`` counter, per second
-  of interval.
+  of interval;
+- the **SLO burn**: when the observatory's
+  :class:`~storm_tpu_torch.obs.slo.SloBurnTracker` is attached as
+  ``burn`` (``shedder.burn = observatory.burn``), its trip is hot.
 
 ``hot_steps`` consecutive intervals with any signal above its threshold
 raise the shed level by one; ``calm_steps`` consecutive intervals with
@@ -16,8 +19,7 @@ every signal below half its threshold lower it. The level is published as
 the gauge ``("qos", "shed_level")``, which the spout's admission and the
 inference operator read. Each change is kept in ``decisions`` and
 recorded as a ``shed_decision`` flight event with the signals that made
-it. The observatory's burn-rate signal (``burn``) is not ported: it stays
-None (``burn_rate`` 0 in the event).
+it (``burn_rate`` is the tracker's fast-window burn, 0 without one).
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ class LoadShedController:
         self._prev_breaches: Optional[int] = None
         self._gauge = runtime.metrics.gauge("qos", "shed_level")
         self._gauge.set(0.0)
-        # The observatory's SLO burn-rate tracker, an extra hot signal when
-        # attached (not ported yet).
+        # The observatory's SLO burn tracker, an extra hot signal when
+        # attached.
         self.burn = None
         runtime.qos = self
 

@@ -4,7 +4,9 @@ lifecycle, graceful drain, the at-least-once timeout sweep, the live
 model swap with canary (``swap_model``) and the per-task stats
 (``component_stats``). A runtime's ``bolt_execs`` (each task's bounded
 inbox) and ``metrics`` are what the load-shed controller reads; it hangs
-itself on ``runtime.qos``. Each runtime builds its :class:`Tracer` and
+itself on ``runtime.qos``. The observatory reads the executors' busy and
+wait seconds and the routing table (``Router.edges``), and hangs itself
+on ``runtime.obs``. Each runtime builds its :class:`Tracer` and
 :class:`FlightRecorder` from ``config.tracing``; every task's context
 carries them.
 
@@ -51,6 +53,15 @@ class Router:
     def subscriptions(self, source: str, stream: str) -> List[Tup[Any, TargetGroup]]:
         return self._subs.get((source, stream), [])
 
+    def edges(self):
+        """``(source, stream, TargetGroup)`` rows, one per subscription:
+        the observatory's read-only view of the routing table (its
+        ``EdgeLagTracker`` reads each target's inboxes). Two groupings on
+        one edge give two rows; consumers dedupe."""
+        for (source, stream), subs in list(self._subs.items()):
+            for _grouping, group in subs:
+                yield source, stream, group
+
 
 class TopologyRuntime:
     """Everything live for one submitted topology."""
@@ -71,8 +82,9 @@ class TopologyRuntime:
         self.spout_execs: Dict[str, List[SpoutExecutor]] = {}
         self.errors: List[Tup[str, int, BaseException]] = []
         self._sweeper: Optional[asyncio.Task] = None
-        # The topology's LoadShedController, once one is attached.
+        # The topology's LoadShedController and Observatory, once attached.
         self.qos = None
+        self.obs = None
 
     def _make_executors(self) -> None:
         tcfg = self.config.topology

@@ -11,6 +11,15 @@ suspension point (``Queue.get`` on a non-empty queue returns at once), so
 one task working through a full inbox holds the loop: under a burst the
 load-shed controller's timer and the other tasks waited until the burst
 was through, and the controller never saw the queues it watches.
+
+Every executor splits its wall time into ``busy_s`` (a bolt's
+``execute``, a spout's emitting polls), ``wait_s`` (a bolt blocked on its
+inbox, a spout on its pending slots, empty polls and their backoff) and
+``flush_s`` (a bolt's drain at a graceful stop), as storm_tpu's do; the
+observatory's ``CapacityTracker`` reads them as windowed deltas. The yield
+between tuples is inbox time: it counts as ``wait_s``, as the whole gap
+between two tuples does in storm_tpu. ``clock`` is injectable (set it
+before ``start``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,11 @@ class BoltExecutor:
         self.n_executed = 0
         self.exec_ms_total = 0.0
         self.n_errors = 0
+        # Busy, inbox-wait and drain-flush seconds.
+        self.clock = time.perf_counter
+        self.busy_s = 0.0
+        self.wait_s = 0.0
+        self.flush_s = 0.0
 
     def start(self) -> None:
         self.bolt.prepare(_context(self.rt, self.component_id, self.task_index),
@@ -56,14 +70,20 @@ class BoltExecutor:
         executed = m.counter(self.component_id, "executed")
         exec_ms = m.histogram(self.component_id, "execute_ms")
         tracer = getattr(self.rt, "tracer", None)
+        clock = self.clock
+        more = False
         while True:
+            w0 = clock()
+            if more:
+                await asyncio.sleep(0)  # let timers and the other tasks run
             item = await self.inbox.get()
+            self.wait_s += clock() - w0
             if item is _STOP:
                 break
             t: Tuple = item
             executed.inc()
             self.n_executed += 1
-            t0 = time.perf_counter()
+            t0 = clock()
             try:
                 await self.bolt.execute(t)
             except asyncio.CancelledError:
@@ -73,13 +93,13 @@ class BoltExecutor:
                 self.rt.report_error(self.component_id, self.task_index, e)
                 self.collector.fail(t)
             finally:
-                t1 = time.perf_counter()
+                t1 = clock()
                 exec_ms.observe((t1 - t0) * 1e3)
                 self.exec_ms_total += (t1 - t0) * 1e3
+                self.busy_s += t1 - t0
                 if t.trace is not None and tracer is not None:
                     tracer.record(t.trace, "execute", self.component_id, t0, t1)
-            if not self.inbox.empty():
-                await asyncio.sleep(0)  # let timers and the other tasks run
+            more = not self.inbox.empty()
 
     async def stop(self, drain: bool) -> None:
         if self._task is None:
@@ -92,12 +112,15 @@ class BoltExecutor:
                 await asyncio.wait_for(self._task, timeout=30.0)
             except asyncio.TimeoutError:  # pragma: no cover
                 self._task.cancel()
+            f0 = self.clock()
             try:
                 # Settle deferred work (pending batches, in-flight sends)
                 # before cleanup closes resources under it.
                 await asyncio.wait_for(self.bolt.flush(), timeout=30.0)
             except Exception as e:
                 log.warning("flush error in %s: %s", self.component_id, e)
+            finally:
+                self.flush_s += self.clock() - f0
         else:
             self._task.cancel()
         try:
@@ -128,6 +151,12 @@ class SpoutExecutor:
         self.n_acked = 0
         self.n_failed = 0
         self.n_errors = 0
+        # Busy (emitting polls) and wait seconds; flush_s is always 0, kept
+        # for the same surface as a bolt's.
+        self.clock = time.perf_counter
+        self.busy_s = 0.0
+        self.wait_s = 0.0
+        self.flush_s = 0.0
 
     def on_done(self, msg_id: Any, ok: bool) -> None:
         """Ledger callback: the tuple tree for msg_id completed or failed."""
@@ -158,11 +187,16 @@ class SpoutExecutor:
 
     async def _run(self) -> None:
         idle_backoff = 0.001
+        clock = self.clock
         while True:
+            w0 = clock()
             await self._slot.wait()
             if not self._active:
                 await asyncio.sleep(0.05)
+                self.wait_s += clock() - w0
                 continue
+            self.wait_s += clock() - w0
+            b0 = clock()
             try:
                 emitted = await self.spout.next_tuple()
             except asyncio.CancelledError:
@@ -171,10 +205,17 @@ class SpoutExecutor:
                 self.n_errors += 1
                 self.rt.report_error(self.component_id, self.task_index, e)
                 emitted = False
+            finally:
+                dt = clock() - b0
             if emitted:
+                self.busy_s += dt
                 idle_backoff = 0.001
             else:
+                # An empty poll is idle time: a drained spout reads ~0.
+                self.wait_s += dt
+                s0 = clock()
                 await asyncio.sleep(idle_backoff)
+                self.wait_s += clock() - s0
                 idle_backoff = min(idle_backoff * 2, 0.05)
 
     async def stop(self) -> None:

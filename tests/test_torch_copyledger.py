@@ -17,6 +17,7 @@ that difference:
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import time
 from types import SimpleNamespace
@@ -27,6 +28,7 @@ import pytest
 import storm_tpu.config as jax_config
 import storm_tpu.connectors as jax_connectors
 import storm_tpu.infer as jax_infer
+import storm_tpu.infer.engine as jax_engine
 import storm_tpu.obs.copyledger as jax_ledger
 import storm_tpu.runtime as jax_runtime
 import storm_tpu.runtime.cluster as jax_cluster
@@ -110,6 +112,20 @@ def test_copy_snapshot_prunes_retired_hops():
     led.reset()
 
 
+def clear_engine_caches() -> None:
+    """Empty both packages' engine caches, so the next serve builds and
+    warms its engine cold in each. storm_tpu's ``warmup`` skips a bucket
+    its cached engine already compiled (``storm_tpu/infer/engine.py:688``),
+    so an engine another test left warm ledgers, profiles and traces no
+    warm-up batch where the port's fresh one does."""
+    clear_engines()
+    with jax_engine._ENGINES_LOCK:
+        jax_engine._ENGINES.clear()
+    # Collect the dropped engines here, where no registry lock is held
+    # (storm_tpu's finalizer under its queue registry's lock, ROADMAP C3).
+    gc.collect()
+
+
 def settled_snapshot(ledger_mod, timeout_s: float = 10.0) -> dict:
     """The ledger's tree once every batch's ``d2h`` row has landed (as many
     ``d2h`` calls as ``h2d`` calls), or as it stands after ``timeout_s``.
@@ -169,10 +185,10 @@ async def _serve(impl, n, batch):
 
 @pytest.mark.parametrize("max_batch", [1, 4])
 def test_lenet5_topology_ledgers_alike(run, max_batch):
-    clear_engines()
     n = 8
     trees, outs = {}, {}
     for name, impl in IMPLS.items():
+        clear_engine_caches()
         batch = impl.config.BatchConfig(max_batch=max_batch, buckets=(max_batch,),
                                         max_wait_ms=10_000 if max_batch > 1 else 5,
                                         max_inflight=1)

@@ -1,10 +1,10 @@
 """The port stands alone: no module of storm_tpu_torch (its native codec,
 MoE layer, model families, QoS package, continuous batcher, tracing and
 flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
-record frames and topology builder included), and neither chip_smoke.py
-nor kernel_sweep.py, imports JAX, orbax, scikit-learn, pyarrow or anything
-of the JAX package storm_tpu (the machine with the card has none of
-them)."""
+record frames, topology builder, observatory and cascade included), and
+neither chip_smoke.py nor kernel_sweep.py, imports JAX, orbax,
+scikit-learn, pyarrow or anything of the JAX package storm_tpu (the
+machine with the card has none of them)."""
 
 import ast
 import os
@@ -137,5 +137,47 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.obs", "storm_tpu_torch.obs.copyledger",
                  "storm_tpu_torch.obs.profile", "storm_tpu_torch.serve",
                  "storm_tpu_torch.serve.marshal", "storm_tpu_torch.runtime.frames",
-                 "storm_tpu_torch.main"):
+                 "storm_tpu_torch.main", "storm_tpu_torch.obs.slo",
+                 "storm_tpu_torch.obs.capacity", "storm_tpu_torch.obs.bottleneck",
+                 "storm_tpu_torch.cascade", "storm_tpu_torch.cascade.policy",
+                 "storm_tpu_torch.cascade.router"):
         assert repr(name) in out.stdout, name
+
+
+def test_observatory_and_cascade_load_no_jax():
+    """The observatory and the cascade, each imported first in a fresh
+    interpreter, then a cascade topology built and an observatory stepped
+    on a runtime: nothing of JAX or storm_tpu gets loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import storm_tpu_torch.cascade.router
+        import storm_tpu_torch.cascade
+        import storm_tpu_torch.obs
+        from storm_tpu_torch.cascade import CascadeConfig, CascadeRouter, Escalated
+        from storm_tpu_torch.config import Config, ModelConfig, ObsConfig, QosConfig
+        from storm_tpu_torch.connectors import MemoryBroker
+        from storm_tpu_torch.main import build_standard_topology
+        from storm_tpu_torch.obs import Observatory
+        from storm_tpu_torch.runtime.cluster import TopologyRuntime
+        cfg = Config()
+        cfg.model = ModelConfig(name="resnet20", input_shape=(32, 32, 3), num_classes=10)
+        cfg.cascade = CascadeConfig(enabled=True, tiers=("vit_tiny", "lenet5", "resnet20"),
+                                    thresholds=(0.02, 0.1))
+        cfg.qos = QosConfig(enabled=True, degrade_model="lenet5")
+        topo = build_standard_topology(cfg, MemoryBroker(), device="cpu")
+        rt = TopologyRuntime("t", topo, cfg)
+        obs = Observatory(rt, ObsConfig(enabled=True))
+        obs.step()
+        print("STEPPED", sorted(obs.snapshot()), rt.obs is obs, CascadeRouter, Escalated)
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert "STEPPED ['baseline_loaded', 'bottleneck', 'copies', 'corrector', 'decode', " \
+        "'occupancy', 'regressions', 'slo', 'utilization'] True" in out.stdout, out.stdout

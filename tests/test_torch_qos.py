@@ -7,7 +7,8 @@ runtime. Then the port end to end on the CPU (``longseq_tiny``): the lane
 field rides from the spout to the sink's per-lane histograms, a raised
 shed level drops best-effort records at the spout edge, and records that
 reached the operator before the level rose come back as ``Overloaded``,
-acked and never replayed.
+acked and never replayed; ``qos.degrade_model`` gives storm_tpu's
+synthesized shed-only cascade.
 """
 
 import asyncio
@@ -220,9 +221,21 @@ def test_overloaded_json_is_storm_tpus():
 
 
 def test_degrade_model_waits_for_the_cascade():
-    with pytest.raises(NotImplementedError, match="cascade"):
-        InferenceBolt(ModelConfig(name="longseq_tiny", input_shape=(64, 16)),
-                      qos=QosConfig(enabled=True, degrade_model="lenet5"), device="cpu")
+    """``qos.degrade_model`` no longer raises: as storm_tpu's, the bolt
+    synthesizes a two-tier shed-only cascade (the degrade model, then its
+    own) whose tier 0 serves shed lanes."""
+    import dataclasses
+
+    import storm_tpu.infer.operator as jax_operator
+
+    port = InferenceBolt(ModelConfig(name="longseq_tiny", input_shape=(64, 16)),
+                         qos=QosConfig(enabled=True, degrade_model="lenet5"),
+                         device="cpu")._cascade_cfg()
+    jax = jax_operator.InferenceBolt(
+        jax_config.ModelConfig(name="longseq_tiny", input_shape=(64, 16)),
+        qos=jax_config.QosConfig(enabled=True, degrade_model="lenet5"))._cascade_cfg()
+    assert dataclasses.asdict(port) == dataclasses.asdict(jax)
+    assert port.shed_only and port.tiers == ("lenet5", "longseq_tiny")
 
 
 # ---- end to end on the CPU ------------------------------------------------------------

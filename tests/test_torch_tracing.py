@@ -11,6 +11,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -29,6 +30,7 @@ import storm_tpu_torch.runtime as port_runtime
 import storm_tpu_torch.runtime.cluster as port_cluster
 import storm_tpu_torch.runtime.tracing as port_tracing
 from storm_tpu_torch.infer.engine import clear_engines
+from tests.test_torch_copyledger import clear_engine_caches
 
 SHAPE = (28, 28, 1)
 IMPLS = {
@@ -119,7 +121,10 @@ def _flight_sequence(impl, path):
     return took, tail
 
 
-def test_flight_recorder_ring_throttle_rotation_alike(tmp_path):
+def test_flight_recorder_ring_throttle_rotation_alike(tmp_path, monkeypatch):
+    # Both recorders write ``round(time.time(), 3)`` into each line, and a
+    # stamp's length moves where a file rotates: one clock for both.
+    monkeypatch.setattr(time, "time", lambda: 1_760_000_000.125)
     outs = {}
     for name, impl in IMPLS.items():
         d = tmp_path / name
@@ -223,9 +228,9 @@ def _shape(trace, names_by_id) -> tuple:
 
 
 def test_lenet5_traces_have_the_same_structure(run):
-    clear_engines()
     shapes = {}
     for name, impl in IMPLS.items():
+        clear_engine_caches()
         traces, stats, exemplar, _ = run(_serve(impl, 12, 1.0), timeout=120)
         assert stats["done"] == 13 and stats["open"] == 0, (name, stats)
         names_by_id = {s["span_id"]: s["name"] for t in traces for s in t["spans"]}
