@@ -177,7 +177,38 @@ no result):
    with ``burn_rate`` above 0, the sentinel silent against the run's own
    profile and one regression per (engine, bucket, stage) cell with
    ``min_samples`` against it at 1/4;
-13. the ``{"kernels": [...]}`` line, then the card line, then the last line
+13. the Storm runtime's core and exactly-once delivery on phase 5's path
+   (ViT-B/16 bf16 ``int8_fused``, JSON records + 1 poison): (a) through
+   ``build_standard_topology`` at 2/4/2, records in rounds, the inference
+   bolt rebalanced 4 -> 8 while a round is in flight, then 8 -> 2, the
+   spouts deactivated while a round waits in the topic, then activated:
+   every record answered once (each output the native encoding of a row of
+   the engine's direct forward of a batch it ran), the poison
+   dead-lettered, no failed or timed-out tree, no engine built or warmed
+   again (the live engines and the graphs unchanged, no eager launch),
+   every grown task on the one engine and executing, nothing emitted while
+   deactivated, every task alive; then one burst of 256 records (the 80
+   distinct ones cycled) at inference parallelism 2, 4, 8, 8, 4, 2 in turn,
+   each answered once: records/s, e2e p50, the decodes' share of the wall
+   and the card's idle share under the profiler printed; (b) the same path
+   with one inference task crashed by the runtime chaos monkey mid-stream
+   and a JSON-lines and a callback metrics consumer attached:
+   ``executor_restarts`` 1 and one ``executor_restart`` event, every record
+   answered at least once (duplicates printed), no engine rebuilt, both
+   consumers' snapshots (the last at kill) with ``execute_rate`` and
+   ``ack_rate`` above 0; (c) soak_harness.py's audited topology with the
+   ViT-B/16 bolt: a ``txn`` spout in chunks of 16 -> 4 inference tasks and
+   an echo bolt -> one transactional sink committing the spout's offsets.
+   Without faults, (a)'s burst through it and through its at-least-once
+   twin (the ``earliest`` policy, the async sink) in turns, each audited:
+   the cost of exactly-once in records/s and the predictions' e2e p50,
+   beside (a)'s windows at parallelism 4. Then with one inference task
+   crashed and one commit failed mid-stream: every record's echo hash
+   committed exactly once, the predictions exactly the good records, each a
+   row of a forward the engine ran, the offsets at the log ends,
+   ``txn_aborts`` and ``txn_commits`` at least 1, one restart; every turn's
+   launch tally its forwards x (73, 12, 12);
+14. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -1582,17 +1613,20 @@ def ring_integrity(eng) -> dict:
     return {"batches": len(batches), "wall_s": wall, "staging": stats}
 
 
-def device_busy(torch, fn) -> dict:
-    """``fn()`` under ``torch.profiler``: the wall time, and the share of
-    it the card was busy (the union of every device activity's interval:
-    kernels, copies, sets) and busy with kernels alone. Device activity
-    only: recording every host op too would slow the host it measures."""
+@contextlib.contextmanager
+def card_busy(torch):
+    """The block under ``torch.profiler``; the dict it yields gets, on
+    exit, the block's wall time and the share of it the card was busy (the
+    union of every device activity's interval: kernels, copies, sets) and
+    busy with kernels alone. Device activity only: recording every host op
+    too would slow the host it measures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    res: dict = {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        yield res
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -1608,8 +1642,15 @@ def device_busy(torch, fn) -> dict:
            if ev.device_type == DeviceType.CUDA]
     busy = union([(s, e) for s, e, _ in dev])
     kern = union([(s, e) for s, e, n in dev if "Memcpy" not in n and "Memset" not in n])
-    return {"wall_ms": wall_us / 1e3, "busy_share": busy / wall_us,
-            "idle_share": 1 - busy / wall_us, "kernel_share": kern / wall_us}
+    res.update({"wall_ms": wall_us / 1e3, "busy_share": busy / wall_us,
+                "idle_share": 1 - busy / wall_us, "kernel_share": kern / wall_us})
+
+
+def device_busy(torch, fn) -> dict:
+    """``fn()`` under ``card_busy``."""
+    with card_busy(torch) as res:
+        fn()
+    return res
 
 
 def burst(eng, xs) -> dict:
@@ -3528,7 +3569,7 @@ def degrade_turn(torch, card: str) -> dict:
 
 def obs_payloads() -> list:
     rng = np.random.RandomState(31)
-    payloads = [json.dumps({"instances": np.round(rng.rand(1, 224, 224, 3), 3).tolist()})
+    payloads = [json.dumps({"instances": np.round(rng.rand(1, *LIFE_SHAPE), 3).tolist()})
                 for _ in range(OBS_RECORDS)]
     payloads.insert(OBS_RECORDS // 2, '{"instances": [[1.0, 2.0], [3.0]]}')
     return payloads
@@ -3742,6 +3783,634 @@ def cascade_and_observatory(torch, card: str, served: dict) -> dict:
     return out
 
 
+# ---- phase 13: the Storm runtime's core and exactly-once delivery ---------------------
+
+LIFE_SHAPE = (224, 224, 3)  # a record's instance, ViT-B/16's input
+LIFE_ROUND = 16  # records a gated round in 13 (a)
+LIFE_RECORDS = 5 * LIFE_ROUND  # distinct JSON records, shared by (a), (b) and (c)
+LIFE_BURST = 256  # records a measured window: the distinct records cycled
+LIFE_PARALLELISMS = (2, 4, 8, 8, 4, 2)  # 13 (a)'s measured windows, in turn
+EOS_GROUP, EOS_CHUNK, EOS_PARTITIONS = "chip-smoke-eos", 16, 2
+POISON = '{"instances": [[1.0, 2.0], [3.0]]}'
+
+
+def life_payloads() -> tuple:
+    """LIFE_RECORDS seeded 224x224x3 JSON records and each one's input as
+    the bolt decodes it (the port's native codec), by its bytes."""
+    from storm_tpu_torch.api.schema import decode_instances
+
+    rng = np.random.RandomState(13)
+    payloads = [json.dumps({"instances": np.round(rng.rand(1, *LIFE_SHAPE), 3).tolist()})
+                for _ in range(LIFE_RECORDS)]
+    keys = [decode_instances(p).data[0].tobytes() for p in payloads]
+    return payloads, keys
+
+
+def life_burst(payloads: list) -> tuple:
+    """The measured windows' burst: LIFE_BURST records, ``payloads``
+    cycled, and how many times each of ``payloads`` is in it."""
+    burst = [payloads[i % len(payloads)] for i in range(LIFE_BURST)]
+    return burst, [len(range(i, LIFE_BURST, len(payloads))) for i in range(len(payloads))]
+
+
+def life_config(timeout_s: float = 30.0):
+    """Phase 5's main path as a Config: ViT-B/16 bf16 int8_fused, 2/4/2."""
+    from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig
+
+    cfg = Config()
+    cfg.model = vit_b16_config()
+    cfg.batch = BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0)
+    cfg.offsets = OffsetsConfig(policy="earliest", max_behind=None)
+    cfg.topology.message_timeout_s = timeout_s
+    return cfg
+
+
+def output_index(engine, batches: list) -> dict:
+    """Each output the engine's direct forward of ``batches`` would give
+    (the native encoding of a row), with the inputs of the rows giving it."""
+    from storm_tpu_torch.native import format_predictions
+
+    by_output: dict = {}
+    for batch in batches:
+        for x, row in zip(batch, engine.predict(batch)):
+            by_output.setdefault(format_predictions(row[None]), set()).add(x.tobytes())
+    return by_output
+
+
+def answers(index: dict, outs: list, keys: list, label: str) -> list:
+    """Each output record's input: every output must be in ``index`` (a
+    row of a forward the engine ran); returns how many times each of
+    ``keys`` was answered."""
+    position = {k: i for i, k in enumerate(keys)}
+    counts = [0] * len(keys)
+    for rec in outs:
+        v = rec.value.decode() if isinstance(rec.value, bytes) else rec.value
+        found = index.get(v)
+        if not found:
+            raise AssertionError(f"{label}: an output is not a row of a forward the engine ran")
+        for k in found:
+            if k in position:
+                counts[position[k]] += 1
+    return counts
+
+
+def engine_state(engine) -> dict:
+    """What a rebuild or a second warm-up would change: the live engines,
+    the engine's graphs (by identity) and its built buckets."""
+    from storm_tpu_torch.infer.engine import live_engines
+
+    return {"engines": sorted(id(e) for e in live_engines()),
+            "graphs": {b: id(g) for b, g in engine._buckets.items()}}
+
+
+def recording(engine, batches: list):
+    """Wrap ``engine.dispatch`` to keep a copy of every batch it is given."""
+    dispatch = engine.dispatch
+
+    def record(parts):
+        batches.append(np.concatenate([np.array(p, copy=True) for p in parts]))
+        return dispatch(parts)
+
+    engine.dispatch = record
+
+
+async def out_count(broker, n: int, label: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while broker.topic_size("output") + broker.topic_size("dead-letter") < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{label}: {broker.topic_size('output')} outputs of {n} "
+                               f"in {timeout_s} s")
+        await asyncio.sleep(0.005)
+
+
+async def measured_window(torch, rt, broker, records: list, done, e2e, label: str) -> dict:
+    """One burst under the profiler: ``records`` appended at once to
+    "input", timed until ``done()`` holds. Records/s, the p50 of the sink
+    histogram ``e2e`` over the burst, the share of the wall the inference
+    bolt's decodes held the one event loop, and the card's idle share."""
+    decode = rt.metrics.histogram("inference-bolt", "decode_ms")
+    e2e.reset()
+    decode.reset()
+    with card_busy(torch) as card:
+        t0 = time.perf_counter()
+        for p in records:
+            broker.produce("input", p)
+        deadline = time.monotonic() + 120
+        while not done():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{label}: a burst of {len(records)} records not done "
+                                   f"in 120 s")
+            await asyncio.sleep(0.002)
+        wall = time.perf_counter() - t0
+    return {"records": len(records), "wall_s": wall, "records_per_s": len(records) / wall,
+            "e2e_p50_ms": e2e.percentile(50),
+            "decode_share": decode.snapshot()["sum"] / (wall * 1e3),
+            "idle_share": card["idle_share"]}
+
+
+async def rebalance_turn(torch, payloads: list) -> dict:
+    """13 (a): phase 5's main path through ``build_standard_topology`` at
+    2/4/2. The gated part: records in rounds, one at inference parallelism
+    4, one with the rebalance 4 -> 8 under way, one at 8, then 8 -> 2 and
+    one at 2; then the spouts deactivated while a round waits in the
+    topic, and activated. Then the measured windows: the same burst at
+    each of LIFE_PARALLELISMS in turn, rebalanced between windows."""
+    from storm_tpu_torch.connectors import MemoryBroker
+    from storm_tpu_torch.main import build_standard_topology
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+
+    cfg = life_config()
+    broker = MemoryBroker(default_partitions=2)
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-phase13a", cfg,
+                              build_standard_topology(cfg, broker, device="cuda"))
+    infer = rt.bolt_execs["inference-bolt"]
+    engine = infer[0].bolt.engine
+    before = engine_state(engine)
+    batches: list = []
+    recording(engine, batches)
+    _build.reset_launch_counts()
+    tally0, forwards0 = engine.launch_tally(), engine.forwards
+    e2e = rt.metrics.histogram("kafka-bolt", "e2e_latency_ms")
+    spout_emitted = [rt.metrics.counter("kafka-spout", "emitted")]
+    rounds, out = [], {"sent": 0}
+
+    async def round_(recs: list, label: str, during=None) -> None:
+        e2e.reset()
+        t0 = time.perf_counter()
+        for p in recs:
+            broker.produce("input", p)
+        if during is not None:
+            await during()
+        out["sent"] += len(recs)
+        await out_count(broker, out["sent"], f"13 (a) {label}")
+        rounds.append({"round": label, "parallelism": rt.parallelism_of("inference-bolt"),
+                       "records": len(recs), "records_per_s": len(recs) / (time.perf_counter() - t0),
+                       "e2e_p50_ms": e2e.percentile(50)})
+
+    grown = {}
+
+    async def grow() -> None:
+        await rt.rebalance("inference-bolt", 8)
+        execs = rt.bolt_execs["inference-bolt"]
+        grown["shared"] = [e.bolt.engine is engine for e in execs]
+        grown["executed"] = [e.n_executed for e in execs]
+
+    chunks = [payloads[i * LIFE_ROUND:(i + 1) * LIFE_ROUND] for i in range(5)]
+    chunks[0] = chunks[0][:LIFE_ROUND // 2] + [POISON] + chunks[0][LIFE_ROUND // 2:]
+    await round_(chunks[0], "at 4")
+    await round_(chunks[1], "4 -> 8", during=grow)
+    await round_(chunks[2], "at 8")
+    executed8 = [e.n_executed for e in rt.bolt_execs["inference-bolt"]]
+    await rt.rebalance("inference-bolt", 2)
+    await round_(chunks[3], "at 2")
+    await rt.deactivate()
+    emitted, sizes = spout_emitted[0].value, broker.topic_size("output")
+    for p in chunks[4]:
+        broker.produce("input", p)
+    await asyncio.sleep(0.5)
+    paused = (spout_emitted[0].value - emitted, broker.topic_size("output") - sizes)
+    await rt.activate()
+    out["sent"] += len(chunks[4])
+    await out_count(broker, out["sent"], "13 (a) after activate")
+    gated_outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+    snap, flight = rt.metrics.snapshot(), rt.flight.tail(10_000)
+
+    burst, _ = life_burst(payloads)
+    windows = []
+    for n in LIFE_PARALLELISMS:
+        if rt.parallelism_of("inference-bolt") != n:
+            await rt.rebalance("inference-bolt", n)
+        target = broker.topic_size("output") + len(burst)
+        w = await measured_window(torch, rt, broker, burst,
+                                  lambda t=target: broker.topic_size("output") >= t, e2e,
+                                  f"13 (a) window at {n}")
+        windows.append({"parallelism": n, **w})
+    await rt.drain(timeout_s=60)
+    del engine.dispatch
+    seen = {(r.partition, r.offset) for r in gated_outs}
+    res = {"rounds": rounds, "windows": windows, "grown": grown, "executed8": executed8,
+           "paused": paused, "health": rt.health(), "snap": snap,
+           "errors": list(rt.errors), "flight": flight, "outs": gated_outs, "dlq": dlq,
+           "window_outs": [r for r in broker.drain_topic("output")
+                           if (r.partition, r.offset) not in seen],
+           "window_dlq": broker.topic_size("dead-letter") - len(dlq),
+           "window_failed": rt.metrics.snapshot()["kafka-spout"].get("tree_failed", 0),
+           "window_timeouts": sum(ev["kind"] == "tree_timeout"
+                                  for ev in rt.flight.tail(10_000)),
+           "batches": batches, "engine": engine, "before": before,
+           "after": engine_state(engine), "tally0": tally0, "forwards0": forwards0,
+           "wrapper_counts": _build.launch_counts()}
+    await cluster.shutdown()
+    return res
+
+
+async def supervision_turn(payloads: list, tmp: str) -> dict:
+    """13 (b): the same path, records in two halves, one inference task
+    crashed by the chaos monkey between them; a JSON-lines and a callback
+    metrics consumer attached."""
+    from storm_tpu_torch.connectors import MemoryBroker
+    from storm_tpu_torch.main import build_standard_topology
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+    from storm_tpu_torch.runtime.chaos import ChaosMonkey
+    from storm_tpu_torch.runtime.metrics import CallbackConsumer, JsonLinesConsumer
+
+    cfg = life_config(timeout_s=3.0)
+    broker = MemoryBroker(default_partitions=2)
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-phase13b", cfg,
+                              build_standard_topology(cfg, broker, device="cuda"))
+    engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+    before = engine_state(engine)
+    snaps: list = []
+    path = os.path.join(tmp, "phase13b-metrics.jsonl")
+    rt.add_metrics_consumer(JsonLinesConsumer(path), interval_s=0.25)
+    rt.add_metrics_consumer(CallbackConsumer(lambda topo, ts, snap: snaps.append(snap)),
+                            interval_s=0.25)
+    batches: list = []
+    recording(engine, batches)
+    _build.reset_launch_counts()
+    tally0, forwards0 = engine.launch_tally(), engine.forwards
+    half = len(payloads) // 2
+    t0 = time.perf_counter()
+    for p in payloads[:half]:
+        broker.produce("input", p)
+    await out_count(broker, half // 2, "13 (b) first half")
+    ChaosMonkey(rt, seed=13).crash_bolt("inference-bolt", 1)
+    for p in payloads[half:]:
+        broker.produce("input", p)
+    answered = set()
+    deadline = time.monotonic() + 120
+    while len(answered) < len(payloads) or \
+            not rt.metrics.counter("inference-bolt", "executor_restarts").value:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"13 (b): {len(answered)} of {len(payloads)} answered")
+        answered = {r.value for r in broker.drain_topic("output")}
+        await asyncio.sleep(0.05)
+    wall = time.perf_counter() - t0
+    await rt.drain(timeout_s=60)
+    del engine.dispatch
+    res = {"snap": rt.metrics.snapshot(), "errors": list(rt.errors),
+           "flight": rt.flight.tail(10_000), "outs": broker.drain_topic("output"),
+           "health": rt.health(), "batches": batches, "before": before,
+           "tally0": tally0, "forwards0": forwards0, "wall": wall}
+    await cluster.shutdown()  # the consumers' last snapshot
+    res.update({"after": engine_state(engine), "wrapper_counts": _build.launch_counts(),
+                "consumer_snaps": snaps, "jsonl": read_jsonl(path), "engine": engine})
+    return res
+
+
+async def exactly_once_turn(torch, records: list, eos: bool = True,
+                            faults: bool = False) -> dict:
+    """13 (c): soak_harness.py's audited topology with the ViT-B/16 bolt:
+    a spout in chunks of 16 -> 4 inference tasks and an echo bolt (sha256
+    of each record) -> one sink, the dead-letter sink beside it. With
+    ``eos``, the spout's ``txn`` policy and the transactional sink
+    committing the spout's offsets; without, its at-least-once twin (the
+    ``earliest`` policy and the async sink). With ``faults``, one
+    inference task crashed by the chaos monkey and one commit failed, both
+    mid-stream; without, ``records`` are a measured window. The sink times
+    its predictions alone in ``e2e_latency_ms_predictions``."""
+    import hashlib
+
+    from storm_tpu_torch.config import OffsetsConfig, SinkConfig
+    from storm_tpu_torch.connectors import (BrokerSink, BrokerSpout, MemoryBroker,
+                                            MemoryTxn, TransactionalBrokerSink)
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.runtime import AsyncLocalCluster, Bolt, TopologyBuilder, Values
+    from storm_tpu_torch.runtime.chaos import ChaosMonkey
+
+    class EchoBolt(Bolt):
+        """The identity lane: each record's content hash, anchored to its
+        prediction's tree, so the sink commits both or neither."""
+
+        async def execute(self, t):
+            m = t.get("message")
+            for rec in (m if isinstance(m, list) else [m]):
+                h = hashlib.sha256(rec.encode()).hexdigest()[:24]
+                await self.collector.emit(Values([f"h:{h}"]), anchors=[t])
+            self.collector.ack(t)
+
+    def timed(base):
+        class Timed(base):
+            """``base`` timing its predictions apart: its
+            ``e2e_latency_ms`` pools them with the echoes."""
+
+            def prepare(self, context, collector):
+                super().prepare(context, collector)
+                self._m_pred = context.metrics.histogram(context.component_id,
+                                                         "e2e_latency_ms_predictions")
+
+            def _ack_delivered(self, t, t0=None):
+                m = t.get("message")
+                if t.root_ts and not (isinstance(m, str) and m.startswith("h:")):
+                    self._m_pred.observe((time.perf_counter() - t.root_ts) * 1e3)
+                super()._ack_delivered(t, t0)
+
+        return Timed
+
+    cfg = life_config(timeout_s=3.0 if faults else 30.0)
+    broker = MemoryBroker(default_partitions=EOS_PARTITIONS)
+    tb = TopologyBuilder()
+    policy = "txn" if eos else "earliest"
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy=policy, group_id=EOS_GROUP, max_behind=None),
+        chunk=EOS_CHUNK), parallelism=1)
+    tb.set_bolt("inference-bolt", InferenceBolt(cfg.model, cfg.batch, device="cuda"),
+                parallelism=4).shuffle_grouping("kafka-spout")
+    tb.set_bolt("echo", EchoBolt(), parallelism=1).shuffle_grouping("kafka-spout")
+    sink = (timed(TransactionalBrokerSink)(broker, "output", SinkConfig(
+        mode="transactional", txn_batch=64, txn_ms=100.0, offsets_group=EOS_GROUP))
+            if eos else timed(BrokerSink)(broker, "output", cfg.sink))
+    tb.set_bolt("kafka-bolt", sink, parallelism=1) \
+        .shuffle_grouping("inference-bolt").shuffle_grouping("echo")
+    tb.set_bolt("dlq-bolt", BrokerSink(broker, "dead-letter", cfg.sink)) \
+        .shuffle_grouping("inference-bolt", stream="dead_letter")
+    commit = MemoryTxn.commit
+    commits = {"n": 0, "failed": 0}
+
+    def flaky_commit(txn):
+        commits["n"] += 1
+        if faults and commits["n"] == 2:  # the second transaction aborts
+            commits["failed"] += 1
+            raise RuntimeError("chip smoke: injected commit failure")
+        commit(txn)
+
+    def committed() -> dict:
+        return {p: broker.committed(EOS_GROUP, "input", p) for p in range(EOS_PARTITIONS)}
+
+    def ends() -> dict:
+        return {p: broker.latest_offset("input", p) for p in range(EOS_PARTITIONS)}
+
+    cluster = AsyncLocalCluster()
+    name = f"chip-smoke-phase13c-{'eos' if eos else 'plain'}{'-faults' if faults else ''}"
+    with mock.patch.object(MemoryTxn, "commit", flaky_commit):
+        rt = await cluster.submit(name, cfg, tb.build())
+        engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+        before = engine_state(engine)
+        batches: list = []
+        recording(engine, batches)
+        _build.reset_launch_counts()
+        tally0, forwards0 = engine.launch_tally(), engine.forwards
+        crashed, window = None, None
+        if faults:
+            t0 = time.perf_counter()
+            for p in records:
+                broker.produce("input", p)
+            # The crash, once the first transaction committed: the task the
+            # spout's shuffle sends its next entry to.
+            deadline = time.monotonic() + 180
+            while committed() != ends():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"13 (c): committed {committed()} of {ends()}")
+                if crashed is None and commits["n"] > commits["failed"]:
+                    grouping = next(g for g, group in rt.router.subscriptions("kafka-spout",
+                                                                              "default")
+                                    if group.component_id == "inference-bolt")
+                    crashed = (grouping._i + 1) % grouping.n
+                    ChaosMonkey(rt, seed=13).crash_bolt("inference-bolt", crashed)
+                await asyncio.sleep(0.001)
+            wall = time.perf_counter() - t0
+        else:
+            n_out = 2 * len(records)  # a prediction and an echo a record
+            window = await measured_window(
+                torch, rt, broker, records,
+                lambda: broker.topic_size("output") >= n_out and
+                (not eos or committed() == ends()),
+                rt.metrics.histogram("kafka-bolt", "e2e_latency_ms_predictions"), name)
+            wall = window["wall_s"]
+        await rt.drain(timeout_s=60)
+        del engine.dispatch
+        res = {"snap": rt.metrics.snapshot(), "errors": list(rt.errors),
+               "flight": rt.flight.tail(10_000), "outs": broker.drain_topic("output"),
+               "dlq": broker.drain_topic("dead-letter"), "batches": batches,
+               "committed": committed(), "ends": ends(), "before": before,
+               "after": engine_state(engine), "tally0": tally0, "forwards0": forwards0,
+               "wrapper_counts": _build.launch_counts(), "wall": wall, "window": window,
+               "crashed": crashed, "commits": dict(commits), "engine": engine}
+        await cluster.shutdown()
+    return res
+
+
+def check_no_rebuild(r: dict, label: str) -> None:
+    if r["after"] != r["before"]:
+        raise AssertionError(f"{label}: the engines or graphs changed: {r['before']} -> "
+                             f"{r['after']}")
+
+
+def log_window(label: str, w: dict, card: str) -> None:
+    log(f"  {label} on {card}: {w['records']} records in {w['wall_s']:.3f} s, "
+        f"{w['records_per_s']:.3f} records/s, e2e p50 {w['e2e_p50_ms']:.3f} ms, decodes "
+        f"{100 * w['decode_share']:.1f} % of the wall, card idle {100 * w['idle_share']:.1f} %")
+
+
+def runtime_and_exactly_once(torch, card: str) -> dict:
+    """Phase 13 (see the module docstring), each turn's launch counts
+    zeroed just before its traffic and read just after."""
+    import hashlib
+    import tempfile
+    from collections import Counter
+
+    from storm_tpu_torch.infer.engine import clear_engines
+
+    t_phase = time.perf_counter()
+    payloads, keys = life_payloads()
+    burst, per_burst = life_burst(payloads)
+    clear_engines()
+    out = {}
+
+    # (a) rebalance under traffic, then the measured windows
+    label = "13 (a) rebalance"
+    a = asyncio.run(rebalance_turn(torch, payloads))
+    engine = a["engine"]
+    check_no_rebuild(a, label)
+    out["a_launches"] = check_tally_delta(engine, a["tally0"], a["forwards0"], VIT_LAUNCHES,
+                                          a["wrapper_counts"], label)
+    index = output_index(engine, a["batches"])
+    counts = answers(index, a["outs"], keys, label)
+    infer, spout = a["snap"]["inference-bolt"], a["snap"]["kafka-spout"]
+    timeouts = [ev for ev in a["flight"] if ev["kind"] == "tree_timeout"]
+    if a["errors"] or counts != [1] * len(keys) or len(a["outs"]) != len(keys) \
+            or len(a["dlq"]) != 1 or spout.get("tree_failed", 0) or timeouts \
+            or infer["dead_lettered"] != 1:
+        raise AssertionError(f"{label}: answers per record {Counter(counts)}, "
+                             f"{len(a['outs'])} outputs, {len(a['dlq'])} dead letters, "
+                             f"{spout.get('tree_failed', 0)} failed trees, {len(timeouts)} "
+                             f"timeouts, errors {a['errors'][:3]}")
+    if a["grown"]["shared"] != [True] * 8:
+        raise AssertionError(f"{label}: the grown tasks' engines {a['grown']['shared']}")
+    idle = [i for i, (n0, n1) in enumerate(zip(a["grown"]["executed"], a["executed8"]))
+            if n1 <= n0]
+    if idle:
+        raise AssertionError(f"{label}: tasks {idle} executed nothing after the grow")
+    if a["paused"] != (0, 0):
+        raise AssertionError(f"{label}: deactivated spouts emitted {a['paused'][0]} tuples "
+                             f"and {a['paused'][1]} records came out")
+    health = a["health"]["components"]
+    if any(v["alive"] != v["tasks"] for v in health.values()) or \
+            health["inference-bolt"]["tasks"] != 2:
+        raise AssertionError(f"{label}: health {health}")
+    windows = a["windows"]
+    counts = answers(index, a["window_outs"], keys, f"{label}, windows")
+    if counts != [len(windows) * c for c in per_burst] or a["window_dlq"] or \
+            a["window_failed"] or a["window_timeouts"]:
+        raise AssertionError(f"{label}, windows: answers per record {Counter(counts)}, "
+                             f"{a['window_dlq']} dead letters, {a['window_failed']} failed "
+                             f"trees, {a['window_timeouts']} timeouts")
+    rounds = a["rounds"]
+    for rd in rounds:
+        log(f"  {label}, gated round {rd['round']:7s} (inference parallelism "
+            f"{rd['parallelism']}) on {card}: {rd['records']} records, "
+            f"{rd['records_per_s']:.3f} records/s, e2e p50 {rd['e2e_p50_ms']:.3f} ms "
+            f"(too few records to rank the parallelisms)")
+    for w in windows:
+        log_window(f"{label}, window at inference parallelism {w['parallelism']}", w, card)
+    log(f"  {label}: {len(keys)} records each answered once + the poison dead-lettered "
+        f"across 4 -> 8 -> 2, none emitted while deactivated; no engine built or warmed "
+        f"again (graphs {sorted(a['after']['graphs'])}), the 8 tasks on one engine, each "
+        f"executing after the grow; {len(windows)} windows of {LIFE_BURST} records, each "
+        f"answered once; launches {out['a_launches']}")
+    out["a"] = {"rounds": rounds, "windows": windows, "health": health,
+                "launches": out["a_launches"]}
+
+    # (b) supervision, with the metrics consumers
+    label = "13 (b) supervision"
+    with tempfile.TemporaryDirectory() as tmp:
+        b = asyncio.run(supervision_turn(payloads[:32], tmp))
+    check_no_rebuild(b, label)
+    if b["engine"] is not engine:
+        raise AssertionError(f"{label}: served by another engine than (a)'s")
+    out["b_launches"] = check_tally_delta(engine, b["tally0"], b["forwards0"], VIT_LAUNCHES,
+                                          b["wrapper_counts"], label)
+    counts = answers(output_index(engine, b["batches"]), b["outs"], keys[:32], label)
+    restarts = b["snap"]["inference-bolt"].get("executor_restarts", 0)
+    events = [ev for ev in b["flight"] if ev["kind"] == "executor_restart"]
+    if b["errors"] or min(counts) < 1 or restarts != 1 or len(events) != 1 or \
+            events[0]["component"] != "inference-bolt":
+        raise AssertionError(f"{label}: answers {Counter(counts)}, restarts {restarts}, "
+                             f"events {events}, errors {b['errors'][:3]}")
+    snaps, lines = b["consumer_snaps"], b["jsonl"]
+    rated = [s for s in snaps if s.get("inference-bolt", {}).get("execute_rate", 0) > 0
+             and s.get("kafka-spout", {}).get("ack_rate", 0) > 0]
+    final = snaps[-1] if snaps else {}
+    # the two pumps tick apart: one may have fired once more at the kill
+    if len(snaps) < 2 or abs(len(lines) - len(snaps)) > 1 or not rated or \
+            final.get("inference-bolt", {}).get("executor_restarts") != 1 or \
+            lines[-1]["metrics"]["kafka-bolt"]["delivered"] != final["kafka-bolt"]["delivered"]:
+        raise AssertionError(f"{label}: consumers got {len(snaps)} / {len(lines)} snapshots, "
+                             f"{len(rated)} with execute_rate and ack_rate above 0")
+    if any(v["alive"] != v["tasks"] for v in b["health"]["components"].values()):
+        raise AssertionError(f"{label}: health {b['health']}")
+    dupes = sum(c - 1 for c in counts)
+    log(f"  {label} on {card}: one task crashed by the chaos monkey, executor_restarts 1, "
+        f"one executor_restart event ({events[0]['error']}); every record answered, "
+        f"{dupes} duplicates; {len(b['outs'])} outputs in {b['wall']:.3f} s; no engine "
+        f"rebuilt; consumers: {len(snaps)} snapshots each (the last at kill), "
+        f"{len(rated)} with execute_rate and ack_rate above 0; launches {out['b_launches']}")
+    out["b"] = {"duplicates": dupes, "snapshots": len(snaps), "rated": len(rated),
+                "launches": out["b_launches"], "wall_s": b["wall"]}
+
+    # (c) exactly-once on the main path: (a)'s burst through the
+    # transactional topology and its at-least-once twin in turns (measured
+    # and audited, no fault), then the transactional one with both faults
+    want = Counter(hashlib.sha256(p.encode()).hexdigest()[:24] for p in burst)
+    twins = []
+    for eos in (True, False, False, True):
+        label = f"13 (c) {'exactly-once' if eos else 'at-least-once twin'}, no fault"
+        c = asyncio.run(exactly_once_turn(torch, burst, eos=eos))
+        check_no_rebuild(c, label)
+        if c["engine"] is not engine:
+            raise AssertionError(f"{label}: served by another engine than (a)'s")
+        launches = check_tally_delta(engine, c["tally0"], c["forwards0"], VIT_LAUNCHES,
+                                     c["wrapper_counts"], label)
+        echoes = Counter(r.value.decode()[2:] for r in c["outs"] if r.value.startswith(b"h:"))
+        preds = [r for r in c["outs"] if not r.value.startswith(b"h:")]
+        counts = answers(output_index(engine, c["batches"]), preds, keys, label)
+        sink, spout = c["snap"]["kafka-bolt"], c["snap"]["kafka-spout"]
+        if echoes != want or counts != per_burst or len(preds) != len(burst) or \
+                c["errors"] or c["dlq"] or spout.get("tree_failed", 0) or \
+                (eos and (c["committed"] != c["ends"] or sink.get("txn_aborts", 0))):
+            raise AssertionError(f"{label}: {len(c['outs'])} outputs, echoes exact "
+                                 f"{echoes == want}, answers {Counter(counts)}, committed "
+                                 f"{c['committed']} of {c['ends']}, aborts "
+                                 f"{sink.get('txn_aborts', 0)}, errors {c['errors'][:3]}")
+        twins.append({"exactly_once": eos, **c["window"], "launches": launches,
+                      "txn_commits": sink.get("txn_commits", 0)})
+        log_window(label, c["window"], card)
+    out["c0_launches"] = twins[0]["launches"]
+    out["c_plain_launches"] = twins[1]["launches"]
+
+    label = "13 (c) exactly-once, faults"
+    records = payloads[:32] + [POISON] + payloads[32:64]
+    c = asyncio.run(exactly_once_turn(torch, records, faults=True))
+    check_no_rebuild(c, label)
+    if c["engine"] is not engine:
+        raise AssertionError(f"{label}: served by another engine than (a)'s")
+    out["c_launches"] = check_tally_delta(engine, c["tally0"], c["forwards0"], VIT_LAUNCHES,
+                                          c["wrapper_counts"], label)
+    values = [r.value.decode() for r in c["outs"]]
+    echoes = Counter(v[2:] for v in values if v.startswith("h:"))
+    want = Counter(hashlib.sha256(p.encode()).hexdigest()[:24] for p in records)
+    missing, duplicated = sum((want - echoes).values()), sum((echoes - want).values())
+    preds = [r for r in c["outs"] if not r.value.startswith(b"h:")]
+    counts = answers(output_index(engine, c["batches"]), preds, keys[:64], label)
+    sink = c["snap"]["kafka-bolt"]
+    restarts = c["snap"]["inference-bolt"].get("executor_restarts", 0)
+    if c["errors"] and any(not str(e).startswith("chip smoke: injected")
+                           for _, _, e in c["errors"]):
+        raise AssertionError(f"{label}: errors {c['errors'][:3]}")
+    if missing or duplicated or counts != [1] * 64 or len(preds) != 64 or \
+            c["committed"] != c["ends"] or sink["txn_aborts"] < 1 or \
+            sink["txn_commits"] < 1 or restarts != 1 or c["commits"]["failed"] != 1 or \
+            not c["dlq"]:
+        raise AssertionError(f"{label}: echo_missing {missing}, echo_duplicated "
+                             f"{duplicated}, answers {Counter(counts)}, {len(preds)} "
+                             f"predictions, committed {c['committed']} of {c['ends']}, "
+                             f"aborts {sink['txn_aborts']}, commits {sink['txn_commits']}, "
+                             f"restarts {restarts}, {len(c['dlq'])} dead letters")
+    pred_e2e = c["snap"]["kafka-bolt"]["e2e_latency_ms_predictions"]
+    res_c = {"records_per_s": 64 / c["wall"], "e2e_p50_ms": pred_e2e["p50"],
+             "txn_commits": sink["txn_commits"], "txn_aborts": sink["txn_aborts"],
+             "deferred": sink.get("txn_offsets_deferred", 0), "crashed_task": c["crashed"],
+             "launches": out["c_launches"]}
+    log(f"  {label}: 65 echo hashes each committed once (echo_missing 0, echo_duplicated 0), "
+        f"64 predictions each a row of a forward the engine ran, the poison dead-lettered "
+        f"({len(c['dlq'])} dead letters: that sink is at-least-once), "
+        f"committed offsets {c['committed']} = the log ends, despite task {c['crashed']}'s "
+        f"crash (executor_restarts 1) and one failed commit (txn_aborts "
+        f"{sink['txn_aborts']}, txn_commits {sink['txn_commits']}, "
+        f"{res_c['deferred']} deferrals); {res_c['records_per_s']:.3f} records/s, "
+        f"predictions' e2e p50 {pred_e2e['p50']:.3f} ms with the faults (one tree waits "
+        f"out the 3 s message timeout); launches {out['c_launches']}")
+
+    def med(rows: list, key: str) -> float:
+        return float(np.median([r[key] for r in rows]))
+
+    at4 = [w for w in windows if w["parallelism"] == 4]
+    cost = {kind: {k: med(rows, k) for k in ("records_per_s", "e2e_p50_ms", "decode_share",
+                                               "idle_share")}
+            for kind, rows in (("a_at_4", at4),
+                               ("exactly_once", [t for t in twins if t["exactly_once"]]),
+                               ("at_least_once", [t for t in twins if not t["exactly_once"]]))}
+    log(f"  13 (c) the cost of exactly-once on {card}, medians of two windows of the same "
+        f"{LIFE_BURST} records each: exactly-once {cost['exactly_once']['records_per_s']:.3f} "
+        f"records/s, predictions' e2e p50 {cost['exactly_once']['e2e_p50_ms']:.3f} ms; its "
+        f"at-least-once twin {cost['at_least_once']['records_per_s']:.3f} records/s, "
+        f"{cost['at_least_once']['e2e_p50_ms']:.3f} ms; (a) at inference parallelism 4 "
+        f"(chunks of 1, no echo bolt) {cost['a_at_4']['records_per_s']:.3f} records/s, "
+        f"{cost['a_at_4']['e2e_p50_ms']:.3f} ms")
+    out["c"] = res_c
+    out["c_twins"] = twins
+    out["cost_of_exactly_once"] = cost
+    clear_engines()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -3837,6 +4506,11 @@ def run() -> int:
     phase12 = cascade_and_observatory(torch, card, served)
     log(json.dumps({"cascade_and_observatory": phase12, "card": card}, default=float))
 
+    log("[13] the Storm runtime's core and exactly-once delivery, ViT-B/16 bf16 int8_fused: "
+        "rebalance under traffic, supervision, the transactional sink")
+    phase13 = runtime_and_exactly_once(torch, card)
+    log(json.dumps({"runtime_and_exactly_once": phase13, "card": card}, default=float))
+
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
@@ -3877,7 +4551,14 @@ def run() -> int:
             "digits cascade float32 (phase 12a)": phase12["a"]["launches"][name],
             "digits cascade int8_fused (phase 12b)": phase12["b"]["launches"][name],
             "degrade cascade int8_fused (phase 12c)": phase12["c"]["launches"][name],
-            "vit_b16 int8_fused observed (phase 12d)": phase12["d"]["launches"][name]})
+            "vit_b16 int8_fused observed (phase 12d)": phase12["d"]["launches"][name],
+            "vit_b16 int8_fused rebalance 4 -> 8 -> 2 (phase 13a)": phase13["a_launches"][name],
+            "vit_b16 int8_fused supervision (phase 13b)": phase13["b_launches"][name],
+            "vit_b16 int8_fused exactly-once, no fault (phase 13c)":
+                phase13["c0_launches"][name],
+            "vit_b16 int8_fused at-least-once twin, no fault (phase 13c)":
+                phase13["c_plain_launches"][name],
+            "vit_b16 int8_fused exactly-once, faults (phase 13c)": phase13["c_launches"][name]})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

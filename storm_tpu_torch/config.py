@@ -145,26 +145,49 @@ class OffsetsConfig:
     """Stream-position policy for the ingest spout. 'latest' with
     ``max_behind=0`` is the freshness-over-completeness default (start at
     the log end, drop backlog); 'resume' commits offsets on ack and
-    resumes; 'earliest' replays the log."""
+    resumes; 'earliest' replays the log; 'txn' resolves positions from
+    the committed offsets like 'resume' but never commits on ack: the
+    transactional sink commits the consumed offsets inside its producer
+    transaction (exactly-once), and the spout delivers one entry per
+    partition at a time. The group protocol (``group_protocol``) waits for
+    the Kafka wire broker and is not a field here."""
 
-    policy: str = "latest"  # 'latest' | 'earliest' | 'resume'
+    policy: str = "latest"  # 'latest' | 'earliest' | 'resume' | 'txn'
     max_behind: Optional[int] = 0  # drop records more than N behind; None = unbounded
     group_id: Optional[str] = None  # None = fresh random group per run
 
     def __post_init__(self) -> None:
-        if self.policy not in ("latest", "earliest", "resume"):
+        if self.policy not in ("latest", "earliest", "resume", "txn"):
             raise ValueError(f"unknown offsets policy {self.policy!r}")
+        if self.policy == "txn" and not self.group_id:
+            raise ValueError(
+                "offsets.policy='txn' requires an explicit group_id — the "
+                "transactional sink commits offsets to it, and a restart "
+                "must resume from the SAME group to be exactly-once")
+        if self.policy == "txn" and self.max_behind is not None:
+            raise ValueError(
+                "offsets.policy='txn' requires max_behind=None — dropping "
+                "stale records under a freshness clamp contradicts the "
+                "exactly-once contract (set it explicitly)")
 
 
 @dataclass
 class SinkConfig:
-    """Producer-side delivery policy: async-with-callback, sync, or
-    fire-and-forget."""
+    """Producer-side delivery policy: async-with-callback, sync,
+    fire-and-forget, or transactional (exactly-once egress: tuples buffer
+    into one broker transaction per micro-batch of ``txn_batch`` tuples or
+    ``txn_ms`` milliseconds, and ack only after its commit)."""
 
-    mode: str = "async"  # 'async' | 'sync' | 'fire_and_forget'
+    mode: str = "async"  # 'async' | 'sync' | 'fire_and_forget' | 'transactional'
+    txn_batch: int = 64
+    txn_ms: float = 100.0
+    # The consumer group to commit the consumed offsets to inside the
+    # producer transaction: the spout's offsets.group_id, with
+    # offsets.policy='txn'. None = egress-only transactions.
+    offsets_group: Optional[str] = None
 
     def __post_init__(self) -> None:
-        if self.mode not in ("async", "sync", "fire_and_forget"):
+        if self.mode not in ("async", "sync", "fire_and_forget", "transactional"):
             raise ValueError(f"unknown sink mode {self.mode!r}")
 
 
@@ -174,6 +197,9 @@ class TopologyConfig:
     frames, and runtime policies. The spout refuses an unknown scheme,
     and frames without ``scheme="raw"``, as storm_tpu's does."""
 
+    # The topology's name; the transactional sink's stable transactional
+    # id is ``<name>-<component>-<task>``.
+    name: str = "inference-topology"
     spout_parallelism: int = 2
     inference_parallelism: int = 4
     sink_parallelism: int = 2
@@ -194,6 +220,9 @@ class TopologyConfig:
     spout_frames: bool = False
     message_timeout_s: float = 30.0  # at-least-once replay timeout
     inbox_capacity: int = 4096  # bounded executor queues (backpressure)
+    tick_interval_s: float = 0.0  # 0 = no tick tuples
+    checkpoint_interval_s: float = 5.0  # stateful-bolt checkpoint cadence
+    state_dir: str = ""  # durable bolt-state dir; "" = in-memory backend
 
 
 @dataclass

@@ -1,7 +1,10 @@
 """In-process broker with Kafka semantics (topics, partitions, offsets,
-consumer-group commits), copied from ``storm_tpu/connectors/memory.py``
-without transactions. Thread-safe: producers on other threads feed the
-asyncio runtime."""
+consumer-group commits, transactions), copied from
+``storm_tpu/connectors/memory.py``. Thread-safe: producers on other
+threads feed the asyncio runtime. ``txn(id)`` gives a
+:class:`MemoryTxn`, whose commit appends its records and commits its
+staged offsets in one lock hold.
+"""
 
 from __future__ import annotations
 
@@ -32,9 +35,15 @@ class MemoryBroker:
         self.default_partitions = default_partitions
         self._rr: Dict[str, int] = {}
 
-    def _ensure(self, topic: str) -> None:
+    # ---- admin ---------------------------------------------------------------
+
+    def create_topic(self, topic: str, partitions: Optional[int] = None) -> None:
+        with self._lock:
+            self._ensure(topic, partitions)
+
+    def _ensure(self, topic: str, partitions: Optional[int] = None) -> None:
         if topic not in self._partitions:
-            n = self.default_partitions
+            n = partitions or self.default_partitions
             self._partitions[topic] = n
             for p in range(n):
                 self._logs[(topic, p)] = []
@@ -45,34 +54,56 @@ class MemoryBroker:
             self._ensure(topic)
             return self._partitions[topic]
 
-    def produce(self, topic: str, value: bytes | str,
-                key: Optional[bytes | str] = None,
-                partition: Optional[int] = None) -> Tuple[int, int]:
-        """Append a record; returns (partition, offset). Hash of the key
-        picks the partition when present, round-robin otherwise."""
+    # ---- producing -----------------------------------------------------------
+
+    def produce(
+        self,
+        topic: str,
+        value: bytes | str,
+        key: Optional[bytes | str] = None,
+        partition: Optional[int] = None,
+    ) -> Tuple[int, int]:
+        """Append a record; returns (partition, offset).
+
+        Partitioning mirrors Kafka's default: hash of key when present,
+        round-robin otherwise.
+        """
+        with self._lock:
+            return self._produce_locked(topic, value, key, partition)
+
+    def _produce_locked(self, topic, value, key=None, partition=None):
         if isinstance(value, str):
             value = value.encode("utf-8")
         if isinstance(key, str):
             key = key.encode("utf-8")
-        with self._lock:
-            self._ensure(topic)
-            n = self._partitions[topic]
-            if partition is None:
-                if key is not None:
-                    partition = hash(key) % n
-                else:
-                    partition = self._rr[topic] % n
-                    self._rr[topic] += 1
-            log = self._logs[(topic, partition)]
-            rec = Record(topic, partition, len(log), key, value, time.time())
-            log.append(rec)
-            return partition, rec.offset
+        self._ensure(topic)
+        n = self._partitions[topic]
+        if partition is None:
+            if key is not None:
+                partition = hash(key) % n
+            else:
+                partition = self._rr[topic] % n
+                self._rr[topic] += 1
+        log = self._logs[(topic, partition)]
+        rec = Record(topic, partition, len(log), key, value, time.time())
+        log.append(rec)
+        return partition, rec.offset
 
-    def fetch(self, topic: str, partition: int, offset: int,
-              max_records: int = 512) -> List[Record]:
+    def txn(self, txn_id: str) -> "MemoryTxn":
+        """A transaction handle (buffer + atomic commit)."""
+        return MemoryTxn(self, txn_id)
+
+    # ---- fetching ------------------------------------------------------------
+
+    def fetch(
+        self, topic: str, partition: int, offset: int, max_records: int = 512
+    ) -> List[Record]:
         with self._lock:
             self._ensure(topic)
-            return self._logs[(topic, partition)][max(0, offset): max(0, offset) + max_records]
+            log = self._logs[(topic, partition)]
+            if offset < 0:
+                offset = 0
+            return log[offset : offset + max_records]
 
     def earliest_offset(self, topic: str, partition: int) -> int:
         return 0
@@ -83,13 +114,25 @@ class MemoryBroker:
             self._ensure(topic)
             return len(self._logs[(topic, partition)])
 
+    # ---- consumer-group offsets ----------------------------------------------
+
     def commit(self, group: str, topic: str, partition: int, offset: int) -> None:
         with self._lock:
             self._committed[(group, topic, partition)] = offset
 
+    def commit_many(self, group: str, topic: str, offsets: "Dict[int, int]") -> None:
+        """Atomically commit offsets for several partitions (one lock hold).
+        The transactional spout needs all-or-nothing batch commits — a crash
+        between per-partition commits would split a batch's identity."""
+        with self._lock:
+            for partition, offset in offsets.items():
+                self._committed[(group, topic, partition)] = offset
+
     def committed(self, group: str, topic: str, partition: int) -> Optional[int]:
         with self._lock:
             return self._committed.get((group, topic, partition))
+
+    # ---- test/bench conveniences ---------------------------------------------
 
     def drain_topic(self, topic: str) -> List[Record]:
         """Every record ever produced to ``topic``, in append order (does
@@ -104,4 +147,60 @@ class MemoryBroker:
     def topic_size(self, topic: str) -> int:
         with self._lock:
             self._ensure(topic)
-            return sum(len(self._logs[(topic, p)]) for p in range(self._partitions[topic]))
+            return sum(
+                len(self._logs[(topic, p)]) for p in range(self._partitions[topic])
+            )
+
+
+class MemoryTxn:
+    """Transaction handle over :class:`MemoryBroker`: produced records
+    buffer locally and append atomically (under the broker lock) at
+    commit, with the staged consumer-group offsets — so the topic holds
+    what a read-committed consumer sees. Abort drops the buffer."""
+
+    def __init__(self, broker: "MemoryBroker", txn_id: str) -> None:
+        self._broker = broker
+        self.txn_id = txn_id
+        self._pending: List[tuple] = []
+        self._offsets: Dict[str, Dict[Tuple[str, int], int]] = {}
+        self._open = False
+
+    def begin(self) -> None:
+        self._pending.clear()
+        self._offsets.clear()
+        self._open = True
+
+    def produce(self, topic: str, value, key=None, partition=None) -> None:
+        assert self._open, "begin() first"
+        self._pending.append((topic, value, key, partition))
+
+    def send_offsets(self, group: str,
+                     offsets: "Dict[Tuple[str, int], int]") -> None:
+        """Stage consumer-group offsets to commit atomically with the
+        records."""
+        assert self._open, "begin() first"
+        from storm_tpu_torch.runtime.tuples import merge_offsets
+
+        merge_offsets(self._offsets.setdefault(group, {}), offsets.items())
+
+    def commit(self) -> None:
+        assert self._open, "begin() first"
+        from storm_tpu_torch.runtime.tuples import merge_offsets
+
+        self._open = False
+        with self._broker._lock:
+            # all-or-nothing under the broker lock: no fetch interleaves,
+            # and staged offsets land with the records (never without them)
+            for topic, value, key, partition in self._pending:
+                self._broker._produce_locked(topic, value, key, partition)
+            for group, offs in self._offsets.items():
+                merge_offsets(
+                    self._broker._committed,
+                    (((group, t, p), off) for (t, p), off in offs.items()))
+        self._pending.clear()
+        self._offsets.clear()
+
+    def abort(self) -> None:
+        self._open = False
+        self._pending.clear()
+        self._offsets.clear()

@@ -1,10 +1,17 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
 ``storm_tpu/connectors/spout.py`` for the in-process broker, without group
-coordination, seeks and transactional offsets.
+coordination and seeks.
 
 Offsets are policy: 'latest' + ``max_behind=0`` starts at the log end and
 drops backlog; 'resume' commits on ack and resumes; 'earliest' replays
-the log. Each record is emitted with ``msg_id=(partition, offset)``;
+the log; 'txn' starts from the group's committed offsets and never
+commits itself (the transactional sink commits each entry's offsets
+inside its producer transaction), and delivers in order per partition:
+one entry (a record, or a chunk) outstanding per partition, the next
+fetched only once the previous tree has acked, so no later offset can
+commit while an earlier one is in flight. Every emitted entry carries its
+source position as ``origins`` ``(topic, partition, last offset + 1)``.
+Each record is emitted with ``msg_id=(partition, offset)``;
 failed trees are re-emitted from a replay queue before new fetches unless
 the freshness policy says they are too stale. Partitions are assigned to
 spout tasks round-robin by task index.
@@ -39,6 +46,7 @@ str decode, one copy a record), and for a frame its ``batch_route`` row
 from __future__ import annotations
 
 import collections
+import logging
 import time
 import uuid
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -50,6 +58,8 @@ from storm_tpu_torch.runtime.base import OutputCollector, Spout, TopologyContext
 from storm_tpu_torch.runtime.frames import RecordFrame
 from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
 from storm_tpu_torch.runtime.tuples import Values
+
+log = logging.getLogger("storm_tpu_torch.spout")
 
 
 class BrokerSpout(Spout):
@@ -106,6 +116,19 @@ class BrokerSpout(Spout):
         self.replay: Deque[Any] = collections.deque()
         self.dropped = 0
         self._rr = 0
+        # policy='txn': at most one outstanding entry per partition.
+        self._txn_mode = self.offsets_cfg.policy == "txn"
+        if self._txn_mode and max(1, self.chunk) < 16:
+            # Ordered delivery pays a commit and an ack round trip per
+            # entry, so small entries cost throughput; the cost goes from
+            # chunk >= txn_batch / partitions (storm_tpu's threshold, 16).
+            log.warning(
+                "offsets.policy='txn' with spout chunk %d: exactly-once "
+                "delivers one gated entry per partition at a time; "
+                "entries this small cost throughput (free at chunk >= "
+                "txn_batch/partitions, typically 16). Raise "
+                "topology.spout_chunk.", max(1, self.chunk))
+        self._part_inflight: Dict[int, int] = {}
         self.positions = {p: self._initial_position(p) for p in self.my_partitions}
 
     def ingress_lag(self) -> dict:
@@ -148,7 +171,11 @@ class BrokerSpout(Spout):
         for _ in range(len(self.my_partitions)):
             p = self.my_partitions[self._rr % len(self.my_partitions)]
             self._rr += 1
-            records = self.broker.fetch(self.topic, p, self.positions[p], self.fetch_size)
+            if self._txn_mode and self._part_inflight.get(p, 0):
+                continue  # ordered delivery: the previous entry is open
+            # txn mode: one entry a fetch (the chunk, or one record).
+            size = max(1, self.chunk) if self._txn_mode else self.fetch_size
+            records = self.broker.fetch(self.topic, p, self.positions[p], size)
             if not records:
                 continue
             last_off = records[-1].offset
@@ -158,15 +185,21 @@ class BrokerSpout(Spout):
             # Emit first, advance the cursor after: an exception mid-loop
             # must re-fetch the unemitted tail (duplicates are the safe
             # direction for at-least-once).
+            # txn mode counts an entry after its emit: one counted before
+            # an emit that raised would gate the partition forever.
             if self.chunk > 1:
                 # One fetch sliced into chunk tuples; under QoS each slice
                 # splits into lane-homogeneous groups.
                 for i in range(0, len(records), self.chunk):
                     for group in self._lane_groups(records[i: i + self.chunk]):
                         await self._emit_chunk(group)
+                        if self._txn_mode:
+                            self._part_inflight[p] = self._part_inflight.get(p, 0) + 1
             else:
                 for rec in records:
                     await self._emit(rec)
+                    if self._txn_mode:
+                        self._part_inflight[p] = self._part_inflight.get(p, 0) + 1
             self.positions[p] = last_off + 1
             return True
         return False
@@ -261,6 +294,8 @@ class BrokerSpout(Spout):
             vals.append(self._lane_of(first))
         # The oldest record's append time: its queueing is the one that counts.
         await self.collector.emit(Values(vals), msg_id=msg_id, root_ts=root_ts,
+                                  origins=frozenset({(self.topic, first.partition,
+                                                      last.offset + 1)}),
                                   trace=self._mint_trace(root_ts, first.partition,
                                                          first.offset, len(records)))
 
@@ -274,6 +309,8 @@ class BrokerSpout(Spout):
             # Derived from the key again, so a replay carries the same lane.
             vals.append(self._lane_of(rec))
         await self.collector.emit(Values(vals), msg_id=msg_id, root_ts=root_ts,
+                                  origins=frozenset({(self.topic, rec.partition,
+                                                      rec.offset + 1)}),
                                   trace=self._mint_trace(root_ts, rec.partition, rec.offset))
 
     @staticmethod
@@ -285,6 +322,14 @@ class BrokerSpout(Spout):
 
     def ack(self, msg_id: Any) -> None:
         self.pending.pop(msg_id, None)
+        if self._txn_mode:
+            # The entry's offsets committed in the sink's transaction: the
+            # partition may fetch its next entry. A failed entry stays
+            # counted through its replay until the replay acks.
+            p, _ = self._msg_part_off(msg_id)
+            n = self._part_inflight.get(p, 0)
+            if n > 0:
+                self._part_inflight[p] = n - 1
         if self.offsets_cfg.policy != "resume":
             return
         p, off = self._msg_part_off(msg_id)

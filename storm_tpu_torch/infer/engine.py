@@ -199,11 +199,18 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
     """Dedicated fetch thread: completes in-flight batches in dispatch
     order. Module-level so the thread never references the engine (cache
     eviction finds orphaned engines by refcount); a None sentinel (the
-    engine's finalizer, tests) stops it."""
+    engine's finalizer, tests) stops it.
+
+    A batch is settled before its future resolves: the watchdog hears the
+    outcome, the pinned buffers and the ring slot go back, and the
+    handle drops its engine pin. A caller woken by the result may at once
+    ask the cache for another model, and the budget must then find this
+    engine unreferenced."""
     while True:
         handle = fetch_q.get()
         if handle is None:
             return
+        res, exc = None, None
         try:
             _watchdog_wait(handle)
             t1 = time.perf_counter()
@@ -233,14 +240,11 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
                                       handle.timings)
                 except Exception:
                     pass  # an observability hook must never fail a batch
-            handle.future.set_result(res)
         except BaseException as e:  # noqa: BLE001 - fail ONLY this batch
             handle._out = None
-            handle.future.set_exception(e)
-            _notify_done(handle, e)
-        else:
-            _notify_done(handle, None)
-        finally:
+            exc = e
+        try:
+            _notify_done(handle, exc)
             # A batch failed by the watchdog may still be running on the
             # card; recycling is safe all the same: its input copy only
             # reads the buffer, and a later batch's output copy is ordered
@@ -248,6 +252,11 @@ def _fetch_loop(fetch_q: "queue.SimpleQueue", ring: threading.Semaphore,
             _release_buffers(handle, staging)
             handle._owner = None
             ring.release()
+        finally:
+            if exc is None:
+                handle.future.set_result(res)
+            else:
+                handle.future.set_exception(exc)
 
 
 def _release_buffers(handle: InflightBatch, staging: StagingPool) -> None:

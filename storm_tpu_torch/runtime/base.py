@@ -1,7 +1,10 @@
 """Operator API: Spout / Bolt / OutputCollector / TopologyContext, copied
-from ``storm_tpu/runtime/base.py``. A tuple's trace context follows
-anchoring, and each emit records its ``tuple_route`` row in the copy
-ledger.
+from ``storm_tpu/runtime/base.py``. A tuple's trace context and its
+source-log ``origins`` follow anchoring (origins folded to the largest
+offset per partition); ``emit_direct`` names the consumer task of a
+direct grouping; each emit records its ``tuple_route`` row in the copy
+ledger. Spouts have ``activate``/``deactivate`` hooks and bolts a
+``tick`` hook.
 
 ``execute``/``next_tuple`` are coroutines, because emitting into a bounded
 downstream inbox is a backpressure point; an uncaught exception in
@@ -14,8 +17,9 @@ import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 from storm_tpu_torch.obs import copyledger as _copyledger
+from storm_tpu_torch.runtime.groupings import DirectGrouping
 from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
-from storm_tpu_torch.runtime.tuples import Tuple, new_id
+from storm_tpu_torch.runtime.tuples import Tuple, merge_offsets, new_id
 
 
 class TopologyContext:
@@ -55,7 +59,8 @@ class OutputCollector:
     async def emit(self, values: Sequence[Any], *, stream: str = "default",
                    anchors: Optional[Iterable[Tuple]] = None,
                    msg_id: Any = None, root_ts: Optional[float] = None,
-                   trace: Any = None) -> int:
+                   origins: Optional[frozenset] = None,
+                   direct_task: Optional[int] = None, trace: Any = None) -> int:
         """Emit a tuple downstream; returns the number of deliveries.
 
         Bolts: ``await collector.emit(Values(out), anchors=[in_tuple])``.
@@ -63,7 +68,10 @@ class OutputCollector:
         non-None ``msg_id`` opens an at-least-once ledger entry whose
         completion or failure is reported back to the spout. ``trace``: a
         spout's own sampled context, or ``NOT_SAMPLED`` when its roll
-        missed; a bolt's tuple takes its anchors' context."""
+        missed; a bolt's tuple takes its anchors' context. ``origins``: a
+        spout's source-log positions; a bolt's tuple takes the fold of its
+        anchors'. ``direct_task`` (normally through :meth:`emit_direct`)
+        delivers only to direct-grouped consumers, at that task."""
         fields = self._out_fields.get(stream, ("message",))
         subs = self._rt.router.subscriptions(self.component_id, stream)
 
@@ -72,7 +80,7 @@ class OutputCollector:
         if anchors:
             anchor_list = list(anchors)
             roots = frozenset().union(*(a.anchors for a in anchor_list))
-            if root_ts is None:
+            if anchor_list and root_ts is None:
                 ts = min(a.root_ts for a in anchor_list)
             if trace is None:
                 # The trace follows anchoring, like root_ts; attribute
@@ -81,19 +89,40 @@ class OutputCollector:
                     if a.trace is not None:
                         trace = a.trace
                         break
+            if origins is None and any(a.origins for a in anchor_list):
+                # Provenance follows anchoring, folded to the largest
+                # offset per (topic, partition): the transactional sink
+                # commits only the maximum.
+                acc: dict = {}
+                for a in anchor_list:
+                    merge_offsets(acc, (((src_t, src_p), off)
+                                        for (src_t, src_p, off) in a.origins))
+                origins = frozenset((src_t, src_p, off)
+                                    for (src_t, src_p), off in acc.items())
+        origin_set = origins if origins is not None else frozenset()
 
         probe = Tuple(values=list(values), fields=fields,
                       source_component=self.component_id,
                       source_task=self.task_index, stream=stream, root_ts=ts)
         deliveries: List[Any] = []
         for grouping, group in subs:
-            for idx in grouping.choose(probe):
-                deliveries.append(group.inboxes[idx])
+            if direct_task is not None:
+                # emit_direct: only direct-grouped consumers, at the named
+                # task; out of range is the producer's bug, not a wrap.
+                if isinstance(grouping, DirectGrouping):
+                    if not 0 <= direct_task < len(group.inboxes):
+                        raise ValueError(
+                            f"emit_direct task {direct_task} out of range "
+                            f"for {len(group.inboxes)}-instance consumer")
+                    deliveries.append(group.inboxes[direct_task])
+            else:
+                for idx in grouping.choose(probe):
+                    deliveries.append(group.inboxes[idx])
 
         if msg_id is not None:
             if not deliveries:
                 # No subscribers: complete immediately (Storm acks these).
-                self._rt.spout_done(self.component_id, self.task_index, msg_id, True)
+                self._rt.spout_done(self.component_id, self.task_index, msg_id, True, ts)
                 return 0
             root_id = new_id()
             self._rt.ledger.init_root(
@@ -111,13 +140,13 @@ class OutputCollector:
         if trace is NOT_SAMPLED:
             trace = None
 
-        # XOR every new edge into the ledger BEFORE the first (possibly
+        # Anchor every new edge in the ledger BEFORE the first (possibly
         # yielding) queue put — otherwise a fast consumer could zero the
         # ledger while later deliveries of the same emit are still pending.
         edges = [new_id() for _ in deliveries]
         for edge in edges:
             for r in roots:
-                self._rt.ledger.xor(r, edge)
+                self._rt.ledger.anchor(r, edge)
         for inbox, edge in zip(deliveries, edges):
             await inbox.put(Tuple(
                 # Fresh list per delivery: fan-out targets never share one
@@ -125,7 +154,7 @@ class OutputCollector:
                 values=list(probe.values), fields=fields,
                 source_component=self.component_id,
                 source_task=self.task_index, stream=stream, edge_id=edge,
-                anchors=roots, root_ts=ts, trace=trace))
+                anchors=roots, root_ts=ts, origins=origin_set, trace=trace))
         n = len(deliveries)
         self._m_emitted.inc(n)
         if n and _copyledger.active():
@@ -136,10 +165,21 @@ class OutputCollector:
                                records=n, engine=self.component_id)
         return n
 
+    async def emit_direct(self, task: int, values: Sequence[Any], *,
+                          stream: str = "default",
+                          anchors: Optional[Iterable[Tuple]] = None,
+                          msg_id: Any = None,
+                          root_ts: Optional[float] = None) -> int:
+        """Emit to task ``task`` of every direct-grouped subscriber
+        (Storm's ``emitDirect``; consumers subscribe with
+        ``direct_grouping``)."""
+        return await self.emit(values, stream=stream, anchors=anchors, msg_id=msg_id,
+                               root_ts=root_ts, direct_task=task)
+
     def ack(self, t: Tuple) -> None:
         """Mark the input tuple consumed."""
         for r in t.anchors:
-            self._rt.ledger.xor(r, t.edge_id)
+            self._rt.ledger.ack_edge(r, t.edge_id)
         self._m_acked.inc()
 
     def fail(self, t: Tuple) -> None:
@@ -150,6 +190,12 @@ class OutputCollector:
 
     def report_error(self, err: BaseException) -> None:
         self._rt.report_error(self.component_id, self.task_index, err)
+
+    @property
+    def ledger(self):
+        """The runtime's ack ledger, for the exactly-once sink's questions
+        about a tree's shape (``outstanding``, ``watch``)."""
+        return self._rt.ledger
 
 
 class Component:
@@ -178,6 +224,12 @@ class Spout(Component):
     def close(self) -> None:
         pass
 
+    async def activate(self) -> None:
+        pass
+
+    async def deactivate(self) -> None:
+        pass
+
 
 class Bolt(Component):
     def prepare(self, context: TopologyContext, collector: OutputCollector) -> None:
@@ -188,6 +240,9 @@ class Bolt(Component):
 
     async def execute(self, t: Tuple) -> None:
         raise NotImplementedError
+
+    async def tick(self) -> None:
+        """Periodic timer callback (tick tuples)."""
 
     async def flush(self) -> None:
         """Drain hook, awaited after the last tuple of a graceful stop."""

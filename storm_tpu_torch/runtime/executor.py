@@ -1,6 +1,12 @@
-"""Executors, copied from ``storm_tpu/runtime/executor.py`` without state
-checkpoints: one asyncio task per operator instance. A sampled tuple's
-``execute`` is recorded as a span of its trace.
+"""Executors, copied from ``storm_tpu/runtime/executor.py``: one asyncio
+task per operator instance. A sampled tuple's ``execute`` is recorded as
+a span of its trace. A bolt gets tick tuples every
+``topology.tick_interval_s`` (or its own ``tick_interval_s``); a
+:class:`~storm_tpu_torch.runtime.state.StatefulBolt` gets its state
+restored before its first tuple, checkpointed between tuples every
+``topology.checkpoint_interval_s`` and once more at a graceful stop. A
+replacement executor (the supervisor's) takes over its predecessor's
+inbox.
 
 Each bolt instance owns a bounded inbox (the backpressure point) and each
 spout instance runs a pull loop gated on ``max_spout_pending``.
@@ -13,9 +19,10 @@ load-shed controller's timer and the other tasks waited until the burst
 was through, and the controller never saw the queues it watches.
 
 Every executor splits its wall time into ``busy_s`` (a bolt's
-``execute``, a spout's emitting polls), ``wait_s`` (a bolt blocked on its
-inbox, a spout on its pending slots, empty polls and their backoff) and
-``flush_s`` (a bolt's drain at a graceful stop), as storm_tpu's do; the
+``execute`` and ``tick``, a spout's emitting polls), ``wait_s`` (a bolt
+blocked on its inbox, a spout on its pending slots, empty polls and their
+backoff) and ``flush_s`` (a bolt's drain at a graceful stop; a checkpoint
+counts as none of the three), as storm_tpu's do; the
 observatory's ``CapacityTracker`` reads them as windowed deltas. The yield
 between tuples is inbox time: it counts as ``wait_s``, as the whole gap
 between two tuples does in storm_tpu. ``clock`` is injectable (set it
@@ -31,22 +38,31 @@ import time
 from typing import Any, Optional
 
 from storm_tpu_torch.runtime.base import Bolt, OutputCollector, Spout, TopologyContext
-from storm_tpu_torch.runtime.tuples import Tuple
+from storm_tpu_torch.runtime.tuples import TickTuple, Tuple, is_tick
 
 log = logging.getLogger("storm_tpu_torch.executor")
 
 _STOP = object()  # inbox sentinel
+_CKPT = object()  # checkpoint sentinel: a snapshot between tuples
 
 
 class BoltExecutor:
     def __init__(self, runtime: Any, component_id: str, task_index: int,
-                 bolt: Bolt, inbox_capacity: int) -> None:
+                 bolt: Bolt, inbox_capacity: int, tick_interval_s: float = 0.0,
+                 inbox: Optional[asyncio.Queue] = None) -> None:
         self.rt = runtime
         self.component_id = component_id
         self.task_index = task_index
         self.bolt = bolt
-        self.inbox: asyncio.Queue = asyncio.Queue(maxsize=inbox_capacity)
+        # A supervisor's replacement takes its predecessor's inbox, so the
+        # routing tables stay valid across the swap.
+        self.inbox: asyncio.Queue = inbox if inbox is not None else asyncio.Queue(
+            maxsize=inbox_capacity)
+        self.tick_interval_s = tick_interval_s
         self._task: Optional[asyncio.Task] = None
+        self._tick_task: Optional[asyncio.Task] = None
+        self._ckpt_task: Optional[asyncio.Task] = None
+        self._stateful = False
         self.collector = OutputCollector(runtime, component_id, task_index)
         self.collector.set_output_fields(bolt.declare_output_fields())
         # Per-task stats (the runtime's component_stats).
@@ -62,8 +78,57 @@ class BoltExecutor:
     def start(self) -> None:
         self.bolt.prepare(_context(self.rt, self.component_id, self.task_index),
                           self.collector)
+        self._init_state()
         self._task = asyncio.create_task(
             self._run(), name=f"{self.component_id}[{self.task_index}]")
+        interval = self.tick_interval_s or getattr(self.bolt, "tick_interval_s", 0.0)
+        if interval > 0:
+            self._tick_task = asyncio.create_task(self._ticker(interval))
+        ckpt = self.rt.config.topology.checkpoint_interval_s
+        if self._stateful and ckpt > 0:
+            self._ckpt_task = asyncio.create_task(self._ticker(ckpt, payload=_CKPT))
+
+    def _init_state(self) -> None:
+        """Restore and hand the state to a StatefulBolt (Storm's prepare ->
+        initState order): a replacement executor resumes from the last
+        checkpoint."""
+        from storm_tpu_torch.runtime.state import KeyValueState, StatefulBolt
+
+        self._stateful = isinstance(self.bolt, StatefulBolt)
+        self._state_version = 0
+        if not self._stateful:
+            return
+        got = self.rt.state_backend.load(self.component_id, self.task_index)
+        if got is not None:
+            self._state_version, snap = got
+            state = KeyValueState(snap)
+        else:
+            state = KeyValueState()
+        self._state = state
+        self.bolt.init_state(state)
+        # The synchronous checkpoint: a transactional bolt persists its
+        # state BEFORE acking, so an offset commit never outruns the
+        # snapshot it depends on.
+        self.bolt.checkpoint_now = self._checkpoint
+
+    def _checkpoint(self) -> None:
+        if not self._state.dirty:
+            return
+        self.bolt.pre_checkpoint()
+        self._state_version += 1
+        self.rt.state_backend.save(self.component_id, self.task_index,
+                                   self._state_version, self._state.snapshot())
+        self._state.dirty = False
+        self.rt.metrics.counter(self.component_id, "checkpoints").inc()
+
+    async def _ticker(self, interval: float, payload: Any = None) -> None:
+        while True:
+            await asyncio.sleep(interval)
+            # A full inbox skips the tick rather than stall.
+            try:
+                self.inbox.put_nowait(payload if payload is not None else TickTuple())
+            except asyncio.QueueFull:
+                pass
 
     async def _run(self) -> None:
         m = self.rt.metrics
@@ -78,9 +143,30 @@ class BoltExecutor:
                 await asyncio.sleep(0)  # let timers and the other tasks run
             item = await self.inbox.get()
             self.wait_s += clock() - w0
+            more = not self.inbox.empty()
             if item is _STOP:
                 break
+            if item is _CKPT:
+                # Neither busy nor waiting, as storm_tpu counts it.
+                try:
+                    self._checkpoint()
+                except Exception as e:
+                    self.n_errors += 1
+                    self.rt.report_error(self.component_id, self.task_index, e)
+                continue
             t: Tuple = item
+            if is_tick(t):
+                t0 = clock()
+                try:
+                    await self.bolt.tick()
+                except asyncio.CancelledError:
+                    raise
+                except Exception as e:  # a tick has no tuple to fail
+                    self.n_errors += 1
+                    self.rt.report_error(self.component_id, self.task_index, e)
+                finally:
+                    self.busy_s += clock() - t0
+                continue
             executed.inc()
             self.n_executed += 1
             t0 = clock()
@@ -102,6 +188,9 @@ class BoltExecutor:
             more = not self.inbox.empty()
 
     async def stop(self, drain: bool) -> None:
+        for ticker in (self._tick_task, self._ckpt_task):
+            if ticker is not None:
+                ticker.cancel()
         if self._task is None:
             return
         if drain:
@@ -121,6 +210,13 @@ class BoltExecutor:
                 log.warning("flush error in %s: %s", self.component_id, e)
             finally:
                 self.flush_s += self.clock() - f0
+            if self._stateful:
+                # The final checkpoint: a graceful stop keeps the tail of
+                # the updates since the last periodic one.
+                try:
+                    self._checkpoint()
+                except Exception as e:
+                    log.warning("final checkpoint of %s failed: %s", self.component_id, e)
         else:
             self._task.cancel()
         try:
@@ -158,7 +254,7 @@ class SpoutExecutor:
         self.wait_s = 0.0
         self.flush_s = 0.0
 
-    def on_done(self, msg_id: Any, ok: bool) -> None:
+    def on_done(self, msg_id: Any, ok: bool, root_ts: float) -> None:
         """Ledger callback: the tuple tree for msg_id completed or failed."""
         self.inflight -= 1
         if self.inflight < self.max_pending:

@@ -1,4 +1,6 @@
-"""Topology DSL, copied from ``storm_tpu/runtime/topology.py``::
+"""Topology DSL, copied from ``storm_tpu/runtime/topology.py`` with every
+grouping declarer but ``ring_fields_grouping`` (it needs the dist
+runtime's consistent-hash ring)::
 
     b = TopologyBuilder()
     b.set_spout("kafka-spout", spout, parallelism=2)
@@ -32,6 +34,9 @@ class ComponentSpec:
     parallelism: int
     is_spout: bool
     inputs: List[Subscription] = field(default_factory=list)
+    # Per-task resource hints for placement (Storm's setMemoryLoad and
+    # setCPULoad).
+    resources: dict = field(default_factory=dict)
 
 
 class _Declarer:
@@ -45,6 +50,46 @@ class _Declarer:
 
     def shuffle_grouping(self, source: str, stream: str = "default") -> "_Declarer":
         return self.grouping(source, G.ShuffleGrouping(), stream)
+
+    def local_or_shuffle_grouping(self, source: str,
+                                  stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.LocalOrShuffleGrouping(), stream)
+
+    def fields_grouping(self, source: str, *fields: str,
+                        stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.FieldsGrouping(*fields), stream)
+
+    def all_grouping(self, source: str, stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.AllGrouping(), stream)
+
+    def global_grouping(self, source: str, stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.GlobalGrouping(), stream)
+
+    def none_grouping(self, source: str, stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.NoneGrouping(), stream)
+
+    def partial_key_grouping(self, source: str, *fields: str,
+                             stream: str = "default") -> "_Declarer":
+        return self.grouping(source, G.PartialKeyGrouping(*fields), stream)
+
+    def direct_grouping(self, source: str, stream: str = "default") -> "_Declarer":
+        """Subscribe for ``collector.emit_direct(task, ...)`` deliveries."""
+        return self.grouping(source, G.DirectGrouping(), stream)
+
+    def custom_grouping(self, source: str, grouping: G.Grouping,
+                        stream: str = "default") -> "_Declarer":
+        """Storm's ``customGrouping``: any user Grouping subclass."""
+        return self.grouping(source, grouping, stream)
+
+    def set_memory_load(self, mb: float) -> "_Declarer":
+        """Per-task memory hint (Storm's ``setMemoryLoad``)."""
+        self._spec.resources["memory_mb"] = float(mb)
+        return self
+
+    def set_cpu_load(self, pct: float) -> "_Declarer":
+        """Per-task CPU hint (Storm's ``setCPULoad``; 100 = one core)."""
+        self._spec.resources["cpu"] = float(pct)
+        return self
 
 
 @dataclass

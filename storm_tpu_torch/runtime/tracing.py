@@ -54,10 +54,10 @@ log = logging.getLogger("storm_tpu_torch.tracing")
 #: recorded, with one warning per kind (a misspelt kind is otherwise
 #: invisible: every reader filters on the spelling that never arrives).
 EVENT_KINDS = frozenset({
-    "batch_formed", "bottleneck_shift", "cascade_escalation", "copy_amplification_high",
-    "engine_quarantined", "engine_replaced", "graph_capture", "profile_regression",
-    "shed_decision", "shed_degrade", "shed_reject", "slo_breach", "slo_burn",
-    "tree_timeout",
+    "batch_formed", "bottleneck_shift", "cascade_escalation", "chaos_injection",
+    "copy_amplification_high", "engine_quarantined", "engine_replaced", "executor_restart",
+    "graph_capture", "profile_regression", "shed_decision", "shed_degrade", "shed_reject",
+    "slo_breach", "slo_burn", "tree_timeout",
 })
 
 _event_names_checked: set = set()

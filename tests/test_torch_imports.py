@@ -1,7 +1,9 @@
 """The port stands alone: no module of storm_tpu_torch (its native codec,
 MoE layer, model families, QoS package, continuous batcher, tracing and
 flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
-record frames, topology builder, observatory and cascade included), and
+record frames, topology builder, observatory and cascade, the runtime's
+groupings, state, chaos monkey, transactions and metrics consumers, and
+the exactly-once sink included), and
 neither chip_smoke.py nor kernel_sweep.py, imports JAX, orbax,
 scikit-learn, pyarrow or anything of the JAX package storm_tpu (the
 machine with the card has none of them)."""
@@ -111,6 +113,22 @@ def test_importing_the_port_loads_no_jax():
         cfg.topology.spout_chunk, cfg.topology.spout_scheme = 8, "raw"
         cfg.topology.spout_frames = True
         build_standard_topology(cfg, broker, device="cpu")
+        from storm_tpu_torch.config import OffsetsConfig, SinkConfig
+        from storm_tpu_torch.connectors import TransactionalBrokerSink
+        from storm_tpu_torch.runtime import StatefulBolt
+        from storm_tpu_torch.runtime.chaos import ChaosMonkey
+        from storm_tpu_torch.runtime.metrics import JsonLinesConsumer, prometheus_text
+        from storm_tpu_torch.runtime.transactional import TransactionalSink, TransactionalSpout
+        cfg.offsets = OffsetsConfig(policy="txn", group_id="g", max_behind=None)
+        cfg.sink = SinkConfig(mode="transactional", offsets_group="g")
+        cfg.topology.sink_parallelism = 1
+        topo = build_standard_topology(cfg, broker, device="cpu")
+        tb = TopologyBuilder()
+        tb.set_spout("tx", TransactionalSpout(broker, "in"))
+        tb.set_bolt("sink", TransactionalSink(broker, "out")).fields_grouping("tx", "txid")
+        tb.build()
+        print("EOS", type(topo.specs["kafka-bolt"].obj).__name__, ChaosMonkey.__name__,
+              prometheus_text({{}}) == "\\n", issubclass(TransactionalSink, StatefulBolt))
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu", "pyarrow"))
@@ -123,6 +141,7 @@ def test_importing_the_port_loads_no_jax():
     assert "CODEC (1, 1, 2) {\"predictions\": [[1.5, 2]]}" in out.stdout, out.stdout
     assert "OBS ['engines'] True" in out.stdout, out.stdout
     assert "TENSOR (1, 2, 3) True True" in out.stdout, out.stdout
+    assert "EOS TransactionalBrokerSink ChaosMonkey True True" in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer
     # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
@@ -140,7 +159,12 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.main", "storm_tpu_torch.obs.slo",
                  "storm_tpu_torch.obs.capacity", "storm_tpu_torch.obs.bottleneck",
                  "storm_tpu_torch.cascade", "storm_tpu_torch.cascade.policy",
-                 "storm_tpu_torch.cascade.router"):
+                 "storm_tpu_torch.cascade.router", "storm_tpu_torch.runtime.groupings",
+                 "storm_tpu_torch.runtime.state", "storm_tpu_torch.runtime.chaos",
+                 "storm_tpu_torch.runtime.transactional", "storm_tpu_torch.runtime.metrics",
+                 "storm_tpu_torch.runtime.metric_names",
+                 "storm_tpu_torch.runtime.metric_registry",
+                 "storm_tpu_torch.connectors.sink", "storm_tpu_torch.connectors.memory"):
         assert repr(name) in out.stdout, name
 
 

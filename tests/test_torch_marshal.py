@@ -288,3 +288,47 @@ def test_malformed_layouts_storm_tpu_sends_to_pyarrow_are_refused_by_both():
         schema.decode_instances(cut)
     assert str(got.value) == ("payload is not a valid tensor frame: malformed Arrow tensor "
                               "message (native rc=11)")
+
+
+@pytest.mark.parametrize("rank", [33, 40])
+def test_rank_above_32_refused_by_the_port_read_by_pyarrow(rank):
+    """``ROADMAP.md`` C9: pyarrow writes and reads a tensor of rank above
+    32, and storm_tpu (which hands such a layout to pyarrow) decodes it;
+    the port refuses it and names the layout."""
+    x = np.arange(2, dtype=np.int8).reshape((2,) + (1,) * (rank - 1))
+    msg = _pyarrow_message(x)
+    for got in (pa.ipc.read_tensor(pa.py_buffer(msg)).to_numpy(),
+                jax_marshal.decode_tensor(msg), jax_schema.decode_instances(msg).data):
+        assert got.shape == x.shape and np.array_equal(got, x)
+    with pytest.raises(schema.SchemaError) as got:
+        marshal.decode_tensor(msg)
+    assert str(got.value) == "Arrow tensor of rank above 32"
+    with pytest.raises(schema.SchemaError) as got:
+        schema.decode_instances(msg)
+    assert str(got.value) == ("payload is not a valid tensor frame: Arrow tensor of rank "
+                              "above 32")
+
+
+@pytest.mark.parametrize("strides", [(-16, 4), (16, -4), (-16, -4)])
+def test_negative_strides_refused_by_all(strides):
+    """``ROADMAP.md`` C9: strides patched negative into a C-order message.
+    pyarrow refuses them ("negative strides not supported"), so storm_tpu
+    does, with pyarrow's text; the port refuses them and names the
+    layout."""
+    base = marshal.encode_tensor(np.arange(8, dtype=np.float32).reshape(2, 4))
+    msg = bytearray(base)
+    struct.pack_into("<qq", msg, _locate(base)["strides"] + 4, *strides)
+    msg = bytes(msg)
+    with pytest.raises(pa.ArrowInvalid, match="negative strides not supported"):
+        pa.ipc.read_tensor(pa.py_buffer(msg))
+    with pytest.raises(jax_schema.SchemaError) as want:
+        jax_schema.decode_instances(msg)
+    assert str(want.value) == ("payload is not a valid tensor frame: negative strides "
+                               "not supported")
+    with pytest.raises(schema.SchemaError) as got:
+        marshal.decode_tensor(msg)
+    assert str(got.value) == "Arrow tensor with a negative stride"
+    with pytest.raises(schema.SchemaError) as got:
+        schema.decode_instances(msg)
+    assert str(got.value) == ("payload is not a valid tensor frame: Arrow tensor with a "
+                              "negative stride")

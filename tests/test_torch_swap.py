@@ -387,3 +387,40 @@ def test_budget_keeps_an_engine_with_a_batch_in_flight():
     finally:
         inj.configure(engine_hang_ms=0, engine_hang_next=0)
         set_engine_cache_limit(None)
+
+
+def test_fetch_thread_unpins_the_engine_before_the_result(monkeypatch):
+    """ROADMAP C12: the fetch thread settles a batch (watchdog note,
+    buffers, ring slot, the handle's engine pin) before its future
+    resolves. ``_notify_done`` is made to take 0.3 s: had the future
+    resolved first, the caller below would ask the cache for another
+    model while the fetch thread still pinned the old engine, and the
+    orphan would stay over budget."""
+    batch = BatchConfig(max_batch=4, buckets=(4,))
+    cfgs = [ModelConfig(name="lenet5", dtype="float32", num_classes=10, input_shape=SHAPE,
+                        seed=s) for s in (4, 5, 6)]
+    notify = port_engine._notify_done
+
+    def slow_notify(handle, exc):
+        time.sleep(0.3)
+        notify(handle, exc)
+
+    monkeypatch.setattr(port_engine, "_notify_done", slow_notify)
+    inj = get_injector()
+    try:
+        a = shared_engine(cfgs[0], batch, device="cpu")
+        a.warmup()
+        inj.configure(engine_hang_ms=500, engine_hang_next=1)
+        h = a.dispatch((np.zeros((4, *SHAPE), np.float32),))
+        a_id = id(a)
+        del a
+        set_engine_cache_limit(1)
+        shared_engine(cfgs[1], batch, device="cpu")
+        assert a_id in {id(e) for e in live_engines()}, "evicted with a batch in flight"
+        rows = h.future.result(timeout=30)
+        assert rows.shape == (4, 10) and h._owner is None and h.on_done is None
+        shared_engine(cfgs[2], batch, device="cpu")
+        assert a_id not in {id(e) for e in live_engines()}, "an orphan stayed over budget"
+    finally:
+        inj.configure(engine_hang_ms=0, engine_hang_next=0)
+        set_engine_cache_limit(None)
