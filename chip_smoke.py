@@ -208,7 +208,32 @@ no result):
    row of a forward the engine ran, the offsets at the log ends,
    ``txn_aborts`` and ``txn_commits`` at least 1, one restart; every turn's
    launch tally its forwards x (73, 12, 12);
-14. the ``{"kernels": [...]}`` line, then the card line, then the last line
+14. the decode tier and DRPC: (a) char_tiny's decode engine on the card
+   against the port's own CPU run of it: 64 seeded sessions (prompts of
+   8-40 characters, 48 greedy tokens each, co-batched every step with 16
+   classify rows): greedy tokens identical, every step's logits and the
+   arena within 1e-5, the classify rows within 1e-5 of ``stateless_logits``;
+   (b) the same sessions through ``SessionSpout`` -> 2 ``DecodeBolt``s on
+   ``ring_fields_grouping("session_id")`` -> a capture bolt, 16 classify
+   rows submitted to the same continuous queue meanwhile: every request
+   acked, the tasks' sessions disjoint and both tasks used, each session's
+   token indices gapless and its tokens (a)'s, the classify rows the
+   view's; tokens/s, TTFT p50 and p99, token p50, rows a step and the
+   card's idle share printed; (c) 32 sessions on an arena of 8 blocks, at
+   most 8 requests in flight: evictions above 0, every request acked, every
+   stream gapless with no token re-emitted;
+   (d) a graceful kill mid-generation with the file state backend and the
+   same topology again: every live session restored ``"kv"``, none cold,
+   the streams gapless and free of duplicates, ``kv_migrate`` rows in the
+   copy ledger; ``decode_stats`` in the Observatory's snapshot; (e)
+   ``drpc_inference_topology`` with ViT-B/16 bf16 ``int8_fused`` (2
+   inference tasks, bucket 8): 64 concurrent calls, each answer a row of
+   the engine's direct forward of a batch it ran, one poison call failed
+   with the schema error and not a timeout, the launch tally exactly
+   forwards x (73, 12, 12); call p50 and p99 printed. The decode tier runs
+   plain torch ops: no kernel of ours, as storm_tpu's decode calls no
+   Pallas kernel;
+15. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -4411,6 +4436,530 @@ def runtime_and_exactly_once(torch, card: str) -> dict:
     return out
 
 
+
+# ---- phase 14: the decode tier and DRPC ------------------------------------------
+
+DEC_SESSIONS = 64     # 14 (a) and (b): sessions, prompts of 8-40 characters
+DEC_TOKENS = 48       # each session's token budget
+DEC_SEED = 14         # char_tiny's weights and the prompts
+DEC_CLASSIFY = 16     # classify rows beside each step of (a), and in (b)
+DEC_EVICT = (8, 32)   # 14 (c): arena blocks, sessions
+DEC_MIGRATE = 8       # 14 (d): sessions, each with a budget of 120 tokens
+DRPC_CALLS = 64       # 14 (e): concurrent calls
+
+
+def dec_prompts(n: int = DEC_SESSIONS, seed: int = DEC_SEED) -> list:
+    """``n`` seeded printable prompts of 8 to 40 characters."""
+    rng = np.random.RandomState(seed)
+    return ["".join(chr(c) for c in rng.randint(32, 127, size=rng.randint(8, 41)))
+            for _ in range(n)]
+
+
+def greedy_sessions(eng, prompts: list, tokens: int, classify: np.ndarray) -> dict:
+    """Engine-direct greedy decode as the decode bolt runs a session: a
+    prefill of [BOS] + the prompt, then one step a token, until EOS or
+    ``tokens`` tokens. All sessions co-batch in every step, with the
+    ``classify`` tokens as slot = -1 rows beside them. Returns the tokens,
+    every step's logits and the classify rows' logits of every step."""
+    from storm_tpu_torch.decode import STATELESS
+    from storm_tpu_torch.models import chartiny as ct
+
+    ctx = [[ct.BOS] + ct.encode_text(p) for p in prompts]
+    slots = [eng.kv.acquire(f"s{i}") for i in range(len(prompts))]
+    cls = np.stack([np.full(len(classify), STATELESS), classify,
+                    np.zeros(len(classify), np.int64)], 1)
+    rows = np.concatenate([eng.prefill_rows(s, c) for s, c in zip(slots, ctx)] + [cls])
+    ends = np.cumsum([len(c) for c in ctx]) - 1
+    live = list(range(len(prompts)))
+    out = {"tokens": [[] for _ in prompts], "logits": [], "classify": [], "steps": 0,
+           "rows": 0, "step_ms": [], "prefill_rows": len(rows)}
+    t0 = time.perf_counter()
+    while live:
+        t = time.perf_counter()
+        lg = eng.predict(rows)
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["steps"] += 1
+        out["rows"] += len(rows)
+        out["logits"].append(lg)
+        out["classify"].append(lg[len(rows) - len(classify):])
+        nxt = []
+        for j, i in enumerate(live):
+            tok = int(np.argmax(lg[ends[j]]))
+            out["tokens"][i].append(tok)
+            if tok != ct.EOS and len(out["tokens"][i]) < tokens:
+                nxt.append(i)
+        live = nxt
+        rows = np.concatenate(
+            [np.array([[slots[i], out["tokens"][i][-1], len(ctx[i]) + len(out["tokens"][i]) - 1]
+                       for i in live], np.int64).reshape(-1, 3), cls])
+        ends = np.arange(len(live))
+    out["wall_s"] = time.perf_counter() - t0
+    # A checkpoint's fold of every session's KV: one read of the arena
+    # against one a session (storm_tpu's fold, from its host arena).
+    sids = [f"s{i}" for i in range(len(prompts))]
+    for _ in range(2):  # the second pass is timed
+        t = time.perf_counter()
+        one_by_one = {sid: eng.kv.serialize(sid) for sid in sids}
+        out["fold_each_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        many = eng.kv.serialize_many(sids)
+        out["fold_many_ms"] = (time.perf_counter() - t) * 1e3
+    if many != one_by_one:
+        raise AssertionError("serialize_many's blobs differ from serialize's")
+    out["arena"] = eng.kv.arena.cpu().numpy()
+    out["lens"] = eng.kv.lens.copy()
+    return out
+
+
+def decode_engine_direct(torch, device: str, card: str) -> dict:
+    """14 (a): the same sessions through a DecodeEngine on ``device`` and on
+    the CPU: greedy tokens identical, every step's logits and the arena
+    within 1e-5, the classify rows the classify view's logits."""
+    from storm_tpu_torch.decode.engine import DecodeEngine
+    from storm_tpu_torch.models import chartiny as ct
+    from storm_tpu_torch.models.convert import chartiny_params
+
+    prompts = dec_prompts()
+    classify = np.random.RandomState(DEC_SEED + 1).randint(0, ct.VOCAB, DEC_CLASSIFY)
+    runs = {}
+    for dev in (device, "cpu"):
+        eng = DecodeEngine(seed=DEC_SEED, blocks=DEC_SESSIONS, max_seq=ct.MAX_SEQ, device=dev)
+        runs[dev] = greedy_sessions(eng, prompts, DEC_TOKENS, classify)
+    card_run, cpu_run = runs[device], runs["cpu"]
+    label = "14 (a) decode engine-direct"
+    if card_run["tokens"] != cpu_run["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(card_run["tokens"], cpu_run["tokens"])) if a != b]
+        raise AssertionError(f"{label}: greedy tokens differ from the CPU run's in sessions "
+                             f"{bad[:8]}")
+    logit_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(card_run["logits"], cpu_run["logits"]))
+    arena_err = float(np.abs(card_run["arena"] - cpu_run["arena"]).max())
+    params = chartiny_params(ct.build_params(DEC_SEED), device)
+    view = ct.stateless_logits(params, torch.as_tensor(classify, device=device)).cpu().numpy()
+    cls_err = max(float(np.abs(c - view).max()) for c in card_run["classify"])
+    if logit_err > 1e-5 or arena_err > 1e-5 or cls_err > 1e-5 or \
+            (card_run["lens"] != cpu_run["lens"]).any():
+        raise AssertionError(f"{label}: logits {logit_err:.3g}, arena {arena_err:.3g}, "
+                             f"classify rows {cls_err:.3g} from the CPU run and the view "
+                             f"(tolerance 1e-5)")
+    n_tok = sum(len(t) for t in card_run["tokens"])
+    res = {"sessions": len(prompts), "tokens": n_tok, "steps": card_run["steps"],
+           "rows": card_run["rows"], "max_abs_err_logits": logit_err,
+           "max_abs_err_arena": arena_err, "max_abs_err_classify": cls_err,
+           "tokens_per_s": n_tok / card_run["wall_s"],
+           "cpu_tokens_per_s": n_tok / cpu_run["wall_s"]}
+    for name, r in (("card", card_run), ("cpu", cpu_run)):
+        res[f"{name}_prefill_ms"] = r["step_ms"][0]
+        res[f"{name}_step_p50_ms"] = float(np.median(r["step_ms"][1:]))
+        res[f"{name}_fold_each_ms"] = r["fold_each_ms"]
+        res[f"{name}_fold_many_ms"] = r["fold_many_ms"]
+    log(f"  {label} on {card}: {len(prompts)} sessions, {n_tok} greedy tokens identical to "
+        f"the CPU run's; logits within {logit_err:.3g}, arena within {arena_err:.3g}, "
+        f"classify rows within {cls_err:.3g} of the classify view (tolerance 1e-5); "
+        f"{card_run['steps']} steps of {card_run['rows'] / card_run['steps']:.1f} rows, "
+        f"{res['tokens_per_s']:.3f} tokens/s on the card, {res['cpu_tokens_per_s']:.3f} on the "
+        f"CPU; the prefill step ({card_run['prefill_rows']} rows) "
+        f"{res['card_prefill_ms']:.3f} ms on the card, {res['cpu_prefill_ms']:.3f} on "
+        f"the CPU; a later step's p50 {res['card_step_p50_ms']:.3f} ms on the card, "
+        f"{res['cpu_step_p50_ms']:.3f} on the CPU; folding the {len(prompts)} sessions' KV "
+        f"one by one {res['card_fold_each_ms']:.3f} ms on the card "
+        f"({res['cpu_fold_each_ms']:.3f} on the CPU), in one read "
+        f"{res['card_fold_many_ms']:.3f} ms ({res['cpu_fold_many_ms']:.3f}), the same blobs")
+    return res, card_run["tokens"]
+
+
+class _Capture:
+    """Every token a capture bolt saw: (session_id, token_index, message)."""
+    seen: list = []
+
+
+def timed_calls(obj, name: str) -> list:
+    """Wrap ``obj.name`` (an instance attribute shadows the method) to
+    append each call's milliseconds to the returned list."""
+    fn, ms = getattr(obj, name), []
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            ms.append((time.perf_counter() - t) * 1e3)
+
+    setattr(obj, name, timed)
+    return ms
+
+
+def decode_topology(prompts: list, tokens: int, cfg, device: str, tasks: int = 2):
+    """SessionSpout (one request a prompt) -> ``tasks`` DecodeBolts on the
+    ring grouping -> a capture bolt appending each token to
+    ``_Capture.seen``."""
+    from storm_tpu_torch.decode import DecodeBolt, SessionSpout
+    from storm_tpu_torch.runtime import Bolt, TopologyBuilder
+
+    class Capture(Bolt):
+        async def execute(self, t):
+            _Capture.seen.append((t.get("session_id"), t.get("token_index"),
+                                  t.get("message")))
+            self.collector.ack(t)
+
+    reqs = [{"session_id": f"s{i}", "prompt": p, "max_new_tokens": tokens}
+            for i, p in enumerate(prompts)]
+    tb = TopologyBuilder()
+    tb.set_spout("requests", SessionSpout(reqs), 1)
+    tb.set_bolt("decode-bolt", DecodeBolt(cfg, device=device), tasks) \
+        .ring_fields_grouping("requests", "session_id")
+    tb.set_bolt("capture", Capture(), 1).shuffle_grouping("decode-bolt")
+    return tb.build(), reqs
+
+
+def dec_streams(label: str, sessions: list) -> dict:
+    """Each session's tokens as the capture bolt saw them, checked gapless
+    and free of duplicates."""
+    streams = {}
+    for sid in sessions:
+        seen = sorted((i, m) for s, i, m in _Capture.seen if s == sid)
+        idxs = [i for i, _ in seen]
+        if idxs != list(range(len(idxs))) or not idxs:
+            raise AssertionError(f"{label}: session {sid}'s indices are not gapless and "
+                                 f"unique: {idxs[:12]}")
+        # Every token is one character but EOS, which can only end a stream.
+        streams[sid] = (len(idxs), "".join(m for _, m in seen))
+    return streams
+
+
+async def wait_acked(rt, n: int, label: str, timeout_s: float = 120.0):
+    sp = rt.spout_execs["requests"][0].spout
+    deadline = time.monotonic() + timeout_s
+    while len(set(sp.acked)) < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{label}: {len(set(sp.acked))} of {n} requests acked in "
+                               f"{timeout_s} s")
+        await asyncio.sleep(0.01)
+    return sp
+
+
+async def decode_served_turn(torch, device: str, direct_tokens: list) -> dict:
+    """14 (b): the 64 sessions through SessionSpout -> 2 DecodeBolts on the
+    ring grouping -> a capture bolt, classify rows submitted to the same
+    queue meanwhile."""
+    from storm_tpu_torch.config import Config
+    from storm_tpu_torch.decode import STATELESS, DecodeConfig
+    from storm_tpu_torch.decode.engine import _reset_engines
+    from storm_tpu_torch.models import chartiny as ct
+    from storm_tpu_torch.models.convert import chartiny_params
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+
+    _reset_engines()
+    _Capture.seen = []
+    prompts = dec_prompts()
+    dcfg = DecodeConfig(seed=DEC_SEED, arena_blocks=DEC_SESSIONS, max_new_tokens=DEC_TOKENS)
+    topo, reqs = decode_topology(prompts, DEC_TOKENS, dcfg, device)
+    cfg = Config()
+    cfg.topology.message_timeout_s = 120.0
+    cluster = AsyncLocalCluster()
+    classify = np.random.RandomState(DEC_SEED + 2).randint(0, ct.VOCAB, DEC_CLASSIFY)
+    with card_busy(torch) as busy:
+        t0 = time.perf_counter()
+        rt = await cluster.submit("chip-smoke-phase14b", cfg, topo)
+        try:
+            bolts = [e.bolt for e in rt.bolt_execs["decode-bolt"]]
+            engine = bolts[0].engine
+            predict_ms = timed_calls(engine, "predict")
+            serialize_ms = timed_calls(engine.kv, "serialize_many")
+            stats0 = engine.stats()
+            subs = []
+            sp = rt.spout_execs["requests"][0].spout
+            while len(set(sp.acked)) < len(reqs):
+                if len(subs) < DEC_CLASSIFY and _Capture.seen:
+                    # a classify row rides the decode queue among the steps
+                    k = len(subs)
+                    subs.append(bolts[0].batcher.submit(
+                        np.array([[STATELESS, classify[k], 0]], np.int64), source="classify"))
+                await asyncio.sleep(0.002)
+                if time.perf_counter() - t0 > 300:
+                    raise TimeoutError(f"14 (b): {len(set(sp.acked))} of {len(reqs)} acked")
+            wall = time.perf_counter() - t0
+            got = np.concatenate([await asyncio.wrap_future(s.future) for s in subs])
+            stats1 = engine.stats()
+            owners: dict = {}
+            for b in bolts:
+                for s in b.sessions.all():
+                    if s.session_id in owners:
+                        raise AssertionError(f"14 (b): session {s.session_id} on two tasks")
+                    owners[s.session_id] = b.sessions.task_index
+            snap = rt.metrics.snapshot()["decode-bolt"]
+            res = {"acked": len(set(sp.acked)), "failed": list(sp.failed), "owners": owners,
+                   "wall": wall, "stats0": stats0, "stats1": stats1, "snap": snap,
+                   "classify": got,
+                   "errors": list(rt.errors), "predict_ms": list(predict_ms),
+                   "serialize_ms": list(serialize_ms)}
+            del engine.predict, engine.kv.serialize_many
+        finally:
+            await cluster.shutdown()
+    params = chartiny_params(ct.build_params(DEC_SEED), device)
+    view = ct.stateless_logits(params, torch.as_tensor(classify[:len(got)],
+                                                       device=device)).cpu().numpy()
+    res["classify_err"] = float(np.abs(got - view).max()) if len(got) else None
+    res["idle_share"] = busy["idle_share"]
+    res["direct"] = {f"s{i}": (len(t), ct.decode_tokens(t)) for i, t in enumerate(direct_tokens)}
+    return res
+
+
+async def decode_evict_turn(device: str) -> dict:
+    """14 (c): 32 sessions on an arena of 8 blocks, one task, at most 8
+    requests in flight."""
+    from storm_tpu_torch.config import Config
+    from storm_tpu_torch.decode import DecodeConfig
+    from storm_tpu_torch.decode.engine import _reset_engines
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+
+    _reset_engines()
+    _Capture.seen = []
+    blocks, n = DEC_EVICT
+    prompts = dec_prompts(n, DEC_SEED + 3)
+    dcfg = DecodeConfig(seed=DEC_SEED, arena_blocks=blocks, max_new_tokens=24)
+    topo, reqs = decode_topology(prompts, 24, dcfg, device, tasks=1)
+    cfg = Config()
+    cfg.topology.message_timeout_s = 120.0
+    # At most as many sessions in flight as blocks: a slot is always free
+    # or evictable (a finished session's, or an idle one's), never all
+    # pinned at once.
+    cfg.topology.max_spout_pending = blocks
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-phase14c", cfg, topo)
+    try:
+        t0 = time.perf_counter()
+        sp = await wait_acked(rt, len(reqs), "14 (c)")
+        bolt = rt.bolt_execs["decode-bolt"][0].bolt
+        return {"wall": time.perf_counter() - t0, "evictions": bolt.engine.kv.evictions,
+                "evicted": rt.metrics.counter("decode-bolt", "decode_sessions_evicted").value,
+                "replays": len(sp.failed), "sessions": [r["session_id"] for r in reqs],
+                "errors": list(rt.errors)}
+    finally:
+        await cluster.shutdown()
+
+
+async def decode_migrate_turn(device: str, tmp: str) -> dict:
+    """14 (d): a graceful kill mid-generation with the file state backend,
+    then the same topology again."""
+    from storm_tpu_torch.config import Config
+    from storm_tpu_torch.decode import DecodeConfig
+    from storm_tpu_torch.decode.engine import _reset_engines
+    from storm_tpu_torch.obs import copyledger
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+
+    _reset_engines()
+    _Capture.seen = []
+    ledger = copyledger.ensure_installed()
+    ledger.reset()
+    prompts = dec_prompts(DEC_MIGRATE, DEC_SEED + 4)
+    dcfg = DecodeConfig(seed=DEC_SEED, arena_blocks=16, drain_mode="migrate",
+                        max_new_tokens=120)
+    cfg = Config()
+    cfg.topology.message_timeout_s = 120.0
+    cfg.topology.checkpoint_interval_s = 30.0
+    cfg.topology.state_dir = tmp
+    cluster = AsyncLocalCluster()
+    topo, reqs = decode_topology(prompts, 120, dcfg, device, tasks=1)
+    await cluster.submit("chip-smoke-phase14d", cfg, topo)
+    deadline = time.monotonic() + 120
+    while len({s for s, _, _ in _Capture.seen}) < len(reqs) or \
+            len(_Capture.seen) < 4 * len(reqs):
+        if time.monotonic() > deadline:
+            raise TimeoutError("14 (d): the sessions did not all start streaming")
+        await asyncio.sleep(0.002)
+    await cluster.kill("chip-smoke-phase14d", wait_secs=0.2)
+    before = len(_Capture.seen)
+    topo, reqs = decode_topology(prompts, 120, dcfg, device, tasks=1)
+    rt = await cluster.submit("chip-smoke-phase14d", cfg, topo)
+    try:
+        await wait_acked(rt, len(reqs), "14 (d) after the restart")
+        bolt = rt.bolt_execs["decode-bolt"][0].bolt
+        sessions = bolt.sessions.all()
+        return {"before": before, "after": len(_Capture.seen),
+                "restored": {s.session_id: s.restored for s in sessions},
+                "done_before": sum(1 for s in sessions if not s.restored),
+                "cold": bolt.sessions.sessions_cold,
+                "migrate": ledger.snapshot()["stages"].get("kv_migrate", {}),
+                "sessions": [r["session_id"] for r in reqs], "errors": list(rt.errors)}
+    finally:
+        await cluster.shutdown()
+
+
+async def drpc_turn(device: str, payloads: list) -> dict:
+    """14 (e): DRPC_CALLS concurrent calls and one poison call through
+    ``drpc_inference_topology`` with ViT-B/16 bf16 int8_fused."""
+    from storm_tpu_torch.config import BatchConfig, Config
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.runtime import AsyncLocalCluster
+    from storm_tpu_torch.runtime.drpc import DRPCError, DRPCServer, drpc_inference_topology
+
+    server = DRPCServer()
+    topo = drpc_inference_topology(server, vit_b16_config(),
+                                   BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0),
+                                   device=device, infer_parallelism=2)
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-phase14e", Config(), topo)
+    try:
+        engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+        before = engine_state(engine)
+        batches: list = []
+        recording(engine, batches)
+        _build.reset_launch_counts()
+        tally0, forwards0 = engine.launch_tally(), engine.forwards
+
+        async def call(p):
+            t = time.perf_counter()
+            out = await server.execute("predict", p, timeout_s=120)
+            return out, (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(call(p) for p in payloads))
+        wall = time.perf_counter() - t0
+        t = time.perf_counter()
+        try:
+            await server.execute("predict", POISON, timeout_s=60)
+            poison = None
+        except DRPCError as e:
+            poison = (type(e).__name__, str(e), time.perf_counter() - t)
+        del engine.dispatch
+        return {"outs": [o for o, _ in got], "ms": [m for _, m in got], "wall": wall,
+                "forwards": engine.forwards - forwards0,
+                "poison": poison, "engine": engine, "before": before,
+                "after": engine_state(engine), "batches": batches, "tally0": tally0,
+                "forwards0": forwards0, "wrapper_counts": _build.launch_counts(),
+                "inflight": server.inflight, "errors": list(rt.errors)}
+    finally:
+        await cluster.shutdown()
+
+
+def decode_and_drpc(torch, card: str, device: str = "cuda") -> dict:
+    """Phase 14 (see the module docstring)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from storm_tpu_torch.decode import decode_stats
+    from storm_tpu_torch.decode.engine import _reset_engines
+    from storm_tpu_torch.infer.engine import clear_engines
+
+    t_phase = time.perf_counter()
+    out = {}
+    out["a"], direct_tokens = decode_engine_direct(torch, device, card)
+
+    label = "14 (b) decode served"
+    b = asyncio.run(decode_served_turn(torch, device, direct_tokens))
+    streams = dec_streams(label, [f"s{i}" for i in range(DEC_SESSIONS)])
+    if b["acked"] != DEC_SESSIONS or b["failed"] or b["errors"] or streams != b["direct"]:
+        bad = [s for s in streams if streams[s] != b["direct"][s]]
+        raise AssertionError(f"{label}: {b['acked']} acked, failed {b['failed'][:4]}, errors "
+                             f"{b['errors'][:2]}, sessions unlike (a)'s {bad[:8]}")
+    if len(set(b["owners"].values())) != 2 or len(b["owners"]) != DEC_SESSIONS:
+        raise AssertionError(f"{label}: owners {sorted(set(b['owners'].values()))} for "
+                             f"{len(b['owners'])} sessions")
+    if not len(b["classify"]) or b["classify_err"] > 1e-5:
+        raise AssertionError(f"{label}: {len(b['classify'])} classify rows, within "
+                             f"{b['classify_err']} of the classify view")
+    s0, s1 = b["stats0"], b["stats1"]
+    steps = s1["steps"] - s0["steps"]
+    rows = s1["rows_decode"] + s1["rows_classify"] - s0["rows_decode"] - s0["rows_classify"]
+    n_tok = len(_Capture.seen)
+    ttft, tok = b["snap"]["decode_ttft_ms"], b["snap"]["decode_token_ms"]
+    pm, sm = np.array(b["predict_ms"]), np.array(b["serialize_ms"])
+    host = {"predict_calls": len(pm), "predict_p50_ms": float(np.median(pm)),
+            "predict_share": float(pm.sum()) / (b["wall"] * 1e3),
+            "serialize_calls": len(sm), "serialize_p50_ms": float(np.median(sm)) if len(sm) else 0.0,
+            "serialize_share": float(sm.sum()) / (b["wall"] * 1e3)}
+    out["b"] = {"sessions": DEC_SESSIONS, "tokens": n_tok, "wall_s": b["wall"], **host,
+                "tokens_per_s": n_tok / b["wall"], "ttft_p50_ms": ttft["p50"],
+                "ttft_p99_ms": ttft["p99"], "token_p50_ms": tok["p50"],
+                "rows_per_step": rows / max(steps, 1), "steps": steps,
+                "classify_rows": len(b["classify"]), "classify_err": b["classify_err"],
+                "idle_share": b["idle_share"],
+                "tasks": sorted(set(b["owners"].values()))}
+    log(f"  {label} on {card}: {DEC_SESSIONS} sessions acked over 2 tasks (owners disjoint), "
+        f"{n_tok} tokens, each session's stream gapless and equal to (a)'s; "
+        f"{len(b['classify'])} classify rows on the same queue within {b['classify_err']:.3g} "
+        f"of the view; {out['b']['tokens_per_s']:.3f} tokens/s, TTFT p50 "
+        f"{ttft['p50']:.3f} ms p99 {ttft['p99']:.3f} ms, token p50 {tok['p50']:.4f} ms, "
+        f"{out['b']['rows_per_step']:.2f} rows a step over {steps} steps, card idle "
+        f"{100 * b['idle_share']:.1f} % (the first submit included); {host['predict_calls']} "
+        f"steps p50 {host['predict_p50_ms']:.3f} ms, {100 * host['predict_share']:.1f} % of "
+        f"the wall; {host['serialize_calls']} KV folds (the checkpoint a token serializes every "
+        f"live session of its task, one read of the arena) p50 {host['serialize_p50_ms']:.3f} ms, "
+        f"{100 * host['serialize_share']:.1f} % of the wall")
+
+    label = "14 (c) eviction"
+    c = asyncio.run(decode_evict_turn(device))
+    dec_streams(label, c["sessions"])
+    if c["evictions"] <= 0 or c["errors"]:
+        raise AssertionError(f"{label}: {c['evictions']} evictions, errors {c['errors'][:2]}")
+    out["c"] = {k: c[k] for k in ("evictions", "evicted", "replays", "wall")}
+    log(f"  {label} on {card}: {DEC_EVICT[1]} sessions on {DEC_EVICT[0]} blocks, "
+        f"{c['evictions']} evictions, {c['replays']} requests replayed, every stream gapless "
+        f"with no token re-emitted, in {c['wall']:.3f} s")
+
+    label = "14 (d) rolling restart"
+    with tempfile.TemporaryDirectory() as tmp:
+        d = asyncio.run(decode_migrate_turn(device, tmp))
+    dec_streams(label, d["sessions"])
+    live = {s: r for s, r in d["restored"].items() if r}
+    if d["cold"] or not live or any(r != "kv" for r in live.values()) or \
+            d["after"] <= d["before"] or not d["migrate"] or \
+            d["migrate"]["calls"] < 2 * len(live) or d["errors"]:
+        raise AssertionError(f"{label}: restored {d['restored']}, cold {d['cold']}, "
+                             f"{d['before']} -> {d['after']} tokens, kv_migrate "
+                             f"{d['migrate']}, errors {d['errors'][:2]}")
+    out["d"] = {"restored_kv": len(live), "finished_before_kill": d["done_before"],
+                "kv_migrate_calls": d["migrate"]["calls"],
+                "kv_migrate_bytes": d["migrate"]["bytes"],
+                "tokens_before": d["before"], "tokens_after": d["after"]}
+    log(f"  {label} on {card}: killed mid-generation after {d['before']} tokens; "
+        f"{len(live)} live sessions restored \"kv\" (none cold, "
+        f"{d['done_before']} had finished), every stream gapless and free of duplicates "
+        f"over {d['after']} tokens; kv_migrate {d['migrate']['calls']} rows, "
+        f"{d['migrate']['bytes']} bytes")
+
+    stats = decode_stats()
+    from storm_tpu_torch.obs import Observatory
+    from storm_tpu_torch.runtime.metrics import MetricsRegistry
+
+    snap = Observatory(SimpleNamespace(metrics=MetricsRegistry(), flight=None)).snapshot()
+    if snap["decode"]["tokens_emitted"] != stats["tokens_emitted"] or not stats["engines"]:
+        raise AssertionError(f"14: decode_snapshot {snap['decode']} against {stats}")
+    _reset_engines()
+
+    label = "14 (e) DRPC"
+    clear_engines()
+    payloads, keys = life_payloads()
+    e = asyncio.run(drpc_turn(device, payloads[:DRPC_CALLS]))
+    check_no_rebuild(e, label)
+    out["e_launches"] = check_tally_delta(e["engine"], e["tally0"], e["forwards0"],
+                                          VIT_LAUNCHES, e["wrapper_counts"], label)
+    recs = [SimpleNamespace(value=o) for o in e["outs"]]
+    counts = answers(output_index(e["engine"], e["batches"]), recs, keys[:DRPC_CALLS], label)
+    poison = e["poison"]
+    if counts != [1] * DRPC_CALLS or poison is None or poison[0] != "DRPCError" or \
+            "timeout" in poison[1].lower() or e["inflight"] or e["errors"]:
+        raise AssertionError(f"{label}: answers {counts}, poison {poison}, inflight "
+                             f"{e['inflight']}, errors {e['errors'][:2]}")
+    ms = np.array(e["ms"])
+    out["e"] = {"calls": DRPC_CALLS, "wall_s": e["wall"], "calls_per_s": DRPC_CALLS / e["wall"],
+                "call_p50_ms": float(np.percentile(ms, 50)),
+                "call_p99_ms": float(np.percentile(ms, 99)),
+                "forwards": e["forwards"],
+                "poison_s": poison[2], "launches": out["e_launches"]}
+    log(f"  {label} on {card}: {DRPC_CALLS} concurrent calls, each answer a row of a forward "
+        f"the engine ran, over {out['e']['forwards']} forwards; call p50 "
+        f"{out['e']['call_p50_ms']:.3f} ms p99 {out['e']['call_p99_ms']:.3f} ms, "
+        f"{out['e']['calls_per_s']:.3f} calls/s; the poison call failed in "
+        f"{poison[2]:.3f} s with the schema error ({poison[1][:60]}); launches "
+        f"{out['e_launches']}")
+    clear_engines()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['wall_s']:.1f} s")
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -4511,6 +5060,13 @@ def run() -> int:
     phase13 = runtime_and_exactly_once(torch, card)
     log(json.dumps({"runtime_and_exactly_once": phase13, "card": card}, default=float))
 
+    log("[14] the decode tier (char_tiny, engine-direct and served on the ring grouping, "
+        "eviction, a rolling restart) and DRPC into ViT-B/16 bf16 int8_fused")
+    phase14 = decode_and_drpc(torch, card)
+    log(json.dumps({"decode_and_drpc": phase14, "card": card}, default=float))
+
+    log("[15] the kernels")
+
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
                               "storm_tpu/ops/quant_matmul.py:42", "tensor cores, bf16"),
@@ -4558,7 +5114,8 @@ def run() -> int:
                 phase13["c0_launches"][name],
             "vit_b16 int8_fused at-least-once twin, no fault (phase 13c)":
                 phase13["c_plain_launches"][name],
-            "vit_b16 int8_fused exactly-once, faults (phase 13c)": phase13["c_launches"][name]})
+            "vit_b16 int8_fused exactly-once, faults (phase 13c)": phase13["c_launches"][name],
+            "vit_b16 int8_fused DRPC (phase 14e)": phase14["e_launches"][name]})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

@@ -4,7 +4,9 @@
 Every inference task on an engine ``submit``s its records' rows into the
 engine's one queue, and a dispatcher thread forms batches from it and
 refills a slot of the engine's pipeline ring the moment one frees,
-instead of each task forming its own batches on a deadline. Dispatch rule
+instead of each task forming its own batches on a deadline. An engine
+with only ``predict`` (the decode engine) runs each batch on the
+dispatcher thread, one at a time. Dispatch rule
 (work-conserving slot refill):
 
 - ``max_batch`` rows pending -> dispatch (the ring parks the dispatcher:
@@ -359,7 +361,15 @@ class ContinuousBatcher:
             if self._m:
                 for it in items:
                     self._m["batch_wait"].observe((t0 - it.enq) * 1e3)
-            handle = engine.dispatch([it.data for it in items])
+            dispatch = getattr(engine, "dispatch", None)
+            if dispatch is None:
+                # A predict-only engine (the decode engine): one batch at
+                # a time, here on the dispatcher thread.
+                parts = [it.data for it in items]
+                out = engine.predict(parts[0] if len(parts) == 1 else np.concatenate(parts))
+                self._finish(items, out, None, None, t0)
+                return
+            handle = dispatch([it.data for it in items])
         except BaseException as e:  # noqa: BLE001 - fail ONLY this batch
             self._finish(items, None, e, None, t0)
             return

@@ -124,3 +124,12 @@ def from_jax_params(params, model: ModelDef, state=None, *, weights: str = "floa
     dev = resolve_device(device)
     module = model.make(prepare_params(params, weights, dtype), prepare_state(state))
     return module.eval().to(dev)
+
+
+def chartiny_params(params, device=None) -> dict:
+    """char_tiny's numpy parameter dict
+    (:func:`storm_tpu_torch.models.chartiny.build_params`) -> float32
+    tensors on ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU),
+    the form the decode engine and ``chartiny``'s pieces compute with."""
+    dev = resolve_device(device)
+    return {k: _tensor(np.asarray(v, np.float32)).to(dev) for k, v in params.items()}

@@ -2,8 +2,8 @@
 ``storm_tpu/models/registry.py`` for the single-device families the port
 serves (``vit_b16``, ``vit_tiny``, ``moe_vit_b16``, ``moe_vit_tiny``,
 ``mixer_s16``, ``mixer_tiny``, ``mobilenetv2``, ``lenet5``, ``resnet20``,
-``resnet50``, ``longseq_encoder`` and ``longseq_tiny``), and the loading of
-exported checkpoints.
+``resnet50``, ``longseq_encoder``, ``longseq_tiny`` and ``char_tiny``), and
+the loading of exported checkpoints.
 
 A :class:`ModelDef` carries a family's hyperparameters, a seeded numpy
 initializer producing parameters and state in the JAX package's layout,
@@ -67,7 +67,7 @@ def register(name: str) -> Callable:
 
 def _load_builtin() -> None:
     from storm_tpu_torch.models import (  # noqa: F401  (registers)
-        lenet, longseq, mixer, mobilenet, moe_vit, resnet, vit)
+        chartiny, lenet, longseq, mixer, mobilenet, moe_vit, resnet, vit)
 
 
 def registry_names() -> list:

@@ -275,12 +275,13 @@ class Observatory:
         }
 
     def decode_snapshot(self) -> dict:
-        """Decode-tier rows (sessions and KV arenas) when a decode package
-        is loaded in this process, storm_tpu's empty shape otherwise. The
-        port has no decode tier yet: a ``storm_tpu_torch.decode`` module
-        with ``decode_stats`` fills this once it exists."""
+        """Decode-tier rows (sessions and KV arenas,
+        :func:`storm_tpu_torch.decode.decode_stats`) when the decode tier
+        is loaded in this process, the empty shape otherwise: the
+        observatory does not import the tier into a process that never
+        decodes."""
         mod = sys.modules.get("storm_tpu_torch.decode")
-        if mod is None or not hasattr(mod, "decode_stats"):
+        if mod is None or not hasattr(mod, "decode_stats"):  # absent, or mid-import
             return {"stores": [], "engines": [], "sessions_live": 0,
                     "tokens_emitted": 0}
         return mod.decode_stats()

@@ -31,6 +31,13 @@ METRIC_NAMES = frozenset({
     'coalesced_sources',
     'copies_amplification',
     'dead_lettered',
+    'decode_early_exits',
+    'decode_sessions_evicted',
+    'decode_sessions_migrated',
+    'decode_sessions_started',
+    'decode_token_ms',
+    'decode_tokens_emitted',
+    'decode_ttft_ms',
     'delivered',
     'device_ms',
     'dispatch_wait_ms',
@@ -49,6 +56,7 @@ METRIC_NAMES = frozenset({
     'inbox_depth',
     'ingest_lag_ms',
     'instances_inferred',
+    'kv_arena_occupancy',
     'produce_ms',
     'profile_regressions',
     'shed_decisions',

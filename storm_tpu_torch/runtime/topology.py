@@ -1,6 +1,6 @@
 """Topology DSL, copied from ``storm_tpu/runtime/topology.py`` with every
-grouping declarer but ``ring_fields_grouping`` (it needs the dist
-runtime's consistent-hash ring)::
+grouping declarer (``ring_fields_grouping`` takes the consistent-hash ring
+of ``storm_tpu_torch/dist/ring.py``)::
 
     b = TopologyBuilder()
     b.set_spout("kafka-spout", spout, parallelism=2)
@@ -71,6 +71,16 @@ class _Declarer:
     def partial_key_grouping(self, source: str, *fields: str,
                              stream: str = "default") -> "_Declarer":
         return self.grouping(source, G.PartialKeyGrouping(*fields), stream)
+
+    def ring_fields_grouping(self, source: str, *fields: str,
+                             stream: str = "default") -> "_Declarer":
+        """Fields grouping over a consistent-hash ring
+        (:class:`storm_tpu_torch.dist.ring.RingFieldsGrouping`): same key,
+        same task, and a rebalance remaps about 1/N of the keys instead of
+        nearly all of them."""
+        from storm_tpu_torch.dist.ring import RingFieldsGrouping
+
+        return self.grouping(source, RingFieldsGrouping(*fields), stream)
 
     def direct_grouping(self, source: str, stream: str = "default") -> "_Declarer":
         """Subscribe for ``collector.emit_direct(task, ...)`` deliveries."""

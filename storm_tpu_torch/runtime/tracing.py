@@ -55,7 +55,8 @@ log = logging.getLogger("storm_tpu_torch.tracing")
 #: invisible: every reader filters on the spelling that never arrives).
 EVENT_KINDS = frozenset({
     "batch_formed", "bottleneck_shift", "cascade_escalation", "chaos_injection",
-    "copy_amplification_high", "engine_quarantined", "engine_replaced", "executor_restart",
+    "copy_amplification_high", "decode_session_evicted", "decode_session_migrated",
+    "decode_session_started", "engine_quarantined", "engine_replaced", "executor_restart",
     "graph_capture", "profile_regression", "shed_decision", "shed_degrade", "shed_reject",
     "slo_breach", "slo_burn", "tree_timeout",
 })

@@ -2,8 +2,9 @@
 MoE layer, model families, QoS package, continuous batcher, tracing and
 flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
 record frames, topology builder, observatory and cascade, the runtime's
-groupings, state, chaos monkey, transactions and metrics consumers, and
-the exactly-once sink included), and
+groupings, state, chaos monkey, transactions and metrics consumers, the
+exactly-once sink, the decode tier, the ring, DRPC, windows, joins, event
+time, shell components, the multilang child side and flux included), and
 neither chip_smoke.py nor kernel_sweep.py, imports JAX, orbax,
 scikit-learn, pyarrow or anything of the JAX package storm_tpu (the
 machine with the card has none of them)."""
@@ -164,7 +165,15 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.runtime.transactional", "storm_tpu_torch.runtime.metrics",
                  "storm_tpu_torch.runtime.metric_names",
                  "storm_tpu_torch.runtime.metric_registry",
-                 "storm_tpu_torch.connectors.sink", "storm_tpu_torch.connectors.memory"):
+                 "storm_tpu_torch.connectors.sink", "storm_tpu_torch.connectors.memory",
+                 "storm_tpu_torch.decode", "storm_tpu_torch.decode.engine",
+                 "storm_tpu_torch.decode.kvcache", "storm_tpu_torch.decode.operator",
+                 "storm_tpu_torch.decode.session", "storm_tpu_torch.models.chartiny",
+                 "storm_tpu_torch.dist", "storm_tpu_torch.dist.ring",
+                 "storm_tpu_torch.runtime.drpc", "storm_tpu_torch.runtime.window",
+                 "storm_tpu_torch.runtime.join", "storm_tpu_torch.runtime.event_time",
+                 "storm_tpu_torch.runtime.shell", "storm_tpu_torch.multilang",
+                 "storm_tpu_torch.flux"):
         assert repr(name) in out.stdout, name
 
 
@@ -205,3 +214,53 @@ def test_observatory_and_cascade_load_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
     assert "STEPPED ['baseline_loaded', 'bottleneck', 'copies', 'corrector', 'decode', " \
         "'occupancy', 'regressions', 'slo', 'utilization'] True" in out.stdout, out.stdout
+
+
+def test_decode_and_stream_operators_load_no_jax():
+    """The decode tier, DRPC, the stream operators, shell components and
+    flux, each imported first in a fresh interpreter, then a decode
+    topology on the ring grouping, a DRPC serving topology and a flux
+    definition built and a decode step run on the CPU: nothing of JAX or
+    storm_tpu gets loaded, and the multilang child side loads nothing but
+    the standard library."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import storm_tpu_torch.multilang
+        child = sorted(n for n in sys.modules if n.split(".")[0] in ("torch", "numpy"))
+        import storm_tpu_torch.decode
+        import storm_tpu_torch.flux
+        import storm_tpu_torch.runtime.drpc
+        from storm_tpu_torch.config import ModelConfig
+        from storm_tpu_torch.decode import DecodeBolt, DecodeConfig, SessionSpout
+        from storm_tpu_torch.decode.engine import DecodeEngine
+        from storm_tpu_torch.runtime import (EventTimeWindowBolt, JoinBolt, ShellBolt,
+                                             TopologyBuilder, TumblingWindowBolt)
+        tb = TopologyBuilder()
+        tb.set_spout("requests", SessionSpout([{{"session_id": "s0"}}]))
+        tb.set_bolt("decode-bolt", DecodeBolt(DecodeConfig(), device="cpu"), 2) \\
+            .ring_fields_grouping("requests", "session_id")
+        tb.build()
+        server = storm_tpu_torch.runtime.drpc.DRPCServer()
+        storm_tpu_torch.runtime.drpc.drpc_inference_topology(
+            server, ModelConfig(name="lenet5"), device="cpu")
+        storm_tpu_torch.flux.load_topology({{"spouts": [{{
+            "id": "s", "class": "storm_tpu_torch.decode.SessionSpout",
+            "args": {{"requests": []}}}}]}})
+        eng = DecodeEngine(blocks=2, max_seq=8, device="cpu")
+        print("STEP", eng.predict([[eng.kv.acquire("a"), 0, 0], [-1, 5, 0]]).shape,
+              JoinBolt.__name__, EventTimeWindowBolt.__name__, TumblingWindowBolt.__name__,
+              ShellBolt.__name__)
+        print("CHILD", child)
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert "CHILD []" in out.stdout, out.stdout
+    assert "STEP (2, 98) JoinBolt EventTimeWindowBolt TumblingWindowBolt ShellBolt" \
+        in out.stdout, out.stdout

@@ -794,19 +794,36 @@ def _lenet5(impl):
     return impl.infer.InferenceBolt(model, batch, device="cpu")
 
 
+# A loaded host (the suite run by six xdist workers) can starve the
+# reference half for well over a minute: its jit compiles share the cores
+# with five other workers. A record held past the default 30 s
+# message timeout is replayed and answered twice, which the test counts as
+# a fault of the runtime, so the tree timeout, the wait for the answers
+# and the test's own limit get room here; what the test asserts does not
+# change.
+REBALANCE_TREE_TIMEOUT_S = 600.0
+REBALANCE_WAIT_S = 240.0
+
+
 async def _serve_rebalanced(impl, xs: np.ndarray):
     n = len(xs)
     c = impl.connectors
     broker = c.MemoryBroker(default_partitions=2)
     cfg = impl.config.Config()
+    cfg.topology.message_timeout_s = REBALANCE_TREE_TIMEOUT_S
     tb = impl.runtime.TopologyBuilder()
     tb.set_spout("kafka-spout", c.BrokerSpout(
         broker, "input", impl.config.OffsetsConfig(policy="earliest", max_behind=None)), 1)
     tb.set_bolt("inference-bolt", _lenet5(impl), 1).shuffle_grouping("kafka-spout")
     tb.set_bolt("kafka-bolt", c.BrokerSink(broker, "output", cfg.sink), 1) \
         .shuffle_grouping("inference-bolt")
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    # Seconds from the start to each phase, for the failure messages.
+    timeline = {}
     cluster = impl.cluster.AsyncLocalCluster()
     rt = await cluster.submit("rb", cfg, tb.build())
+    timeline["submitted"] = round(loop.time() - t0, 3)
     try:
         engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
         grown = None
@@ -815,23 +832,29 @@ async def _serve_rebalanced(impl, xs: np.ndarray):
             if i == n // 3:
                 await rt.rebalance("inference-bolt", 3)
                 grown = [e.bolt.engine is engine for e in rt.bolt_execs["inference-bolt"]]
+                timeline["grown"] = round(loop.time() - t0, 3)
             if i == 2 * n // 3:
                 await rt.rebalance("inference-bolt", 1)
+                timeline["shrunk"] = round(loop.time() - t0, 3)
             await asyncio.sleep(0.005)
-        deadline = asyncio.get_running_loop().time() + 60
+        deadline = loop.time() + REBALANCE_WAIT_S
         while broker.topic_size("output") < n:
-            assert asyncio.get_running_loop().time() < deadline, "records stuck"
+            assert loop.time() < deadline, ("records stuck", broker.topic_size("output"),
+                                            timeline)
             await asyncio.sleep(0.01)
+        timeline["answered"] = round(loop.time() - t0, 3)
         await rt.drain(timeout_s=30)
+        timeline["drained"] = round(loop.time() - t0, 3)
         preds = np.array([json.loads(r.value)["predictions"][0]
                           for r in broker.drain_topic("output")])
         snap = rt.metrics.snapshot()
         return preds, grown, snap["kafka-spout"].get("tree_failed", 0), \
-            rt.parallelism_of("inference-bolt")
+            rt.parallelism_of("inference-bolt"), timeline
     finally:
         await cluster.shutdown()
 
 
+@pytest.mark.timeout(4 * REBALANCE_WAIT_S)
 def test_inference_bolt_rebalanced_under_traffic(run, abstract_init):
     """lenet5 on its digits checkpoint, 1 -> 3 -> 1 tasks while 24 records
     flow: every record answered once, the added tasks on the first task's
@@ -843,12 +866,12 @@ def test_inference_bolt_rebalanced_under_traffic(run, abstract_init):
     got = {}
     for name, impl in IMPLS.items():
         clear_engine_caches()
-        got[name] = run(_serve_rebalanced(impl, xs), timeout=120)
+        got[name] = run(_serve_rebalanced(impl, xs), timeout=1.5 * REBALANCE_WAIT_S)
         if name == "port":
             assert len(port_engine.live_engines()) == 1
-    for name, (preds, grown, failed, par) in got.items():
-        assert preds.shape == (24, 10) and grown == [True, True, True], name
-        assert failed == 0 and par == 1, name
+    for name, (preds, grown, failed, par, timeline) in got.items():
+        assert preds.shape == (24, 10) and grown == [True, True, True], (name, timeline)
+        assert failed == 0 and par == 1, (name, timeline)
     port, ref = got["port"][0], got["storm_tpu"][0]
     nearest = np.abs(port[:, None] - ref[None]).max(-1)
     assert nearest.min(-1).max() <= 1e-5 and nearest.min(0).max() <= 1e-5
