@@ -233,7 +233,31 @@ no result):
    forwards x (73, 12, 12); call p50 and p99 printed. The decode tier runs
    plain torch ops: no kernel of ours, as storm_tpu's decode calls no
    Pallas kernel;
-15. the ``{"kernels": [...]}`` line, then the card line, then the last line
+15. training on the card: (a) ViT-B/16 at full width in float32 (TF32
+   off), seeded, one seeded batch of 8, three AdamW steps through
+   ``parallel.train.make_train_step``, once with the kernels and once with
+   the plain versions (``plain_kernels``): each step's loss within 1e-4
+   relative, step 1's gradients within 1e-4 by the global norm of their
+   difference, every leaf with a gradient and every one but the attention
+   key biases (zero in exact arithmetic) a nonzero one, the wrappers'
+   launches exactly 12 fused norms and 12 f32 flash attentions a step on
+   the kernel path and none on the plain one; step ms (and the median of
+   5 more steps) and peak bytes printed, and the two kernels timed in
+   float32 over one step's forward's worth of calls against their plain
+   versions and one library call; (b) lenet5, resnet20, vit_tiny and
+   moe_vit_tiny trained to convergence by ``data.train_to_convergence``
+   with accuracy_harness.py's settings (seed 0, at most 60 epochs, batch
+   128, lr 1e-3, patience 8) from storm_tpu's own initial parameters
+   (``checkpoints_torch/<model>_init.npz``): each snapshot's held-out accuracy on the 449 rows within
+   0.02 of ``ACCURACY_r04.json``'s ``acc_float_device``; epochs, the best
+   epoch and wall seconds printed; (c) (b)'s resnet20 written with
+   ``save_checkpoint`` and served back in float32 through spout ->
+   InferenceBolt -> sink with a dead-letter sink (the 449 rows and one
+   poison record): every output a row of the engine's direct forward of a
+   batch it ran, each row answered once, the poison dead-lettered, the
+   accuracy at the output topic (b)'s within one row. Training runs
+   eagerly: no CUDA graph, no ``torch.compile``;
+16. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -4960,6 +4984,345 @@ def decode_and_drpc(torch, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 15: training on the card -------------------------------------------------
+
+TRAIN_SEED = 15
+TRAIN_STEPS = 3
+# Steps timed after the gated ones, their median printed (information only).
+TIMED_STEPS = 5
+# Each step's loss, kernel path against plain path, relative; step 1's
+# gradients by the global norm of their difference over the plain path's.
+TRAIN_LOSS_TOL = TRAIN_GRAD_TOL = 1e-4
+# Launches per ViT-B/16 float32 train step: the forward's fused norms and
+# f32 flash attention, nothing else (no backward kernel, float weights).
+TRAIN_STEP_LAUNCHES = {"residual_layernorm_sm90": 12, "flash_attention": 12}
+# accuracy_harness.py's digits training (MODEL_SPECS), from storm_tpu's
+# init_params exported to checkpoints_torch/<model>_init.npz.
+DIGITS_TRAIN = (("lenet5", (32, 32, 1)), ("resnet20", (32, 32, 3)),
+                ("vit_tiny", (32, 32, 3)), ("moe_vit_tiny", (32, 32, 3)))
+DIGITS_TRAIN_ARGS = {"batch_size": 128, "max_epochs": 60, "learning_rate": 1e-3,
+                     "patience": 8, "seed": 0}
+TRAIN_ACC_BOUND = 0.02  # held-out accuracy against ACCURACY_r04.json's
+ACCURACY_ARTIFACT = "ACCURACY_r04.json"
+
+
+def leaf_paths(tree) -> list:
+    from storm_tpu_torch.models.convert import _map
+
+    paths: list = []
+    _map(lambda _leaf, path: paths.append(path), tree)
+    return paths
+
+
+def vit_train_steps(torch, card: str) -> dict:
+    """(a) ViT-B/16 at full width in float32, seeded, one seeded batch of
+    B, TRAIN_STEPS AdamW steps through ``make_train_step``, once with the
+    kernels and once with the plain versions (``plain_kernels``), both on
+    the card."""
+    from storm_tpu_torch.models.convert import init_params, trainable_params, tree_leaves
+    from storm_tpu_torch.models.registry import model_def
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.parallel.train import make_train_step
+
+    md = model_def("vit_b16")
+    params0, _ = init_params(md, TRAIN_SEED)
+    rng = np.random.RandomState(TRAIN_SEED)
+    x = rng.rand(B, *md.input_shape).astype(np.float32)
+    y = rng.randint(0, md.num_classes, B).astype(np.int32)
+    paths = leaf_paths(params0)
+    runs = {}
+    for label in ("kernels", "plain"):
+        params = trainable_params(params0, "cuda")
+        step, opt = make_train_step(md, device="cuda")
+        opt_state = opt(params)
+        losses, ms, counts, grads = [], [], [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with plain_kernels() if label == "plain" else contextlib.nullcontext():
+            for i in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                t = time.perf_counter()
+                params, opt_state, _state, loss = step(params, opt_state, {}, x, y)
+                losses.append(float(loss))  # waits for the optimizer's kernels too
+                ms.append((time.perf_counter() - t) * 1e3)
+                counts.append(_build.launch_counts())
+                if i == 0:
+                    grads = [None if p.grad is None else p.grad.detach().clone()
+                             for p in tree_leaves(params)]
+            timed = []
+            for _ in range(TIMED_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt_state, _state, loss = step(params, opt_state, {}, x, y)
+                float(loss)
+                timed.append((time.perf_counter() - t) * 1e3)
+        runs[label] = {"losses": losses, "ms": ms, "counts": counts, "grads": grads,
+                       "step_ms": float(np.median(timed)),
+                       "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del params, opt_state, step, opt
+        torch.cuda.empty_cache()
+    k, p = runs["kernels"], runs["plain"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+    missing = [paths[i] for i, g in enumerate(k["grads"]) if g is None]
+    if missing:
+        raise AssertionError(f"phase 15a: leaves with no gradient on the kernel path: "
+                             f"{missing[:6]}")
+    # The attention key biases' gradients are zero in exact arithmetic (the
+    # softmax ignores a constant added to every score of a row): rounding
+    # noise, printed; every other leaf must have a nonzero gradient.
+    key_bias = [i for i, pth in enumerate(paths) if pth[-2:] == ("k", "b")]
+    zero = [paths[i] for i, g in enumerate(k["grads"])
+            if i not in key_bias and not bool(g.abs().max() > 0)]
+    if zero:
+        raise AssertionError(f"phase 15a: leaves with an all-zero gradient: {zero[:6]}")
+    diff = math.sqrt(sum(float((a - b).double().square().sum())
+                         for a, b in zip(k["grads"], p["grads"])))
+    norm = math.sqrt(sum(float(b.double().square().sum()) for b in p["grads"]))
+    grad_err = diff / norm
+    key_bias_max = max(float(k["grads"][i].abs().max()) for i in key_bias)
+    want = {n: TRAIN_STEP_LAUNCHES.get(n, 0) for n in _build.KERNELS}
+    for label, run in runs.items():
+        for i, c in enumerate(run["counts"]):
+            expect = want if label == "kernels" else {n: 0 for n in _build.KERNELS}
+            if c != expect:
+                raise AssertionError(f"phase 15a {label} step {i + 1}: launches {c}, "
+                                     f"want {expect}")
+    log(f"  (a) vit_b16 float32 B={B}, {TRAIN_STEPS} AdamW steps: losses kernels "
+        f"{k['losses']} plain {p['losses']}, max rel diff {loss_err:.3e} (<= "
+        f"{TRAIN_LOSS_TOL:.0e}); step 1 gradients: |g_k - g_p| / |g_p| {grad_err:.3e} (<= "
+        f"{TRAIN_GRAD_TOL:.0e}), {len(paths)} leaves all with a gradient, nonzero but for "
+        f"the {len(key_bias)} key biases (largest |g| {key_bias_max:.3e}); launches a step "
+        f"{k['counts'][0]}; step ms kernels {[round(v, 3) for v in k['ms']]} plain "
+        f"{[round(v, 3) for v in p['ms']]}, median of {TIMED_STEPS} more: kernels "
+        f"{k['step_ms']:.3f} plain {p['step_ms']:.3f}; peak bytes above the phase's start, kernels "
+        f"{k['peak_bytes']} plain {p['peak_bytes']} ({card})")
+    if not all(map(math.isfinite, k["losses"] + p["losses"])):
+        raise AssertionError("phase 15a: a loss is not finite")
+    if loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError(f"phase 15a: kernel path against plain path: losses "
+                             f"{loss_err}, gradients {grad_err}")
+    return {"losses": {"kernels": k["losses"], "plain": p["losses"]}, "loss_err": loss_err,
+            "grad_err": grad_err, "key_bias_max_grad": key_bias_max,
+            "step_ms": {"kernels": k["ms"], "plain": p["ms"]},
+            "median_step_ms": {"kernels": k["step_ms"], "plain": p["step_ms"]},
+            "peak_bytes": {"kernels": k["peak_bytes"], "plain": p["peak_bytes"]},
+            "launches_per_step": k["counts"][0]}
+
+
+def train_kernel_times(torch) -> dict:
+    """The two kernels a ViT-B/16 float32 train step launches, over one
+    step's forward's worth of calls at its shapes in float32 (TF32 off):
+    the kernel, its plain version and one library call (``F.layer_norm``
+    after the add; ``scaled_dot_product_attention``), by graph replay, and
+    the bound at the f32 peak outside the tensor cores."""
+    import torch.nn.functional as F
+
+    from storm_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from storm_tpu_torch.ops.fused_norm import (
+        fused_add_layernorm, fused_add_layernorm_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    ncalls = [(randn(M, DIM), randn(M, DIM), randn(DIM), randn(DIM)) for _ in range(DEPTH)]
+    bm, by = bound_ms(4 * M * DIM * 4 + 2 * DIM * 4, 10.0 * M * DIM, PEAK_F32_FLOPS)
+    out = {"residual_layernorm_sm90": {
+        "ms": time_ms(torch, lambda: [fused_add_layernorm(*c) for c in ncalls]),
+        "plain_ms": time_ms(torch, lambda: [fused_add_layernorm_reference(*c, 1e-6)
+                                           for c in ncalls]),
+        "library_ms": time_ms(torch, lambda: [F.layer_norm(x + r, (DIM,), w, b, 1e-6)
+                                             for x, r, w, b in ncalls]),
+        "bound_ms": bm * DEPTH, "bound_by": by, "calls": DEPTH}}
+    acalls = [tuple(randn(B, HEADS, SEQ, HDIM) for _ in range(3)) for _ in range(DEPTH)]
+    bm, by = bound_ms(4 * B * HEADS * SEQ * HDIM * 4, 4.0 * B * HEADS * SEQ * SEQ * HDIM,
+                      PEAK_F32_FLOPS)
+    out["flash_attention"] = {
+        "ms": time_ms(torch, lambda: [flash_attention(*c) for c in acalls]),
+        "plain_ms": time_ms(torch, lambda: [flash_attention_reference(*c) for c in acalls]),
+        "library_ms": time_ms(torch, lambda: [F.scaled_dot_product_attention(*c)
+                                             for c in acalls]),
+        "bound_ms": bm * DEPTH, "bound_by": by, "calls": DEPTH}
+    for name, t in out.items():
+        log(f"  (a) {name} float32, one ViT-B/16 train step's forward ({t['calls']} calls): "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']})")
+    return out
+
+
+def published_float_accuracy() -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ACCURACY_ARTIFACT)) as fh:
+        doc = json.load(fh)
+    return {r["model"]: r["acc_float_device"] for r in doc["results"]}
+
+
+def float_accuracy(torch, params, state, md, x: np.ndarray, y: np.ndarray) -> float:
+    """Held-out accuracy of a float32 module built from numpy trees, in
+    forwards of 512 rows on the card."""
+    from storm_tpu_torch.models.convert import from_jax_params
+
+    model = from_jax_params(params, md, state, dtype=torch.float32, device="cuda")
+    preds = []
+    with torch.no_grad():
+        for i in range(0, len(x), 512):
+            preds.append(model(torch.from_numpy(x[i:i + 512]).cuda()).argmax(-1).cpu().numpy())
+    return float((np.concatenate(preds) == y).mean())
+
+
+def digits_training(torch, card: str) -> dict:
+    """(b) the four digits models to convergence from storm_tpu's own
+    initial parameters, with accuracy_harness.py's settings."""
+    from storm_tpu_torch.data import load_digits_nhwc, train_to_convergence
+    from storm_tpu_torch.models.registry import CHECKPOINTS, load_checkpoint, model_def
+    from storm_tpu_torch.ops import _build
+
+    published = published_float_accuracy()
+    out = {}
+    for name, shape in DIGITS_TRAIN:
+        params0, state0, meta = load_checkpoint(str(CHECKPOINTS / f"{name}_init.npz"))
+        md = model_def(name, input_shape=shape)
+        if meta["model"] != name or tuple(meta["input_shape"]) != shape:
+            raise AssertionError(f"phase 15b: {name}_init.npz holds {meta}")
+        x_tr, y_tr, x_te, y_te = load_digits_nhwc(shape, seed=0)
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        params, state, hist = train_to_convergence(
+            md, x_tr, y_tr, x_te, y_te, device="cuda", init=(params0, state0),
+            **DIGITS_TRAIN_ARGS)
+        wall = time.perf_counter() - t
+        counts = _build.launch_counts()
+        acc = float_accuracy(torch, params, state, md, x_te, y_te)
+        best = max(hist, key=lambda h: h["val_acc"])
+        want = published[name]
+        log(f"  (b) {name}: {len(hist)} epochs in {wall:.3f} s, best epoch {best['epoch']} "
+            f"(val acc {best['val_acc']:.4f}, loss {best['loss']:.4f}); held-out accuracy "
+            f"of the snapshot {acc:.4f}, ACCURACY_r04.json {want:.4f} (bound "
+            f"{TRAIN_ACC_BOUND}); last epoch loss {hist[-1]['loss']:.4f}; eager launches "
+            f"{ {n: c for n, c in counts.items() if c} } ({card})")
+        if abs(acc - best["val_acc"]) > 1e-9:
+            raise AssertionError(f"phase 15b {name}: snapshot accuracy {acc} is not the best "
+                                 f"epoch's {best['val_acc']}")
+        if abs(acc - want) > TRAIN_ACC_BOUND:
+            raise AssertionError(f"phase 15b {name}: accuracy {acc} against {want}; "
+                                 f"history {hist}")
+        out[name] = {"epochs": len(hist), "best_epoch": best["epoch"], "wall_s": wall,
+                     "accuracy": acc, "published": want, "launches": counts,
+                     "history": hist, "params": params, "state": state, "md": md,
+                     "x_te": x_te, "y_te": y_te}
+    return out
+
+
+async def stream_trained(model_cfg, x: np.ndarray):
+    """``stream_digits``' ordering-deterministic topology (one partition,
+    1/1/1, max_inflight 1, a sync sink) with a dead-letter sink, the rows
+    and one poison record; each batch the engine is given recorded."""
+    from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig, SinkConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.infer import InferenceBolt
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+
+    batch_cfg = BatchConfig(max_batch=32, max_wait_ms=5.0, buckets=(8, 32), max_inflight=1)
+    broker = MemoryBroker(default_partitions=1)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None)))
+    tb.set_bolt("inference-bolt", InferenceBolt(model_cfg, batch_cfg, device="cuda")) \
+        .shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", SinkConfig(mode="sync"))) \
+        .shuffle_grouping("inference-bolt")
+    tb.set_bolt("dlq-bolt", BrokerSink(broker, "dead-letter", SinkConfig(mode="sync"))) \
+        .shuffle_grouping("inference-bolt", stream="dead_letter")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("trained", Config(), tb.build())
+    engine = rt.bolt_execs["inference-bolt"][0].bolt.engine
+    batches = []
+    dispatch = engine.dispatch
+
+    def recording_dispatch(parts):
+        batches.append(np.concatenate([np.array(p, copy=True) for p in parts]))
+        return dispatch(parts)
+
+    engine.dispatch = recording_dispatch
+    t0 = time.perf_counter()
+    for i, img in enumerate(x):
+        broker.produce("input", json.dumps({"instances": [img.tolist()]}), partition=0)
+        if i == len(x) // 2:
+            broker.produce("input", '{"instances": [[1.0, 2.0], [3.0]]}', partition=0)
+    deadline = time.monotonic() + 300
+    while broker.topic_size("output") + broker.topic_size("dead-letter") < len(x) + 1:
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 15c: records did not all come out in 300 s")
+        await asyncio.sleep(0.01)
+    wall = time.perf_counter() - t0
+    await rt.drain(timeout_s=60)
+    del engine.dispatch
+    snap = rt.metrics.snapshot()
+    errors = list(rt.errors)
+    outs, dlq = broker.drain_topic("output"), broker.drain_topic("dead-letter")
+    await cluster.shutdown()
+    if errors:
+        raise AssertionError(f"phase 15c: the topology reported errors: {errors[:3]}")
+    return engine, batches, outs, dlq, snap, wall
+
+
+def serve_trained(torch, trained: dict, card: str, tmp: str) -> dict:
+    """(c) (b)'s resnet20 written with ``save_checkpoint`` and served back
+    in float32: every output a row of the engine's direct forward of a
+    batch it ran, each row answered once, in order, the poison
+    dead-lettered, the accuracy (b)'s within one row."""
+    from storm_tpu_torch.api.schema import decode_predictions
+    from storm_tpu_torch.config import ModelConfig
+    from storm_tpu_torch.infer.engine import clear_engines
+    from storm_tpu_torch.models.registry import save_checkpoint
+
+    r = trained["resnet20"]
+    path = save_checkpoint(os.path.join(tmp, "resnet20_card_trained.npz"), r["params"],
+                           r["state"], r["md"])
+    cfg = ModelConfig.from_checkpoint(str(path), dtype="float32")
+    x, y = r["x_te"], r["y_te"]
+    clear_engines()
+    engine, batches, outs, dlq, snap, wall = asyncio.run(stream_trained(cfg, x))
+    counts = answers(output_index(engine, [b for b in batches if b.any()]), outs,
+                     [row.tobytes() for row in x.astype(np.float32)], "phase 15c")
+    if len(outs) != len(x) or counts != [1] * len(x):
+        raise AssertionError(f"phase 15c: {len(outs)} outputs for {len(x)} rows, answered "
+                             f"{sorted(set(counts))} times")
+    if len(dlq) != 1 or snap["inference-bolt"]["dead_lettered"] != 1:
+        raise AssertionError(f"phase 15c: {len(dlq)} dead letters")
+    preds = np.concatenate([decode_predictions(o.value).data for o in outs])
+    if not np.isfinite(preds).all() or np.abs(preds.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError("phase 15c: predictions are not finite distributions")
+    acc = float((preds.argmax(-1) == y).mean())
+    log(f"  (c) resnet20 trained on the card -> save_checkpoint -> spout -> InferenceBolt "
+        f"-> sink, float32: {len(outs)} outputs in {wall:.3f} s, each a row of the engine's "
+        f"direct forward of its batch, in order, 1 dead letter; accuracy at the output topic "
+        f"{acc:.4f}, (b) {r['accuracy']:.4f} ({card})")
+    if abs(acc - r["accuracy"]) > 1.0 / len(x) + 1e-12:
+        raise AssertionError(f"phase 15c: served accuracy {acc} against (b)'s {r['accuracy']}")
+    clear_engines()
+    return {"outputs": len(outs), "accuracy": acc, "trained_accuracy": r["accuracy"],
+            "wall_s": wall}
+
+
+def training(torch, card: str) -> dict:
+    import tempfile
+
+    t = time.perf_counter()
+    a = vit_train_steps(torch, card)
+    a["times"] = train_kernel_times(torch)
+    b = digits_training(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        c = serve_trained(torch, b, card, tmp)
+    keep = ("epochs", "best_epoch", "wall_s", "accuracy", "published", "launches")
+    return {"a": a, "b": {m: {k: r[k] for k in keep} for m, r in b.items()}, "c": c,
+            "wall_s": time.perf_counter() - t}
+
+
 def run() -> int:
     import torch
 
@@ -5065,7 +5428,12 @@ def run() -> int:
     phase14 = decode_and_drpc(torch, card)
     log(json.dumps({"decode_and_drpc": phase14, "card": card}, default=float))
 
-    log("[15] the kernels")
+    log("[15] training on the card: ViT-B/16 float32 steps (kernels against plain), the "
+        "digits models to convergence, a card-trained resnet20 served back")
+    phase15 = training(torch, card)
+    log(json.dumps({"training": phase15, "card": card}, default=float))
+
+    log("[16] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -5115,7 +5483,11 @@ def run() -> int:
             "vit_b16 int8_fused at-least-once twin, no fault (phase 13c)":
                 phase13["c_plain_launches"][name],
             "vit_b16 int8_fused exactly-once, faults (phase 13c)": phase13["c_launches"][name],
-            "vit_b16 int8_fused DRPC (phase 14e)": phase14["e_launches"][name]})
+            "vit_b16 int8_fused DRPC (phase 14e)": phase14["e_launches"][name],
+            "vit_b16 float32 train step (phase 15a)":
+                phase15["a"]["launches_per_step"][name]})
+        paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]
+                      for m, r in phase15["b"].items()})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],
@@ -5128,6 +5500,8 @@ def run() -> int:
             entry["mixer_s16"] = mixer[name]
         if name in longseq:
             entry["longseq_encoder"] = longseq[name]
+        if name in phase15["a"]["times"]:
+            entry["vit_b16_train_float32"] = phase15["a"]["times"][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -15,6 +15,11 @@ that has all three and writes plain numpy files the port reads:
   ``__meta__``, a JSON string with the model name, input shape, class
   count, the hyper sidecar's contents (where the directory has one) and
   the source directory;
+- ``<model>_init.npz`` for the four digits models (lenet5 at 32x32x1,
+  resnet20, vit_tiny and moe_vit_tiny at 32x32x3): storm_tpu's
+  ``init_params(model, 0)``, the parameters ``train_to_convergence``
+  starts from, in the same layout, so the port trains on the card from
+  storm_tpu's own start;
 - ``digits.npz``: scikit-learn's 1797 raw 8x8 digit images as uint8
   (0..16) and their labels, in scikit-learn's order;
 - ``reference_predictions.npz``: storm_tpu's ``InferenceEngine``
@@ -56,6 +61,10 @@ TAGS = {
 # The single-device serving modes of accuracy_harness.MODEL_SPECS (bfloat16
 # compute), and the float32 engine the tests hold the port's float32 to.
 MODES = ("bf16", "int8", "int8_fused", "uint8_wire", "float32")
+# <model>_init.npz: storm_tpu's init_params(model, 0) of accuracy_harness's
+# four trained models (MODEL_SPECS), at their input shapes.
+INIT_MODELS = {"lenet5": (32, 32, 1), "resnet20": (32, 32, 3), "vit_tiny": (32, 32, 3),
+               "moe_vit_tiny": (32, 32, 3)}
 NUM_CLASSES = 10
 SLICE = 64
 
@@ -95,6 +104,23 @@ def meta_of(tag: str) -> dict:
             hyper = json.load(f)
     return {"model": name, "input_shape": list(shape), "num_classes": NUM_CLASSES,
             "hyper": hyper, "source": src}
+
+
+def export_init(name: str, shape: tuple) -> None:
+    """``<name>_init.npz``: storm_tpu's ``init_params(model, 0)``, with the
+    ``__meta__`` its ``save_checkpoint`` sidecar would record."""
+    from storm_tpu.models.registry import build_model, init_params
+
+    model = build_model(name, num_classes=NUM_CLASSES, input_shape=shape)
+    params, state = init_params(model, 0)
+    arrays = flatten(params, state)
+    hyper = {"model": name, **model.hyper} if model.hyper is not None else None
+    meta = {"model": name, "input_shape": list(shape), "num_classes": NUM_CLASSES,
+            "hyper": json.loads(json.dumps(hyper)), "source": "init_params(model, 0)"}
+    np.savez_compressed(os.path.join(OUT, f"{name}_init.npz"),
+                        __meta__=np.array(json.dumps(meta)), **arrays)
+    print(f"{name}_init: {len(arrays)} arrays, "
+          f"{sum(a.size for a in arrays.values())} floats", flush=True)
 
 
 def mode_config(mode: str, tag: str):
@@ -182,6 +208,8 @@ def main() -> int:
                 flag = f"; max |dp| from float32 {dp:.4f}" + flag
             print(f"  {tag} {mode:10s} accuracy {acc:.4f}{flag}", flush=True)
     np.savez_compressed(os.path.join(OUT, "reference_predictions.npz"), **refs)
+    for name, shape in INIT_MODELS.items():
+        export_init(name, shape)
     return 0
 
 

@@ -1,11 +1,16 @@
 """Modules and seeded numpy initializers shared by the model families.
 
-Each module holds one layer's tensors as buffers (the port serves, it does
-not train) and calls the functional layer of ``storm_tpu_torch.ops.layers``.
-The initializers draw the JAX package's distributions from a numpy
-``RandomState`` and lay parameters out as the JAX package does: dense
-``w`` (in, out), convolution kernels HWIO, BatchNorm running statistics in
-the state tree.
+Each module holds one layer's tensors as buffers and calls the functional
+layer of ``storm_tpu_torch.ops.layers``. Serving builds a module once from
+prepared tensors (``models/convert.py``); training builds one per step
+from the parameter leaves that require grad (``convert.apply``), so the
+buffers are those leaves, or differentiable views of them, and gradients
+reach the leaves through every forward. In train mode (``module.train()``)
+a :class:`ConvBN` normalizes with its batch's statistics and keeps the
+updated running ones in ``new_state``. The initializers draw the JAX
+package's distributions from a numpy ``RandomState`` and lay parameters
+out as the JAX package does: dense ``w`` (in, out), convolution kernels
+HWIO, BatchNorm running statistics in the state tree.
 """
 
 from __future__ import annotations
@@ -74,11 +79,15 @@ class Conv(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Bias-free convolution, inference BatchNorm, then ``act`` (ReLU by
-    default; None for none): ``{"conv": {"w"}, "bn": {"scale", "bias"}}``
-    with state ``{"bn": {"mean", "var"}}`` (float32 in every mode).
-    ``conv`` names the convolution's key (MobileNetV2's depthwise
-    convolutions sit under ``"dw"``, with ``depthwise``)."""
+    """Bias-free convolution, BatchNorm, then ``act`` (ReLU by default;
+    None for none): ``{"conv": {"w"}, "bn": {"scale", "bias"}}`` with
+    state ``{"bn": {"mean", "var"}}`` (float32 in every mode). ``conv``
+    names the convolution's key (MobileNetV2's depthwise convolutions sit
+    under ``"dw"``, with ``depthwise``). In train mode the running
+    statistics a forward computes are kept in ``new_state`` (``{"mean",
+    "var"}``); every family names a ConvBN by the path of its state above
+    ``"bn"`` (``stages.0.1.a`` holds ``state["stages"][0][1]["a"]``), which
+    is how ``convert.apply`` gathers the new state tree."""
 
     def __init__(self, p: dict, s: dict, stride: int = 1, act=F.relu,
                  conv: str = "conv", depthwise: bool = False) -> None:
@@ -89,10 +98,14 @@ class ConvBN(nn.Module):
             self.register_buffer(name, p["bn"][name])
         for name in ("mean", "var"):
             self.register_buffer(name, s["bn"][name])
+        self.new_state = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.batchnorm({"scale": self.scale, "bias": self.bias},
-                        {"mean": self.mean, "var": self.var}, self.conv(x))
+        x, new_state = L.batchnorm({"scale": self.scale, "bias": self.bias},
+                                   {"mean": self.mean, "var": self.var}, self.conv(x),
+                                   train=self.training)
+        if self.training:
+            self.new_state = new_state
         return x if self.act is None else self.act(x)
 
 

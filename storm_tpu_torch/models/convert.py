@@ -1,5 +1,6 @@
-"""Parameters: seeded initialization, weight-only int8 quantization, and
-carrying the JAX package's parameter trees across.
+"""Parameters: seeded initialization, weight-only int8 quantization,
+carrying the JAX package's parameter trees across, and the functional
+forward that training differentiates (:func:`apply`).
 
 Trees are nested dicts and lists with array leaves, laid out as the JAX
 package lays them out: dense ``w`` is (in, out), convolution kernels are
@@ -124,6 +125,63 @@ def from_jax_params(params, model: ModelDef, state=None, *, weights: str = "floa
     dev = resolve_device(device)
     module = model.make(prepare_params(params, weights, dtype), prepare_state(state))
     return module.eval().to(dev)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in the order :func:`_map` visits them."""
+    leaves: list = []
+    _map(lambda leaf, _path: leaves.append(leaf), tree)
+    return leaves
+
+
+def trainable_params(params, device=None):
+    """Numpy float tree (JAX layout) -> the same tree of float32 leaf
+    tensors on ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU)
+    that require grad: what :func:`apply` differentiates and an optimizer
+    updates in place."""
+    dev = resolve_device(device)
+    return _map(lambda leaf, _p: _tensor(np.asarray(leaf, np.float32)).to(dev)
+                .requires_grad_(), params)
+
+
+def state_tensors(state, device=None):
+    """Numpy state tree -> float32 tensors on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return _map(lambda t, _p: t.to(dev), prepare_state(state))
+
+
+def host_tree(tree):
+    """Tree of tensors -> the same tree of numpy copies (what a snapshot
+    keeps: the optimizer updates the leaves in place)."""
+    return _map(lambda t, _p: t.detach().cpu().numpy().copy(), tree)
+
+
+def apply(model: ModelDef, params, state, x: torch.Tensor, train: bool = False):
+    """``(logits, new_state)`` of ``model`` on ``x``: the counterpart of
+    storm_tpu's ``ModelDef.apply(params, state, x, train)``. ``params``
+    and ``state`` are tensor trees in the JAX layout (e.g. from
+    :func:`trainable_params`); the module is built from them for this
+    call, so the logits are differentiable in every leaf. With ``train``
+    BatchNorm normalizes with the batch's statistics and ``new_state`` holds
+    the updated running ones, and a MoE-ViT adds its load-balancing loss
+    under ``"moe_aux_loss"`` (storm_tpu's training surface); otherwise
+    ``state`` is returned as it is."""
+    module = model.make(params, state or {})
+    module.train(train)
+    logits = module(x)
+    if not train:
+        return logits, state
+
+    def updated(leaf, path):
+        if len(path) < 2 or path[-2] != "bn":
+            return leaf  # e.g. the last step's moe_aux_loss, replaced below
+        return module.get_submodule(".".join(map(str, path[:-2]))).new_state[path[-1]]
+
+    new_state = _map(updated, state or {})
+    aux = [m.aux_loss for m in module.modules() if getattr(m, "aux_loss", None) is not None]
+    if aux:
+        new_state = {**new_state, "moe_aux_loss": sum(aux[1:], aux[0])}
+    return logits, new_state
 
 
 def chartiny_params(params, device=None) -> dict:

@@ -4,7 +4,9 @@ mixture-of-experts MLP in place of the dense one (the Switch
 placement), served at one expert shard (``storm_tpu_torch.parallel.moe``).
 
 At inference the router still runs, capacity-overflowed tokens pass
-through the residual, and the load-balancing loss is not computed. The
+through the residual, and the load-balancing loss is not computed; in
+train mode each MoE block keeps its loss in ``aux_loss``, which
+``convert.apply`` sums into the state's ``"moe_aux_loss"``. The
 even blocks are the ViT block (flash attention, the fused residual norm,
 w8a16 dense layers under ``int8_fused``); a MoE block runs flash attention
 and its four attention projections through w8a16, and its experts (3-D
@@ -23,6 +25,8 @@ from storm_tpu_torch.models.vit import Block, MultiHeadAttention, ViT, vit_init
 from storm_tpu_torch.parallel.moe import moe_block
 
 MOE_KEYS = ("gate", "w_in", "b_in", "w_out", "b_out")
+# storm_tpu's moe_layer default: the Switch load-balancing loss's weight.
+AUX_LOSS_WEIGHT = 1e-2
 
 
 class MoEBlock(nn.Module):
@@ -38,12 +42,17 @@ class MoEBlock(nn.Module):
         self.ln2 = LayerNorm(p["ln2"])
         for k in MOE_KEYS:
             self.register_buffer(k, p["moe"][k])
+        self.aux_loss = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = {"ln1": self.ln1.params(), "ln2": self.ln2.params(),
              "attn": {n: getattr(self.attn, n).params() for n in "qkvo"},
              "moe": {k: getattr(self, k) for k in MOE_KEYS}}
-        return moe_block(p, x, self.num_heads, self.capacity_factor)
+        x, aux = moe_block(p, x, self.num_heads, self.capacity_factor,
+                           AUX_LOSS_WEIGHT if self.training else None)
+        if self.training:
+            self.aux_loss = aux
+        return x
 
 
 def moe_init(rng: np.random.RandomState, dim: int, mlp_dim: int, n_experts: int) -> dict:

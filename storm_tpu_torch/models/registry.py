@@ -53,6 +53,12 @@ class ModelDef:
     make: Callable[[Any, Any], nn.Module]
     hyper: Dict[str, Any]
 
+    def apply(self, params, state, x: torch.Tensor, train: bool = False):
+        """``(logits, new_state)``: :func:`storm_tpu_torch.models.convert.apply`."""
+        from storm_tpu_torch.models.convert import apply
+
+        return apply(self, params, state, x, train)
+
 
 _BUILDERS: Dict[str, Callable[..., ModelDef]] = {}
 
@@ -127,6 +133,43 @@ def checkpoint_path(checkpoint: str) -> Path:
             "export_torch_checkpoints.py writes checkpoints_torch/ from the "
             "JAX package's orbax checkpoints")
     return path.resolve()
+
+
+def _flatten(tree, prefix: str) -> Dict[str, np.ndarray]:
+    """``{"params/a/0/b": f32 array}``: the inverse of :func:`_unflatten`."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: np.asarray(tree, np.float32)}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}"))
+    return out
+
+
+def save_checkpoint(path, params, state, model: ModelDef) -> Path:
+    """Write ``params`` and ``state`` (numpy trees in the JAX layout, e.g.
+    from ``train_to_convergence``) to the ``.npz`` file ``path`` in the
+    layout ``export_torch_checkpoints.py`` writes: float32 leaves keyed by
+    tree path and ``__meta__`` with the model's name, input shape, class
+    count and hyperparameters, so :func:`load_checkpoint`,
+    :func:`check_checkpoint` and ``ModelConfig.from_checkpoint`` read it.
+    Written to a private name, then renamed. Returns the path."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        raise ValueError(f"a checkpoint is a .npz file, got {str(path)!r}")
+    meta = {"model": model.name, "input_shape": list(model.input_shape),
+            "num_classes": model.num_classes,
+            "hyper": json.loads(json.dumps({"model": model.name, **model.hyper})),
+            "source": str(path)}
+    arrays = {**_flatten(params, "params"), **_flatten(state or {}, "state")}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.tmp.npz")
+    np.savez_compressed(tmp, __meta__=np.array(json.dumps(meta)), **arrays)
+    tmp.replace(path)
+    return path
 
 
 def checkpoint_meta(checkpoint: str) -> Dict[str, Any]:

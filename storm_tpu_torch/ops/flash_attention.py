@@ -18,6 +18,14 @@ The kernels are built for the head dims of ``HEAD_DIMS``; any other
 sliced back to D. Zero columns change neither q k^T nor the kept columns
 of p v. The padding runs on both devices, so the CPU path is the card's
 arithmetic. ``D > 128`` raises.
+
+Training: :func:`flash_attention` goes through an autograd function
+whose forward is the kernel (whose output it writes outside autograd)
+and whose backward is autograd of :func:`flash_attention_reference` over
+the same zero-padded q, k and v, recomputed from the saved inputs. The
+TPU kernel has no VJP (storm_tpu differentiates its plain attention
+below S = 1024 and never trains through the kernel), so there is no
+backward kernel here either.
 """
 
 from __future__ import annotations
@@ -87,7 +95,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v for (B, H, S, D) inputs of one dtype, any
     D up to 128 (``scale`` defaults to D ** -0.5 of the true D).
     ``variant`` names the CUDA kernel to launch instead of the one
-    :func:`kernel_variant` picks (for timing one against the other)."""
+    :func:`kernel_variant` picks (for timing one against the other).
+    Differentiable (:class:`FlashAttention`)."""
+    return FlashAttention.apply(q, k, v, scale, variant)
+
+
+def padded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version as the wrapper computes it: q, k and v padded
+    along D (:func:`pad_head_dim`), the true D's scale, sliced back."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    return _unpad(flash_attention_reference(*pad_head_dim(q, k, v), scale), d)
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`_flash_forward` with the gradient of :func:`padded_reference`:
+    gradients reach q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, variant):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_forward(q, k, v, scale, variant)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = padded_reference(*inputs, ctx.scale)
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: Optional[float], variant: Optional[str]) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, H, S, D) shape, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")

@@ -6,8 +6,15 @@ TPU's opt-in switch has no counterpart here), one launch per call, with
 the launch plan of :func:`norm_plan`; the first version,
 ``csrc/fused_norm.cu``, runs only when named (for timing one against the
 other). On a CPU tensor it runs :func:`fused_add_layernorm_reference`, the
-kernels' arithmetic in plain PyTorch. Inference only: the TPU path's
-custom VJP for training is not ported.
+kernels' arithmetic in plain PyTorch.
+
+Training: :func:`residual_layernorm` goes through an autograd function,
+the counterpart of the TPU path's ``jax.custom_vjp`` (``_fused``). Its
+forward is :func:`fused_add_layernorm` (the kernel on a CUDA tensor),
+whose outputs the kernel writes outside autograd; its backward is
+autograd of :func:`fused_add_layernorm_reference`, recomputed from the
+saved inputs, as ``_fused_bwd`` is ``jax.vjp`` of the unfused reference.
+There is no backward kernel, as the TPU path has none.
 """
 
 from __future__ import annotations
@@ -120,13 +127,34 @@ def fused_add_layernorm(x2: torch.Tensor, r2: torch.Tensor, g: torch.Tensor,
     return y, out
 
 
+class FusedAddLayerNorm(torch.autograd.Function):
+    """:func:`fused_add_layernorm` with the gradient of its plain version:
+    gradients reach x, r, scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x2, r2, g, b, eps):
+        ctx.save_for_backward(x2, r2, g, b)
+        ctx.eps = eps
+        return fused_add_layernorm(x2, r2, g, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy, dout):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            outs = fused_add_layernorm_reference(*inputs, ctx.eps)
+            grads = iter(torch.autograd.grad(outs, wanted, (dy, dout)))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
 def residual_layernorm(p: dict, branch: torch.Tensor, x: torch.Tensor,
                        eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """``y = x + branch; out = LayerNorm_p(y)``; returns ``(y, out)`` so
     the caller keeps the residual stream. ``p`` is ``{"scale", "bias"}``.
     As in the TPU kernel, the kernel's ``x`` is the branch and its ``r``
-    the residual stream."""
+    the residual stream. Differentiable (:class:`FusedAddLayerNorm`)."""
     d = x.shape[-1]
-    y, out = fused_add_layernorm(branch.reshape(-1, d), x.reshape(-1, d),
-                                 p["scale"], p["bias"], eps)
+    y, out = FusedAddLayerNorm.apply(branch.reshape(-1, d), x.reshape(-1, d),
+                                     p["scale"], p["bias"], eps)
     return y.reshape(x.shape), out.reshape(x.shape)

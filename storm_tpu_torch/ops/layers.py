@@ -93,13 +93,30 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean(dim=(1, 2)).to(x.dtype)
 
 
-def batchnorm(p: dict, s: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Inference BatchNorm over the channel (last) axis with the running
-    statistics ``s`` (f32 ``mean``, ``var``) and ``p``'s ``scale`` and
-    ``bias`` (in the compute dtype): computed in f32, cast to x.dtype."""
-    inv = torch.rsqrt(s["var"] + eps) * p["scale"].float()
-    y = (x.float() - s["mean"]) * inv + p["bias"].float()
-    return y.to(x.dtype)
+def batchnorm(p: dict, s: dict, x: torch.Tensor, train: bool = False,
+              momentum: float = 0.9, eps: float = 1e-5) -> Tuple[torch.Tensor, dict]:
+    """BatchNorm over the channel (last) axis, ``storm_tpu/ops/layers.py``'s
+    ``batchnorm``: returns ``(y, new_state)``. Inference normalizes with
+    the running statistics ``s`` (f32 ``mean``, ``var``) and returns ``s``;
+    ``train`` normalizes with the batch's f32 mean and biased variance
+    over every axis but the last, and returns ``momentum * old + (1 -
+    momentum) * batch`` for both statistics (detached: running statistics
+    carry no gradient). ``F.batch_norm`` differs on both counts (an
+    unbiased running variance, momentum on the new value). Computed in
+    f32 with ``p``'s ``scale`` and ``bias``, cast to x.dtype."""
+    if train:
+        axes = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = (xf - mean).square().mean(dim=axes)
+        new_s = {"mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
+                 "var": momentum * s["var"] + (1 - momentum) * var.detach()}
+    else:
+        mean, var = s["mean"], s["var"]
+        new_s = s
+    inv = torch.rsqrt(var + eps) * p["scale"].float()
+    y = (x.float() - mean) * inv + p["bias"].float()
+    return y.to(x.dtype), new_s
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -112,8 +129,12 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    """min(max(x, 0), 6): MobileNet's activation."""
-    return torch.clamp(x, 0.0, 6.0)
+    """min(max(x, 0), 6): MobileNet's activation, ``jnp.clip``'s gradient
+    included: half the gradient at exactly 0 and at exactly 6, as
+    ``maximum`` and ``minimum`` split a tie (``torch.clamp`` passes all
+    of it). A BatchNorm in train mode over a channel that is constant
+    across the batch gives exactly 0 there."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ cores multiply f32 only as TF32, which would break f32 parity). Both read
 the weights as int8, accumulate in f32 and scale the accumulator per
 output channel. On a CPU tensor it runs :func:`w8a16_matmul_reference`,
 the same arithmetic in plain PyTorch. Any other device raises.
+
+Not differentiable on the card: int8 weights are a serving mode, and the
+kernels write their output outside autograd. Under grad mode a CUDA
+input that requires grad is refused (a ``pallas_call`` under ``jax.grad``
+fails too), never answered with an output cut from the graph.
 """
 
 from __future__ import annotations
@@ -94,6 +99,10 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _check(x, q, s)
     if not route("w8a16_matmul", x, q, s):
         return w8a16_matmul_reference(x, q, s)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, s)):
+        raise RuntimeError(
+            "w8a16_matmul has no gradient on the card: int8 weights serve, they "
+            "do not train (train float weights, or run under torch.no_grad())")
     # The kernels read x as dense (M, K) rows: a strided view (the
     # mixer's transposed tokens) is copied once, never read with wrong
     # strides.

@@ -17,15 +17,17 @@ dispatch and combine run in f32; the experts' two matmuls run in the
 activation dtype, accumulated in f32. The router's argmax takes the first
 expert on a tie, as ``jnp.argmax`` does.
 
-Sharding the experts over devices (``shard_moe_params``, the ``expert``
-mesh axis) and the training-time load-balancing loss are not ported: at
-inference storm_tpu discards that loss.
+``moe_layer`` also returns the Switch load-balancing loss, as storm_tpu's
+does; a serving forward passes ``aux_loss_weight=None`` and skips it
+(storm_tpu's compiled forward drops the unused value too), so a CUDA graph
+holds the layer's kernels alone. Sharding the experts over devices
+(``shard_moe_params``, the ``expert`` mesh axis) is not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,17 +63,22 @@ def moe_routing(gate: torch.Tensor, tokens: torch.Tensor, n_experts: int,
     return probs, expert, keep, pos, cap
 
 
-def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25) -> torch.Tensor:
+def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
+              aux_loss_weight: Optional[float] = 1e-2
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-1 MoE MLP over the tokens of ``x`` (..., dim): ``p`` holds
     ``gate`` (dim, E), ``w_in`` (E, dim, mlp), ``b_in`` (E, mlp),
-    ``w_out`` (E, mlp, dim), ``b_out`` (E, dim). Returns x's shape and
-    dtype; an overflowed token's row is 0."""
+    ``w_out`` (E, mlp, dim), ``b_out`` (E, dim). Returns ``(y, aux)``: y
+    of x's shape and dtype, an overflowed token's row 0; ``aux`` the
+    Switch load-balancing loss (E times the sum over experts of the
+    fraction of tokens routed there times the mean gate probability),
+    times ``aux_loss_weight``, in f32; None when the weight is None."""
     shape = x.shape
     dim = shape[-1]
     tokens = x.reshape(-1, dim)
     n = tokens.shape[0]
     e = p["w_in"].shape[0]
-    probs, _expert, keep, pos, cap = moe_routing(p["gate"], tokens, e, capacity_factor)
+    probs, expert, keep, pos, cap = moe_routing(p["gate"], tokens, e, capacity_factor)
     # A token's slot in its expert's queue, one-hot over the capacity; an
     # overflowed token's slot (>= cap) matches no column.
     slot = pos.sum(dim=-1)
@@ -87,13 +94,19 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25) -> torch.
     ye = _matmul(h, p["w_out"]) + p["b_out"].to(h.dtype)[:, None, :]  # (E, C, dim)
     # "nec,ecd->nd": each token's expert output, weighted by its gate.
     y = combine.reshape(n, e * cap) @ ye.float().reshape(e * cap, dim)
-    return y.to(x.dtype).reshape(shape)
+    aux = None
+    if aux_loss_weight is not None:
+        onehot = (expert[:, None] == torch.arange(e, device=x.device)).float()
+        aux = aux_loss_weight * e * (onehot.mean(dim=0) * probs.mean(dim=0)).sum()
+    return y.to(x.dtype).reshape(shape), aux
 
 
-def moe_block(p: dict, x: torch.Tensor, num_heads: int,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+def moe_block(p: dict, x: torch.Tensor, num_heads: int, capacity_factor: float = 1.25,
+              aux_loss_weight: Optional[float] = 1e-2
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A pre-LN transformer block whose MLP is the MoE layer, (B, S, D) ->
-    (B, S, D): ``x + MHA(LN1(x))``, then ``+ MoE(LN2(.))``. Both norms
-    are plain LayerNorms, as in storm_tpu (no fused residual norm)."""
+    ((B, S, D), aux): ``x + MHA(LN1(x))``, then ``+ MoE(LN2(.))``. Both
+    norms are plain LayerNorms, as in storm_tpu (no fused residual norm)."""
     x = x + multi_head_attention(p["attn"], L.layernorm(p["ln1"], x), num_heads)
-    return x + moe_layer(p["moe"], L.layernorm(p["ln2"], x), capacity_factor)
+    h, aux = moe_layer(p["moe"], L.layernorm(p["ln2"], x), capacity_factor, aux_loss_weight)
+    return x + h, aux

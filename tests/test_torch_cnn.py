@@ -129,11 +129,11 @@ def test_batchnorm_inference(dtype):
     want, _ = JL.batchnorm({"scale": jnp.asarray(scale, jd), "bias": jnp.asarray(bias, jd)},
                            {"mean": jnp.asarray(mean), "var": jnp.asarray(var)},
                            jnp.asarray(x, jd), train=False)
-    got = L.batchnorm({"scale": torch.from_numpy(scale).to(td),
-                       "bias": torch.from_numpy(bias).to(td)},
-                      {"mean": torch.from_numpy(mean), "var": torch.from_numpy(var)},
-                      torch.from_numpy(x).to(td))
-    assert got.dtype == td
+    state = {"mean": torch.from_numpy(mean), "var": torch.from_numpy(var)}
+    got, new_state = L.batchnorm({"scale": torch.from_numpy(scale).to(td),
+                                  "bias": torch.from_numpy(bias).to(td)},
+                                 state, torch.from_numpy(x).to(td))
+    assert got.dtype == td and new_state is state
     _close(got, want, tol)
 
 

@@ -24,6 +24,7 @@ import storm_tpu_torch.runtime as port_runtime
 import storm_tpu_torch.runtime.cluster as port_cluster
 import storm_tpu_torch.runtime.drpc as port_drpc
 from tests.test_torch_checkpoints import abstract_init  # noqa: F401  (fixture)
+from tests.test_torch_codec import storm_tpu_native  # noqa: F401 (module fixture)
 from tests.test_torch_copyledger import clear_engine_caches
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,10 +144,12 @@ def _lenet5(impl, server):
     return impl.drpc.drpc_inference_topology(server, model, batch, device="cpu")
 
 
-def test_inference_topology_matches_storm_tpu(run, abstract_init):
+def test_inference_topology_matches_storm_tpu(run, abstract_init, storm_tpu_native):
     """Twelve concurrent calls on lenet5's digits checkpoint: each answer
     within 1e-5 of storm_tpu's answer to the same call; the poison call
-    fails with the same schema error in both, not with a timeout."""
+    fails with the same schema error in both, not with a timeout.
+    storm_tpu decodes through its native codec (``storm_tpu_native``),
+    whose error text is the port's, whether or not its ``make`` has run."""
     from storm_tpu_torch.data import load_digits_nhwc
 
     xs = load_digits_nhwc((32, 32, 1))[2][:12]

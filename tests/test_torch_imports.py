@@ -4,7 +4,8 @@ flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
 record frames, topology builder, observatory and cascade, the runtime's
 groupings, state, chaos monkey, transactions and metrics consumers, the
 exactly-once sink, the decode tier, the ring, DRPC, windows, joins, event
-time, shell components, the multilang child side and flux included), and
+time, shell components, the multilang child side, flux and training
+included), and
 neither chip_smoke.py nor kernel_sweep.py, imports JAX, orbax,
 scikit-learn, pyarrow or anything of the JAX package storm_tpu (the
 machine with the card has none of them)."""
@@ -173,7 +174,8 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.runtime.drpc", "storm_tpu_torch.runtime.window",
                  "storm_tpu_torch.runtime.join", "storm_tpu_torch.runtime.event_time",
                  "storm_tpu_torch.runtime.shell", "storm_tpu_torch.multilang",
-                 "storm_tpu_torch.flux"):
+                 "storm_tpu_torch.flux", "storm_tpu_torch.parallel.train",
+                 "storm_tpu_torch.data", "storm_tpu_torch.data.digits"):
         assert repr(name) in out.stdout, name
 
 
@@ -264,3 +266,36 @@ def test_decode_and_stream_operators_load_no_jax():
     assert "CHILD []" in out.stdout, out.stdout
     assert "STEP (2, 98) JoinBolt EventTimeWindowBolt TumblingWindowBolt ShellBolt" \
         in out.stdout, out.stdout
+
+
+def test_training_loads_no_jax(tmp_path):
+    """The training step imported first in a fresh interpreter, then one
+    lenet5 step taken on the CPU, its parameters saved with
+    ``save_checkpoint`` and read back: nothing of JAX or storm_tpu gets
+    loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import storm_tpu_torch.parallel.train
+        import numpy as np
+        from storm_tpu_torch.data import train_to_convergence
+        from storm_tpu_torch.models.convert import host_tree, trainable_params
+        from storm_tpu_torch.models.registry import load_checkpoint, model_def, save_checkpoint
+        md = model_def("lenet5")
+        step, opt = storm_tpu_torch.parallel.train.make_train_step(md, device="cpu")
+        params = trainable_params(md.init(np.random.RandomState(0))[0], "cpu")
+        x = np.random.RandomState(1).rand(4, 28, 28, 1).astype(np.float32)
+        params, _opt, state, loss = step(params, opt(params), {{}}, x, np.arange(4))
+        path = save_checkpoint({str(tmp_path / "lenet5.npz")!r}, host_tree(params), state, md)
+        print("TRAINED", float(loss) > 0, load_checkpoint(str(path))[2]["model"],
+              train_to_convergence.__name__)
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert "TRAINED True lenet5 train_to_convergence" in out.stdout, out.stdout

@@ -154,7 +154,7 @@ def test_moe_routing_identical_in_float32_at_a_padded_bucket(capacity_factor):
     assert np.array_equal(t_keep.numpy(), keep)
     assert np.array_equal(t_pos.numpy(), pos)
     want = np.asarray(_jax_moe_layer(p, jnp.asarray(tokens), capacity_factor))
-    got = moe_layer(tp, torch.from_numpy(tokens), capacity_factor).numpy()
+    got = moe_layer(tp, torch.from_numpy(tokens), capacity_factor)[0].numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     dropped = keep.sum(-1) == 0
     assert np.array_equal((got == 0).all(-1), (want == 0).all(-1))
@@ -181,7 +181,7 @@ def test_moe_bf16_routes_alike_and_outputs_within_bound():
     assert (t_expert.numpy() != expert).mean() <= 0.05
     want = np.asarray(_jax_moe_layer(jax.tree.map(lambda a: a.astype(jnp.bfloat16), p),
                                      xb, 1.25), np.float32)
-    got = moe_layer(tpb, tb).float().numpy()
+    got = moe_layer(tpb, tb)[0].float().numpy()
     alike = (t_keep.numpy() == keep).all(-1)
     assert alike.mean() >= 0.9
     assert np.abs(got - want)[alike].max() <= 3e-2 * np.abs(want).max()
