@@ -257,7 +257,34 @@ no result):
    batch it ran, each row answered once, the poison dead-lettered, the
    accuracy at the output topic (b)'s within one row. Training runs
    eagerly: no CUDA graph, no ``torch.compile``;
-16. the ``{"kernels": [...]}`` line, then the card line, then the last line
+16. the distributed runtime: the port's Kafka stub in a process of its own
+   and ``DistCluster(3)`` on the card (control token on), phase 13's
+   main path (ViT-B/16 bf16 ``int8_fused``, ``max_batch`` 8, bucket 8,
+   ``max_wait_ms`` 50) with the dist default (the raw scheme, chunks of 8
+   as record frames) on the binary wire: (a) the spouts x2 and the sinks
+   x2 on w0, the inference tasks x4 on w1, the dead-letter sink on w2;
+   phase 13's 80 records and one poison: each answered exactly once, the
+   poison dead-lettered, every prediction finite, summing to 1 and within
+   ``DIST_TOL`` (1e-6) of this script's own forward of its record with the
+   same argmax (records whose forwards lie within twice that of each other
+   are counted as one group, and the groups are printed), w1's engine
+   tally (read over the ``metrics`` control op) exactly its forwards x
+   (73, 12, 12), one replay of each of its buckets traced on w1 by the
+   profiler (the ``replay_kernels`` op) running the kernels its capture
+   recorded, and no engine on w0 or w2; (b)
+   information only: phase 13's burst of 256 with everything on w0, then
+   with (a)'s placement: records/s, the sink's e2e p50 (``root_ts``
+   rebased across processes), the decodes' share of the wall, the wire's
+   bytes a record (the copy ledgers' ``wire_encode`` and ``shm_transport``
+   bytes), the deliveries by the shm lane and by TCP, and the card's idle
+   share sampled by NVML; (c) two frames corrupted by the chaos injector
+   on w0 (w1 counts the bad checksums, every record answered), w1
+   SIGKILLed mid-burst (the heartbeat monitor's ``recover_worker``
+   replaces it; every record answered at least once; the time to recover
+   and the duplicates printed), and a Control call with a wrong token
+   refused ``UNAUTHENTICATED``. The kernels were built in phase 2, so the
+   workers load them;
+17. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -1057,12 +1084,13 @@ def profiled_kernels(torch, fn) -> tuple:
     three of a replay's, seen on the card late in this script): ``fn()``
     runs once to warm it, then a spin kernel, then ``fn()`` again, and only
     what the card ran after the spin is counted. A trace that lost the spin
-    kernel itself (seen once on the card, in phase 8b) is taken again, up
-    to three times."""
+    kernel itself (seen once on the card, in phase 8b), or every kernel
+    after it (seen on the card in phase 12 (a): ``fn()`` always launches
+    some), is taken again, up to five times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -1074,11 +1102,13 @@ def profiled_kernels(torch, fn) -> tuple:
                           and "Memcpy" not in ev.name and "Memset" not in ev.name),
                          key=lambda ev: ev.time_range.start)
         spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
-        if spins:
+        if spins and spins[-1] + 1 < len(kernels):
             break
-        log(f"  the profiler recorded no separating spin kernel (trace {attempt + 1} of 3)")
+        log(f"  the profiler recorded {'no kernel after' if spins else 'no'} separating "
+            f"spin kernel (trace {attempt + 1} of 5)")
     else:
-        raise AssertionError("the profiler recorded no separating spin kernel in 3 traces")
+        raise AssertionError("the profiler recorded no separating spin kernel with kernels "
+                             "after it in 5 traces")
     counts = dict.fromkeys(KERNEL_FUNCS, 0)
     counts["all"] = 0
     ms = dict.fromkeys(counts, 0.0)
@@ -2211,9 +2241,14 @@ async def serve_longseq(records: list, continuous: bool = True, shed=None, traci
     spouts = [e.spout for e in rt.spout_execs["kafka-spout"]]
     t0 = time.perf_counter()
     for i, (key, payload, _lane) in enumerate(records):
-        broker.produce("input", payload, key=key)
+        # Records alternate partitions, so each spout task carries every
+        # lane in turn. Left to the key's hash, the layout follows the
+        # process's hash seed: a lane could sit in one partition alone,
+        # and its spout could finish before the shed controller first rose.
+        broker.produce("input", payload, key=key, partition=i % 2)
         if i == len(records) // 2:
-            broker.produce("input", '{"instances": [[1.0, 2.0], [3.0]]}', key=b"gold:high")
+            broker.produce("input", '{"instances": [[1.0, 2.0], [3.0]]}', key=b"gold:high",
+                           partition=(i + 1) % 2)
     total = len(records) + 1
     deadline = time.monotonic() + 300
     while (broker.topic_size("output") + broker.topic_size("dead-letter")
@@ -2329,7 +2364,9 @@ def longseq_served(torch, card: str) -> dict:
                              f"({s['decisions']})")
     if not any(m["lane"] == "best_effort" for m in over):
         raise AssertionError(f"shed turn: no best-effort record came back Overloaded "
-                             f"({len(over)} Overloaded, {s['dropped']} dropped at the spout)")
+                             f"({len(over)} Overloaded, lanes "
+                             f"{sorted({m['lane'] for m in over})}, {s['dropped']} dropped "
+                             f"at the spout, decisions {s['decisions']})")
     if any(m["lane"] == "high" for m in over) or \
             snap["kafka-bolt"].get("e2e_latency_ms_high", {}).get("count") != n // 3 or \
             snap.get("qos", {}).get("shed_lane_high", 0):
@@ -3341,7 +3378,10 @@ async def serve_standard(cfg, payloads: list, keys=None, n_out: int = None, hold
     for i, p in enumerate(payloads):
         if i and i % per == 0:
             await asyncio.sleep(gap_s)
-        broker.produce("input", p, key=keys[i] if keys else None)
+        # Keyed records alternate partitions, as in serve_longseq: every
+        # spout task carries every lane, whatever the process's hash seed.
+        broker.produce("input", p, key=keys[i] if keys else None,
+                       partition=i % 2 if keys else None)
     deadline = time.monotonic() + 300
     while (broker.topic_size("output") + broker.topic_size("dead-letter")
            + sum(s.dropped for s in spouts)) < n_out:
@@ -5323,6 +5363,475 @@ def training(torch, card: str) -> dict:
             "wall_s": time.perf_counter() - t}
 
 
+# ---- phase 16: the distributed runtime --------------------------------------------
+
+# (a)'s placement: the spouts and the sinks on w0, the inference tasks on w1,
+# the dead-letter sink on w2; (b)'s first turn puts everything on w0.
+DIST_PLACEMENT = {"kafka-spout": 0, "kafka-bolt": 0, "inference-bolt": 1, "dlq-bolt": 2}
+DIST_ONE = {c: 0 for c in DIST_PLACEMENT}
+DIST_CHUNK = 8  # records a spout tuple: one record frame under the dist default
+DIST_TOKEN = "chip-smoke-phase16"
+# A served row against chip_smoke's own forward of its record. The output
+# rounds each probability to 7 decimals (at most 5e-8 off); the worker's
+# forward is the same kernels on the same bucket. Records whose forwards lie
+# within 2 * DIST_TOL of each other cannot be told apart by their answers
+# and are counted as one group.
+DIST_TOL = 1e-6
+DIST_KILL_RECORDS = 64  # (c)'s burst across the SIGKILL of w1
+
+
+@contextlib.contextmanager
+def stub_process():
+    """The port's Kafka stub in a process of its own; yields its port."""
+    proc = subprocess.Popen([sys.executable, "-m", "storm_tpu_torch.connectors.kafka_stub",
+                             "--port", "0", "--partitions", "2"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stdin=subprocess.DEVNULL)
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise RuntimeError("the Kafka stub died during startup")
+        yield json.loads(line)["port"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+
+
+class TopicReader:
+    """New records of a topic since the last ``take``, over the wire."""
+
+    def __init__(self, broker, topic: str) -> None:
+        self.broker, self.topic = broker, topic
+        self.pos = {p: broker.latest_offset(topic, p)
+                    for p in range(broker.partitions_for(topic))}
+
+    def take(self) -> list:
+        out = []
+        for p, off in self.pos.items():
+            while off < self.broker.latest_offset(self.topic, p):
+                recs = self.broker.fetch(self.topic, p, off, 512)
+                if not recs:
+                    break
+                out += [r.value for r in recs]
+                off = recs[-1].offset + 1
+            self.pos[p] = off
+        return out
+
+
+class NvmlSampler:
+    """The card's utilization sampled by NVML (``nvidia-smi -lms 50``) over
+    a block: ``idle_share`` is 1 - the mean sampled utilization (the share
+    of each sample period in which no kernel ran), None without samples."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples: list = []
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                 "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+            return self
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    self.samples.append(float(line.strip()))
+                except ValueError:
+                    pass
+
+        self.thread = threading.Thread(target=read, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+            self.thread.join(timeout=5)
+            self.proc.stdout.close()
+        self.idle_share = (1 - float(np.mean(self.samples)) / 100.0) if self.samples else None
+
+
+def dist_config(bootstrap: str, timeout_s: float = 30.0):
+    """Phase 13's main path on the Kafka stub, chunks of DIST_CHUNK records;
+    DistCluster.submit applies the dist default (the raw scheme, record
+    frames) and the binary wire is the default. The spout starts at the
+    log's end (each turn's records are produced after its submit), and
+    replays without a freshness bound."""
+    from storm_tpu_torch.config import OffsetsConfig
+
+    cfg = life_config(timeout_s)
+    cfg.offsets = OffsetsConfig(policy="latest", max_behind=None)
+    cfg.broker.kind, cfg.broker.bootstrap = "kafka", bootstrap
+    cfg.topology.spout_chunk = DIST_CHUNK
+    return cfg
+
+
+def dist_rows(values: list) -> np.ndarray:
+    from storm_tpu_torch.api.schema import decode_predictions
+
+    if not values:
+        return np.zeros((0, CLASSES), np.float32)
+    return np.concatenate([decode_predictions(v).data for v in values])
+
+
+def ref_groups(ref: np.ndarray) -> np.ndarray:
+    """A label for each of chip_smoke's forwards, shared by forwards within
+    2 * DIST_TOL of each other (transitively): a served row within DIST_TOL
+    of one of a group cannot be told from the group's others, and its
+    nearest forward lies in that group."""
+    near = np.abs(ref[:, None, :] - ref[None, :, :]).max(-1) <= 2 * DIST_TOL
+    labels = np.arange(len(ref))
+    while True:
+        new = np.where(near, labels[None, :], len(ref)).min(1)
+        if (new == labels).all():
+            return labels
+        labels = new
+
+
+def match_rows(rows: np.ndarray, ref: np.ndarray, label: str) -> tuple:
+    """Each served row held to the nearest of chip_smoke's own forwards
+    (``ref``, one a record) within DIST_TOL, with the same argmax. Returns
+    ``(got, groups)``: ``groups`` labels the forwards as ``ref_groups``
+    does, ``got[g]`` counts the served rows in group ``g``."""
+    if not np.isfinite(rows).all():
+        raise AssertionError(f"{label}: non-finite predictions")
+    sums = rows.sum(-1)
+    if rows.size and np.abs(sums - 1).max() > 1e-3:
+        raise AssertionError(f"{label}: probabilities sum to {sums.min()}..{sums.max()}")
+    err = np.abs(rows[:, None, :] - ref[None, :, :]).max(-1)
+    idx = err.argmin(1)
+    worst = float(err.min(1).max()) if len(rows) else 0.0
+    if worst > DIST_TOL or (rows.argmax(-1) != ref[idx].argmax(-1)).any():
+        raise AssertionError(f"{label}: a served row is {worst:.2e} from chip_smoke's own "
+                             f"forward of its record (bound {DIST_TOL}) or differs in argmax")
+    groups = ref_groups(ref)
+    return np.bincount(groups[idx], minlength=len(ref)), groups
+
+
+def worker_reports(cluster) -> dict:
+    return {i: c.control("metrics") for i, c in enumerate(cluster.clients)}
+
+
+def vit_tally(reports: dict, worker: int, before: dict, label: str) -> dict:
+    """The hosting worker's ViT engine: its tally since ``before``
+    exactly its forwards since then x (73, 12, 12)."""
+    [eng] = [e for e in reports[worker]["engines"] if e["model"] == vit_b16_config().name]
+    b = before.get("tally", {}), before.get("forwards", 0)
+    n = eng["forwards"] - b[1]
+    delta = {k: eng["launch_tally"].get(k, 0) - b[0].get(k, 0) for k in KERNEL_FUNCS}
+    want = {k: VIT_LAUNCHES.get(k, 0) * n for k in KERNEL_FUNCS}
+    if n <= 0 or delta != want:
+        raise AssertionError(f"{label}: worker {worker} launched {delta} for {n} forwards "
+                             f"(want {want})")
+    return {"forwards": n, "launches": delta,
+            "state": {"tally": eng["launch_tally"], "forwards": eng["forwards"]}}
+
+
+def replay_traced(cluster, worker: int, label: str) -> dict:
+    """One replay of each bucket of ``worker``'s ViT engine traced by the
+    profiler there (the ``replay_kernels`` op): the kernels the card ran
+    must be those the capture recorded, the unit of the engine's tally,
+    which is (73, 12, 12). Run on an idle topology."""
+    rep = cluster.clients[worker].control("replay_kernels", model=vit_b16_config().name,
+                                          timeout=300.0)
+    [eng] = rep["engines"]
+    want = {n: VIT_LAUNCHES.get(n, 0) for n in KERNEL_FUNCS}
+    out = {}
+    for padded, b in eng["buckets"].items():
+        seen = {n: sum(c for k, c in b["kernels"].items() if f in k)
+                for n, f in KERNEL_FUNCS.items()}
+        recorded = {n: b["recorded"].get(n, 0) for n in KERNEL_FUNCS}
+        if seen != recorded or recorded != want:
+            raise AssertionError(f"{label}: bucket {padded}'s replay on worker {worker} ran "
+                                 f"{seen}, its capture recorded {recorded} (want {want})")
+        out[padded] = {"kernels": sum(b["kernels"].values()),
+                       "ours": {n: c for n, c in seen.items() if c}}
+    if not out:
+        raise AssertionError(f"{label}: worker {worker}'s engine has no built bucket")
+    return out
+
+
+def transport_counts(reports: dict) -> dict:
+    out = {"dist_shm_batches": 0, "dist_tcp_batches": 0, "dist_wire_errors": 0,
+           "dist_send_failures": 0, "dist_send_retries": 0}
+    for rep in reports.values():
+        tr = rep["metrics"].get("_transport", {})
+        for k in out:
+            out[k] += int(tr.get(k, 0) or 0)
+    return out
+
+
+def wait_for(cond, timeout_s: float, label: str, poll_s: float = 0.05) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"{label}: not done in {timeout_s} s")
+        time.sleep(poll_s)
+    return time.perf_counter() - t0
+
+
+def dist_gated(cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+               card: str) -> dict:
+    """16 (a): the 80 records and the poison through (a)'s placement."""
+    cfg = dist_config(bootstrap)
+    t0 = time.perf_counter()
+    placement = cluster.submit("chip-smoke-phase16a", cfg, placement=DIST_PLACEMENT)
+    submit_s = time.perf_counter() - t0
+    out, dlq = TopicReader(producer, "output"), TopicReader(producer, "dead-letter")
+    got, dead = [], []
+    t0 = time.perf_counter()
+    for i, p in enumerate(payloads):
+        producer.produce("input", p.encode())
+        if i == len(payloads) // 2:
+            producer.produce("input", POISON.encode())
+
+    def done():
+        got.extend(out.take())
+        dead.extend(dlq.take())
+        return len(dist_rows(got)) >= len(payloads) and dead
+
+    wait_for(done, 180, "16 (a)")
+    wall = time.perf_counter() - t0
+    if not cluster.drain(timeout_s=60):
+        raise AssertionError("16 (a): the drain did not finish")
+    got += out.take()
+    dead += dlq.take()
+    rows = dist_rows(got)
+    counts, groups = match_rows(rows, ref, "16 (a)")
+    size = np.bincount(groups, minlength=len(ref))
+    if len(rows) != len(payloads) or (counts != size).any() or len(dead) != 1:
+        raise AssertionError(f"16 (a): {len(rows)} rows for {len(payloads)} records "
+                             f"(groups answered {counts[size > 0].tolist()} times for "
+                             f"{size[size > 0].tolist()} records), {len(dead)} dead letters")
+    off = np.abs(ref[:, None, :] - ref[None, :, :]).max(-1)
+    np.fill_diagonal(off, np.inf)
+    separation = float(off.min())
+    dl = json.loads(dead[0])
+    if dl["stage"] != "decode":
+        raise AssertionError(f"16 (a): dead letter {dl}")
+    reports = worker_reports(cluster)
+    tally = vit_tally(reports, 1, {}, "16 (a)")
+    eager = reports[1]["eager_launches"]
+    others = [e for i in (0, 2) for e in reports[i]["engines"]]
+    if others or any(eager.get(k, 0) for k in KERNEL_FUNCS if k not in VIT_LAUNCHES) \
+            or not all(eager.get(k, 0) for k in VIT_LAUNCHES):
+        raise AssertionError(f"16 (a): engines on w0/w2 {others}, w1's eager launches {eager}")
+    snap = cluster.metrics()
+    if snap["kafka-spout"].get("tree_failed", 0) or snap["kafka-bolt"].get("errors", 0):
+        raise AssertionError(f"16 (a): failed trees {snap['kafka-spout']}")
+    err = float(np.abs(rows[:, None, :] - ref[None, :, :]).max(-1).min(1).max())
+    replays = replay_traced(cluster, 1, "16 (a)")
+    tr = transport_counts(reports)
+    log(f"  16 (a) on {card}: {len(payloads)} records + 1 poison through w0 (spouts x2, sinks "
+        f"x2) -> w1 (inference x4) -> w0/w2 in {wall:.3f} s (submit with w1's engine build "
+        f"{submit_s:.3f} s): each answered once, the poison dead-lettered, max |dp| to "
+        f"chip_smoke's own forward {err:.2e} (bound {DIST_TOL}; the records' forwards "
+        f"{separation:.2e} apart at the least, {int((size > 1).sum())} groups of records "
+        f"not told apart), argmax equal; w1's engine {tally['forwards']} forwards, launch "
+        f"tally {tally['launches']}, eager launches {eager}; one replay of each bucket "
+        f"traced on w1 {replays}; transport {tr}")
+    cluster.kill()
+    return {"placement": placement, "wall_s": wall, "submit_s": submit_s, "max_abs_dp": err,
+            "separation": separation, "groups_not_told_apart": int((size > 1).sum()),
+            "launches": tally["launches"], "forwards": tally["forwards"], "transport": tr,
+            "eager_launches": eager, "replays_traced": replays}
+
+
+def dist_burst(cluster, producer, bootstrap: str, placement: dict, burst: list,
+               ref: np.ndarray, keys_of_burst: list, label: str, card: str) -> dict:
+    """16 (b): one burst of len(burst) records through ``placement``."""
+    cfg = dist_config(bootstrap)
+    t0 = time.perf_counter()
+    cluster.submit(f"chip-smoke-phase16b-{label.replace(' ', '-')}", cfg, placement=placement)
+    submit_s = time.perf_counter() - t0
+    host = placement["inference-bolt"]
+    before = worker_reports(cluster)
+    eng0 = [e for e in before[host]["engines"] if e["model"] == vit_b16_config().name]
+    state = {"tally": eng0[0]["launch_tally"], "forwards": eng0[0]["forwards"]} if eng0 else {}
+    cluster.copies(reset=True)
+    out = TopicReader(producer, "output")
+    got: list = []
+    with NvmlSampler() as nv:
+        t0 = time.perf_counter()
+        for p in burst:
+            producer.produce("input", p.encode())
+
+        def done():
+            got.extend(out.take())
+            return len(dist_rows(got)) >= len(burst)
+
+        wait_for(done, 180, f"16 (b) {label}", poll_s=0.01)
+        wall = time.perf_counter() - t0
+    rows = dist_rows(got)
+    counts, groups = match_rows(rows, ref, f"16 (b) {label}")
+    sent = np.bincount(groups, weights=np.asarray(keys_of_burst), minlength=len(ref))
+    if (counts != sent).any():
+        raise AssertionError(f"16 (b) {label}: the burst's records not each answered as "
+                             f"often as sent")
+    snap = cluster.metrics()
+    reports = worker_reports(cluster)
+    tally = vit_tally(reports, host, state, f"16 (b) {label}")
+    copies = cluster.copies(cumulative=True)["merged"]["stages"]
+    wire_bytes = sum(copies.get(s, {}).get("bytes", 0.0)
+                     for s in ("wire_encode", "shm_transport"))
+    res = {"placement": placement, "records": len(burst), "wall_s": wall,
+           "records_per_s": len(burst) / wall,
+           "e2e_p50_ms": snap["kafka-bolt"]["e2e_latency_ms"]["p50"],
+           "decode_share": snap["inference-bolt"]["decode_ms"]["sum"] / (wall * 1e3),
+           "wire_bytes_per_record": wire_bytes / len(burst),
+           "transport": transport_counts(reports), "idle_share": nv.idle_share,
+           "nvml_samples": len(nv.samples), "launches": tally["launches"],
+           "forwards": tally["forwards"], "submit_s": submit_s}
+    idle = "not measured" if nv.idle_share is None else f"{100 * nv.idle_share:.1f} %"
+    log(f"  16 (b) {label} on {card}: {len(burst)} records in {wall:.3f} s, "
+        f"{res['records_per_s']:.3f} records/s, sink e2e p50 {res['e2e_p50_ms']:.3f} ms "
+        f"(root_ts rebased across workers), decodes {100 * res['decode_share']:.1f} % of the "
+        f"wall, wire {res['wire_bytes_per_record']:.1f} bytes/record, deliveries "
+        f"{res['transport']['dist_shm_batches']} by the shm lane and "
+        f"{res['transport']['dist_tcp_batches']} by TCP, card idle {idle} (NVML sampled, "
+        f"{len(nv.samples)} samples); launches {tally['launches']} for {tally['forwards']} "
+        f"forwards")
+    cluster.kill()
+    return res
+
+
+def dist_faults(cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+                card: str) -> dict:
+    """16 (c): a corrupted frame, a SIGKILL of w1 mid-burst, a wrong token."""
+    import signal
+
+    from storm_tpu_torch.dist.transport import WorkerClient
+    from storm_tpu_torch.resilience import RetryPolicy, RpcError, StatusCode
+
+    cfg = dist_config(bootstrap, timeout_s=5.0)
+    cluster.submit("chip-smoke-phase16c", cfg, placement=DIST_PLACEMENT)
+    out = TopicReader(producer, "output")
+    got: list = []
+
+    def answered(sub: np.ndarray, label: str):
+        """Every record of ``sub`` answered at least once."""
+        def cond():
+            got.extend(out.take())
+            counts, groups = match_rows(dist_rows(got), sub, label)
+            return (counts >= np.bincount(groups, minlength=len(sub))).all()
+        return cond
+
+    # the corrupted frames
+    cluster.clients[0].control("chaos", corrupt_next=2)
+    first = payloads[:16]
+    t0 = time.perf_counter()
+    for p in first:
+        producer.produce("input", p.encode())
+    wait_for(answered(ref[:16], "16 (c)"), 120, "16 (c) corruption")
+    corrupt_s = time.perf_counter() - t0
+    chaos = cluster.clients[0].control("chaos")["chaos"]
+    w1 = cluster.clients[1].control("metrics")["metrics"].get("_transport", {})
+    if chaos["counts"].get("frame_corruption", 0) != 2 or w1.get("dist_wire_errors", 0) < 1:
+        raise AssertionError(f"16 (c): corruptions {chaos['counts']}, w1's wire errors "
+                             f"{w1.get('dist_wire_errors')}")
+    n_first = len(dist_rows(got))
+    got.clear()
+
+    # SIGKILL of w1 mid-burst
+    cluster.start_monitor(interval_s=0.5, misses=2)
+    burst = payloads[16:16 + DIST_KILL_RECORDS]
+    sub = ref[16:16 + DIST_KILL_RECORDS]
+    for p in burst:
+        producer.produce("input", p.encode())
+    wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= DIST_CHUNK, 120,
+             "16 (c) before the kill", poll_s=0.005)
+    old_pid = cluster.procs[1].pid
+    t_kill, t_kill_wall = time.perf_counter(), time.time()
+    os.kill(old_pid, signal.SIGKILL)
+    all_s = wait_for(answered(sub, "16 (c) kill"), 240, "16 (c) after the kill")
+    wait_for(lambda: any(e["kind"] == "dist_worker_recovered"
+                         for e in cluster.flight.tail(1000)), 120, "16 (c) recovery")
+    rec = next(e for e in cluster.flight.tail(1000) if e["kind"] == "dist_worker_recovered")
+    recover_s = rec["ts"] - t_kill_wall
+    cluster.stop_monitor()
+    dups = int(len(dist_rows(got)) - len(burst))
+    if cluster.procs[1].pid == old_pid:
+        raise AssertionError("16 (c): w1 was not replaced")
+
+    # a Control call with a wrong token
+    bad = WorkerClient(cluster.clients[0].target, token="wrong", retry=RetryPolicy(attempts=1))
+    try:
+        bad.control("ping")
+        raise AssertionError("16 (c): a wrong token was accepted")
+    except RpcError as e:
+        if e.code() is not StatusCode.UNAUTHENTICATED:
+            raise
+        code = e.code().name
+    finally:
+        bad.close()
+    reports = worker_reports(cluster)
+    fresh = vit_tally(reports, 1, {}, "16 (c) the replacement")
+    snap = cluster.metrics()
+    log(f"  16 (c) on {card}: 2 corrupted frames (w1 counted "
+        f"{w1.get('dist_wire_errors')} wire errors) replayed: the 16 records all answered "
+        f"in {corrupt_s:.3f} s ({n_first} rows); w1 SIGKILLed mid-burst of "
+        f"{len(burst)}: the monitor's recover_worker replaced it {recover_s:.3f} s after "
+        f"the kill, every record answered at least once {all_s:.3f} s after it, "
+        f"{dups} duplicates, the replacement's engine {fresh['forwards']} forwards with "
+        f"launches {fresh['launches']}; spout replays {snap['kafka-spout'].get('tree_failed', 0)}"
+        f"; a Control call with a wrong token: {code}")
+    cluster.kill()
+    return {"corrupt_s": corrupt_s, "wire_errors": int(w1.get("dist_wire_errors", 0)),
+            "recover_s": recover_s, "all_answered_s": all_s, "duplicates": dups,
+            "replacement_launches": fresh["launches"], "wrong_token": code}
+
+
+def dist_runtime(torch, card: str, device: str = "cuda") -> dict:
+    """Phase 16 (see the module docstring). The kernels were built in phase
+    2, so the workers load them instead of compiling them again."""
+    from storm_tpu_torch.connectors.kafka_protocol import KafkaWireBroker
+    from storm_tpu_torch.dist import DistCluster
+    from storm_tpu_torch.infer.engine import shared_engine
+
+    payloads, keys = life_payloads()
+    cfg = dist_config("")
+    engine = shared_engine(cfg.model, cfg.batch, device=device)
+    xs = np.stack([np.frombuffer(k, np.float32).reshape(LIFE_SHAPE) for k in keys])
+    ref = np.concatenate([engine.predict(xs[i:i + B]) for i in range(0, len(xs), B)])
+    burst, times = life_burst(payloads)
+    res: dict = {}
+    t_phase = time.perf_counter()
+    with stub_process() as port:
+        bootstrap = f"127.0.0.1:{port}"
+        producer = KafkaWireBroker(bootstrap)
+        cluster = None
+        try:
+            t0 = time.perf_counter()
+            cluster = DistCluster(3, device=device, auth_token=DIST_TOKEN)
+            log(f"  16: 3 workers up in {time.perf_counter() - t0:.3f} s on {cluster.device}")
+            res["a"] = dist_gated(cluster, producer, bootstrap, payloads, ref, card)
+            res["b"] = {label: dist_burst(cluster, producer, bootstrap, placement, burst, ref,
+                                          times, label, card)
+                        for label, placement in (("one process", DIST_ONE),
+                                                 ("three processes", DIST_PLACEMENT))}
+            res["c"] = dist_faults(cluster, producer, bootstrap, payloads, ref, card)
+        finally:
+            producer.close()
+            if cluster is not None:
+                cluster.shutdown()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  16: the phase took {res['phase_s']:.1f} s")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -5433,7 +5942,12 @@ def run() -> int:
     phase15 = training(torch, card)
     log(json.dumps({"training": phase15, "card": card}, default=float))
 
-    log("[16] the kernels")
+    log("[16] the distributed runtime: 3 worker processes on the card over the port's Kafka "
+        "stub, ViT-B/16 bf16 int8_fused; one process against three; faults")
+    phase16 = dist_runtime(torch, card)
+    log(json.dumps({"dist_runtime": phase16, "card": card}, default=float))
+
+    log("[17] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -5485,7 +5999,11 @@ def run() -> int:
             "vit_b16 int8_fused exactly-once, faults (phase 13c)": phase13["c_launches"][name],
             "vit_b16 int8_fused DRPC (phase 14e)": phase14["e_launches"][name],
             "vit_b16 float32 train step (phase 15a)":
-                phase15["a"]["launches_per_step"][name]})
+                phase15["a"]["launches_per_step"][name],
+            "vit_b16 int8_fused dist, w1 of 3 workers (phase 16a)":
+                phase16["a"]["launches"][name]})
+        paths.update({f"vit_b16 int8_fused dist burst, {label} (phase 16b)":
+                      r["launches"][name] for label, r in phase16["b"].items()})
         paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]
                       for m, r in phase15["b"].items()})
         entry = {

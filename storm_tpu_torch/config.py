@@ -1,11 +1,19 @@
 """Typed configuration, copied from ``storm_tpu/config.py`` for the fields
 the port reads: model, batching, spout offsets, sink delivery, topology
-knobs, QoS, the sink's SLO, the observatory and the cascade, with their
-validation."""
+knobs, the broker, the control plane's token, resilience and chaos, QoS,
+the sink's SLO, the observatory and the cascade, with their validation.
+
+``Config.to_dict`` and ``Config.from_dict`` carry a config through the
+dist controller's submit recipe to its workers; a section or key the
+dataclasses do not have is refused. A ``topology.spout_scheme`` set after
+construction (or named in a dict) is pinned: the dist runtime's default
+of the raw scheme with record frames (:func:`apply_dist_defaults`) then
+leaves it alone."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -223,6 +231,234 @@ class TopologyConfig:
     tick_interval_s: float = 0.0  # 0 = no tick tuples
     checkpoint_interval_s: float = 5.0  # stateful-bolt checkpoint cadence
     state_dir: str = ""  # durable bolt-state dir; "" = in-memory backend
+    # Inter-worker tuple wire of the dist runtime: "binary" = the
+    # length-prefixed checksummed frames of dist/wire.py (bytes and arrays
+    # cross without re-encoding), with a fall back per peer to JSON for a
+    # worker that does not advertise the binary version; "json" = the JSON
+    # envelope everywhere (it pins the string scheme).
+    wire_format: str = "binary"
+    # Shared-memory delivery lane between dist workers on one host (the
+    # same host key, learned from the peer's ping): a delivery batch of at
+    # least shm_min_bytes is written once into a shared-memory segment and
+    # only a small checksummed header crosses the socket.
+    shm_wire: bool = True
+    shm_min_bytes: int = 65536
+    # Per-task resource hints for the dist controller's resource-aware
+    # placement (Storm's RAS): {"component-id": {"memory_mb": N, "cpu": pct}}.
+    component_resources: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.wire_format not in ("binary", "json"):
+            raise ValueError(
+                f"unknown wire_format {self.wire_format!r} "
+                "(expected 'binary' or 'json')")
+        self.__dict__.setdefault("_scheme_pinned", False)
+        self.__dict__["_ready"] = True
+
+    def __setattr__(self, name, value) -> None:
+        # A scheme chosen after construction is the user's: the dist
+        # default must not overwrite it.
+        if name == "spout_scheme" and self.__dict__.get("_ready"):
+            self.__dict__["_scheme_pinned"] = True
+        object.__setattr__(self, name, value)
+
+
+def apply_dist_defaults(cfg: "Config") -> "Config":
+    """The dist runtime's record plane, storm_tpu's ``dist-run`` default:
+    with the binary wire and no pinned scheme, the spout emits raw bytes
+    and carries a chunk as one record frame. The JSON wire keeps the
+    string scheme (raw bytes cannot cross it)."""
+    topo = cfg.topology
+    if not topo.__dict__.get("_scheme_pinned") and topo.wire_format != "json":
+        object.__setattr__(topo, "spout_scheme", "raw")
+        topo.spout_frames = True
+    return cfg
+
+
+@dataclass
+class BrokerConfig:
+    """Where records come from and go to: the in-process memory broker,
+    or a Kafka broker over the wire protocol (``kind="kafka"``,
+    ``bootstrap="host:port"``), which is how dist workers share a log."""
+
+    kind: str = "memory"  # 'memory' | 'kafka'
+    bootstrap: str = ""  # host:port list for kind='kafka'
+    input_topic: str = "input"
+    output_topic: str = "output"
+    dead_letter_topic: str = "dead-letter"
+    partitions: int = 4  # partitions for memory broker topics
+    # 'v1' = 0.11-era message sets; 'v2' = KIP-98 record batches (CRC32C).
+    message_format: str = "v1"
+    # KIP-98 idempotent produce (message_format='v2' only).
+    idempotent: bool = False
+    # Egress codec for kind='kafka' (None = uncompressed); gzip, snappy or
+    # lz4, message_format='v2' only. Ingest decodes all three regardless.
+    compression: Optional[str] = None
+    # Consumer isolation: 'read_committed' fetches with Fetch v4 and drops
+    # aborted transactions' records.
+    isolation: str = "read_uncommitted"
+    security_protocol: str = "PLAINTEXT"  # | SSL | SASL_PLAINTEXT | SASL_SSL
+    sasl_mechanism: str = "PLAIN"  # | SCRAM-SHA-256 | SCRAM-SHA-512
+    sasl_username: str = ""
+    sasl_password: str = ""
+    ssl_cafile: str = ""
+    ssl_check_hostname: bool = True
+    ssl_verify: bool = True
+
+    def security_dict(self) -> Optional[dict]:
+        """The wire client's ``security`` parameter, or None for PLAINTEXT."""
+        if self.security_protocol == "PLAINTEXT":
+            return None
+        return {
+            "protocol": self.security_protocol,
+            "sasl_mechanism": self.sasl_mechanism,
+            "sasl_username": self.sasl_username,
+            "sasl_password": self.sasl_password,
+            "ssl_cafile": self.ssl_cafile or None,
+            "ssl_check_hostname": self.ssl_check_hostname,
+            "ssl_verify": self.ssl_verify,
+        }
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("memory", "kafka"):
+            raise ValueError(f"broker.kind must be memory|kafka, got {self.kind!r}")
+        if self.idempotent and self.message_format != "v2":
+            raise ValueError(
+                "broker.idempotent requires broker.message_format='v2'")
+        if self.message_format not in ("v1", "v2"):
+            raise ValueError(
+                f"broker.message_format must be v1|v2, got {self.message_format!r}")
+        if self.compression is not None:
+            if self.compression not in ("gzip", "snappy", "lz4"):
+                raise ValueError(
+                    f"broker.compression must be gzip|snappy|lz4, "
+                    f"got {self.compression!r}")
+            if self.message_format != "v2":
+                raise ValueError(
+                    "broker.compression requires broker.message_format='v2'")
+        if self.isolation not in ("read_uncommitted", "read_committed"):
+            raise ValueError(
+                f"broker.isolation must be read_uncommitted|read_committed, "
+                f"got {self.isolation!r}")
+        if self.security_protocol not in (
+                "PLAINTEXT", "SSL", "SASL_PLAINTEXT", "SASL_SSL"):
+            raise ValueError(
+                "broker.security_protocol must be PLAINTEXT|SSL|"
+                f"SASL_PLAINTEXT|SASL_SSL, got {self.security_protocol!r}")
+        # Imported here: the connectors import this module at load.
+        from storm_tpu_torch.connectors.kafka_protocol import SASL_MECHANISMS
+
+        if self.sasl_mechanism not in SASL_MECHANISMS:
+            raise ValueError(
+                "broker.sasl_mechanism must be one of "
+                f"{'|'.join(SASL_MECHANISMS)}, got {self.sasl_mechanism!r}")
+        if (self.security_protocol.startswith("SASL")
+                and not self.sasl_username):
+            raise ValueError(
+                "broker.security_protocol=SASL_* requires sasl_username "
+                "(mechanism PLAIN)")
+
+
+#: The env var the dist controller exports its control-plane token through
+#: to its workers, and that every client falls back to.
+CONTROL_TOKEN_ENV = "STORM_TPU_CONTROL_TOKEN"
+
+
+def env_control_token() -> str:
+    """The one read of the token's env fallback, shared by the dist plane's
+    server and clients."""
+    return os.environ.get(CONTROL_TOKEN_ENV, "")
+
+
+@dataclass
+class ControlConfig:
+    """Control-plane authentication: ``auth_token`` is a shared secret that
+    every dist RPC must carry (mismatches are refused UNAUTHENTICATED and
+    logged); ``"env:NAME"`` reads it from the environment variable NAME;
+    ``""`` falls back to $STORM_TPU_CONTROL_TOKEN, and disables auth only
+    when that is unset too. A ``DistCluster`` starts its workers with its
+    own token (``DistCluster(auth_token=cfg.control.resolve_token())``),
+    and its ``submit`` refuses a config whose token resolves to another.
+    storm_tpu's journal keys (``journal_dir``, ``journal_snapshot_every``,
+    ``reattach``) come with the port's journal."""
+
+    auth_token: str = ""
+
+    def resolve_token(self) -> str:
+        t = self.auth_token
+        if t.startswith("env:"):
+            name = t[4:]
+            val = os.environ.get(name, "")
+            if not val:
+                raise ValueError(
+                    f"control.auth_token says {t!r} but ${name} is unset/empty")
+            return val
+        return t or env_control_token()
+
+
+@dataclass
+class ResilienceConfig:
+    """Transport retry, circuit breaker and replay pacing knobs: the
+    deadline-budgeted retry policy around dist RPCs, the per-peer circuit
+    breaker of the sender, and the token bucket that paces the replay
+    drained at a recovered peer (:mod:`storm_tpu_torch.resilience`)."""
+
+    retry_attempts: int = 4
+    retry_base_ms: float = 50.0
+    retry_cap_ms: float = 2000.0
+    # Total wall-clock budget across all attempts of one logical send.
+    retry_deadline_s: float = 30.0
+    circuit_failures: int = 5
+    circuit_reset_s: float = 3.0
+    # Tuples/s pushed at a recovered peer during the pacing window;
+    # 0 = max_spout_pending over the window.
+    replay_rate: float = 0.0
+    replay_window_s: float = 10.0
+
+    def __post_init__(self) -> None:
+        if int(self.retry_attempts) < 1:
+            raise ValueError("resilience.retry_attempts must be >= 1, got "
+                             f"{self.retry_attempts!r}")
+        for name in ("retry_base_ms", "retry_cap_ms", "retry_deadline_s",
+                     "circuit_reset_s", "replay_rate", "replay_window_s"):
+            if float(getattr(self, name)) < 0:
+                raise ValueError(
+                    f"resilience.{name} must be >= 0, got "
+                    f"{getattr(self, name)!r}")
+        if int(self.circuit_failures) < 1:
+            raise ValueError("resilience.circuit_failures must be >= 1, "
+                             f"got {self.circuit_failures!r}")
+
+
+@dataclass
+class ChaosConfig:
+    """Dist fault injection for drills. It rides the submit recipe, so
+    arming it on the controller arms every worker's injector
+    (:mod:`storm_tpu_torch.resilience.chaos`). Never for production.
+    storm_tpu's drill timers (``kill_worker_s``, ``kill_controller_s``)
+    belong to its ``dist`` command, which the port does not have yet."""
+
+    enabled: bool = False
+    seed: int = 0
+    wire_latency_ms: float = 0.0
+    wire_jitter_ms: float = 0.0
+    # Fraction of outbound send attempts dropped (raised as ChaosDrop).
+    wire_drop_pct: float = 0.0
+    # Fraction of outbound frames with one byte flipped.
+    corrupt_pct: float = 0.0
+    engine_hang_ms: float = 0.0
+
+    def __post_init__(self) -> None:
+        for name in ("wire_drop_pct", "corrupt_pct"):
+            v = float(getattr(self, name))
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(
+                    f"chaos.{name} must be in [0, 1], got {v!r}")
+        for name in ("wire_latency_ms", "wire_jitter_ms", "engine_hang_ms"):
+            if float(getattr(self, name)) < 0:
+                raise ValueError(
+                    f"chaos.{name} must be >= 0, got "
+                    f"{getattr(self, name)!r}")
 
 
 @dataclass
@@ -427,3 +663,39 @@ class Config:
     qos: QosConfig = field(default_factory=QosConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     cascade: CascadeConfig = field(default_factory=CascadeConfig)
+    broker: BrokerConfig = field(default_factory=BrokerConfig)
+    control: ControlConfig = field(default_factory=ControlConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        cfg = cls()
+        cfg.apply_dict(d)
+        return cfg
+
+    def apply_dict(self, d: dict) -> None:
+        for section, values in d.items():
+            if not hasattr(self, section):
+                raise KeyError(f"unknown config section {section!r}")
+            if not isinstance(values, dict):
+                raise TypeError(f"config section {section!r} must be a table/dict")
+            _apply_section(getattr(self, section), values)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _apply_section(target, values: dict) -> None:
+    """Apply key -> value onto a config dataclass, lists becoming tuples
+    where the field is a tuple, then validate again."""
+    for k, v in values.items():
+        if not hasattr(target, k):
+            raise KeyError(f"unknown config key {k!r} for {type(target).__name__}")
+        if isinstance(getattr(target, k), tuple) and isinstance(v, list):
+            v = tuple(v)
+        setattr(target, k, v)
+        if k == "spout_scheme" and isinstance(target, TopologyConfig):
+            target._scheme_pinned = True
+    if hasattr(target, "__post_init__"):
+        target.__post_init__()

@@ -23,6 +23,9 @@ transaction per micro-batch (``txn_batch`` tuples or ``txn_ms``), acked
 only after its commit; with ``offsets_group`` each tree's outputs and its
 source offsets commit together (see the class). Counters ``txn_commits``,
 ``txn_aborts`` and ``txn_offsets_deferred``.
+
+A broker flagged ``blocking`` (the Kafka wire broker) is produced to, and
+its transactions run, on a worker thread, never on the event loop.
 """
 
 from __future__ import annotations
@@ -63,13 +66,19 @@ class Producer:
 
 
 class MemoryProducer(Producer):
-    """Produces into any broker with the MemoryBroker surface."""
+    """Produces into any broker with the MemoryBroker surface; a broker
+    flagged ``blocking`` (network-backed, the Kafka wire broker) is called
+    on a worker thread, keeping the event loop free."""
 
     def __init__(self, broker: MemoryBroker) -> None:
         self.broker = broker
+        self._blocking = bool(getattr(broker, "blocking", False))
 
     async def send(self, topic: str, value: bytes, key: Optional[bytes]) -> None:
-        self.broker.produce(topic, value, key)
+        if self._blocking:
+            await asyncio.to_thread(self.broker.produce, topic, value, key)
+        else:
+            self.broker.produce(topic, value, key)
 
 
 class BrokerSink(Bolt):
@@ -652,7 +661,7 @@ class TransactionalBrokerSink(BrokerSink):
             else:
                 batch, offs = held, {}
 
-            try:
+            def run() -> None:
                 self._txn.begin()
                 for t, topic, key, value in batch:
                     self._txn.produce(topic, value, key)
@@ -661,10 +670,21 @@ class TransactionalBrokerSink(BrokerSink):
                 if offs:
                     self._txn.send_offsets(self._offsets_group, offs)
                 self._txn.commit()
+
+            # A network-backed broker's transaction runs off the loop.
+            blocking = bool(getattr(self.broker, "blocking", False))
+            try:
+                if blocking:
+                    await asyncio.to_thread(run)
+                else:
+                    run()
             except Exception as e:
                 self._m_aborts.inc()
                 try:
-                    self._txn.abort()
+                    if blocking:
+                        await asyncio.to_thread(self._txn.abort)
+                    else:
+                        self._txn.abort()
                 except Exception:
                     log.exception("txn abort failed (id fenced on next begin)")
                 self.collector.report_error(e)

@@ -1,6 +1,12 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
-``storm_tpu/connectors/spout.py`` for the in-process broker, without group
-coordination and seeks.
+``storm_tpu/connectors/spout.py``, without group coordination and seeks.
+
+A broker flagged ``blocking`` (network-backed: the Kafka wire broker,
+which dist workers share) is only ever called on a worker thread, never
+on the event loop: fetches are awaited through ``asyncio.to_thread``, and
+the commits and staleness checks of ``ack``/``fail`` (which run in the
+ledger's synchronous callbacks) become background tasks; a lock and a
+per-partition high-water mark keep the commits monotonic.
 
 Offsets are policy: 'latest' + ``max_behind=0`` starts at the log end and
 drops backlog; 'resume' commits on ack and resumes; 'earliest' replays
@@ -45,8 +51,10 @@ str decode, one copy a record), and for a frame its ``batch_route`` row
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import logging
+import threading
 import time
 import uuid
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -106,6 +114,11 @@ class BrokerSpout(Spout):
 
             self._admission = AdmissionController(
                 self.qos, parallelism=context.parallelism, metrics=context.metrics)
+        # Network-backed brokers: fetches and commits off the event loop.
+        self._blocking = bool(getattr(self.broker, "blocking", False))
+        self._bg: set = set()  # strong refs: asyncio holds tasks weakly
+        self._commit_hwm: Dict[int, int] = {}
+        self._commit_lock = threading.Lock()
         # A random group per run unless the user pins one for resume.
         self.group = self.offsets_cfg.group_id or f"storm-tpu-torch-{uuid.uuid4()}"
         n_parts = self.broker.partitions_for(self.topic)
@@ -133,9 +146,12 @@ class BrokerSpout(Spout):
 
     def ingress_lag(self) -> dict:
         """How far this task's cursors trail the broker's log end, summed
-        over its partitions: the observatory's ingress row. The memory
-        broker answers offsets at once, so ``records_behind`` is always
-        a number (storm_tpu's wire brokers give None)."""
+        over its partitions: the observatory's ingress row. A blocking
+        (wire) broker answers offsets by a round trip that must not run on
+        the event loop, so for it ``records_behind`` is None (unknown,
+        never "caught up")."""
+        if self._blocking:
+            return {"records_behind": None, "partitions": len(self.my_partitions)}
         behind = 0
         for p in self.my_partitions:
             pos = self.positions.get(p)
@@ -175,7 +191,11 @@ class BrokerSpout(Spout):
                 continue  # ordered delivery: the previous entry is open
             # txn mode: one entry a fetch (the chunk, or one record).
             size = max(1, self.chunk) if self._txn_mode else self.fetch_size
-            records = self.broker.fetch(self.topic, p, self.positions[p], size)
+            if self._blocking:
+                records = await asyncio.to_thread(
+                    self.broker.fetch, self.topic, p, self.positions[p], size)
+            else:
+                records = self.broker.fetch(self.topic, p, self.positions[p], size)
             if not records:
                 continue
             last_off = records[-1].offset
@@ -335,30 +355,76 @@ class BrokerSpout(Spout):
         p, off = self._msg_part_off(msg_id)
         # Commit the contiguous low-water mark of the partition, counting
         # the first offset of every open record or chunk and the records
-        # awaiting replay, so a restart never skips them.
+        # awaiting replay, so a restart never skips them. With nothing
+        # open, everything below the fetch cursor is done: storm_tpu
+        # commits the acked offset + 1 there, which falls short when the
+        # acks came out of order (ROADMAP C17).
         open_offs = [mid[2] if mid[0] == "c" else mid[1] for mid in self.pending
                      if self._msg_part_off(mid)[0] == p]
         for entry in self.replay:
             recs = entry if isinstance(entry, list) else [entry]
             open_offs += [r.offset for r in recs if r.partition == p]
-        low = min(open_offs) if open_offs else off + 1
+        low = min(open_offs) if open_offs else max(off + 1, self.positions.get(p, 0))
+        if self._blocking:
+            self._spawn_bg(asyncio.to_thread(self._commit_blocking, p, low))
+            return
         prev = self.broker.committed(self.group, self.topic, p)
         if prev is None or low > prev:
             self.broker.commit(self.group, self.topic, p, low)
+
+    def _spawn_bg(self, coro) -> None:
+        task = asyncio.get_event_loop().create_task(coro)
+        self._bg.add(task)
+        task.add_done_callback(self._bg.discard)
+
+    def _commit_blocking(self, p: int, low: int) -> None:
+        # The lock makes check and commit one step across worker threads;
+        # the local high-water mark keeps the group's offset monotonic.
+        with self._commit_lock:
+            if low <= self._commit_hwm.get(p, -1):
+                return
+            self.broker.commit(self.group, self.topic, p, low)
+            self._commit_hwm[p] = low
 
     def fail(self, msg_id: Any) -> None:
         entry = self.pending.pop(msg_id, None)
         if entry is None:
             return
+        # Queued first, so ack()'s low-water scan sees it while a blocking
+        # broker's staleness verdict is pending; staleness then removes it.
+        self.replay.append(entry)
         max_behind = self.offsets_cfg.max_behind
+        if max_behind is None:
+            return
         # Staleness by the entry's newest record: a chunk stays whole while
         # its tail is fresh.
         rec = entry[-1] if isinstance(entry, list) else entry
-        if max_behind is not None and \
-                self.broker.latest_offset(self.topic, rec.partition) - rec.offset > max_behind:
-            # Too stale to replay under the freshness policy.
-            n = len(entry) if isinstance(entry, list) else 1
-            self.dropped += n
-            self.context.metrics.counter(self.context.component_id, "dropped_stale").inc(n)
+        if self._blocking:
+            self._spawn_bg(self._fail_check_blocking(entry, max_behind))
             return
-        self.replay.append(entry)
+        self._drop_if_stale(entry, self.broker.latest_offset(self.topic, rec.partition),
+                            max_behind)
+
+    async def _fail_check_blocking(self, entry, max_behind: int) -> None:
+        rec = entry[-1] if isinstance(entry, list) else entry
+        try:
+            latest = await asyncio.to_thread(self.broker.latest_offset, self.topic,
+                                             rec.partition)
+        except Exception:
+            # Broker unreachable: keep the entry for replay rather than
+            # guess its staleness (at-least-once).
+            return
+        self._drop_if_stale(entry, latest, max_behind)
+
+    def _drop_if_stale(self, entry, latest: int, max_behind: int) -> None:
+        rec = entry[-1] if isinstance(entry, list) else entry
+        if latest - rec.offset <= max_behind:
+            return
+        try:
+            self.replay.remove(entry)
+        except ValueError:
+            return  # already picked up for replay
+        # Too stale to replay under the freshness policy.
+        n = len(entry) if isinstance(entry, list) else 1
+        self.dropped += n
+        self.context.metrics.counter(self.context.component_id, "dropped_stale").inc(n)

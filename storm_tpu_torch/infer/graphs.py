@@ -174,6 +174,38 @@ class BucketForward:
                 self.graph.replay()
 
 
+def replay_kernel_names(bucket: BucketForward, attempts: int = 5) -> Dict[str, int]:
+    """The CUDA kernels one replay of ``bucket``'s graph ran, by name, as
+    ``torch.profiler`` traced them (memcpys and memsets left out): what a
+    capture's record of launches is held to. The profiler can miss the
+    first kernels it records on a stream, so the replay runs once to warm
+    it, then a spin kernel, then again, and only what the card ran after
+    the spin counts; a trace with no kernel after the spin is taken again,
+    up to ``attempts`` times. The caller keeps the engine idle meanwhile
+    (a replay writes the bucket's buffers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not bucket.cuda:
+        raise ValueError("a replay's kernels are traced on the card only")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bucket.replay()
+            torch.cuda.synchronize(bucket.device)
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize(bucket.device)
+            bucket.replay()
+            torch.cuda.synchronize(bucket.device)
+        kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                          and "Memcpy" not in ev.name and "Memset" not in ev.name),
+                         key=lambda ev: ev.time_range.start)
+        spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
+        if spins and spins[-1] + 1 < len(kernels):
+            return dict(Counter(ev.name for ev in kernels[spins[-1] + 1:]))
+    raise RuntimeError(f"the profiler recorded no spin kernel with kernels after it "
+                       f"in {attempts} traces")
+
+
 def replay_ms(bucket: BucketForward, reps: int = 20) -> float:
     """Device ms of one replay of ``bucket``'s graph, between CUDA events
     on its compute stream."""

@@ -1,5 +1,5 @@
-"""The native host codec: ``fastjson.cpp`` and ``arrow_tensor.cpp``
-through ctypes.
+"""The native host codec: ``fastjson.cpp``, ``arrow_tensor.cpp`` and
+``crc32c.cpp`` through ctypes.
 
 The counterpart of ``storm_tpu/native/__init__.py`` for the JSON wire and
 the Arrow tensor wire: :func:`parse_instances` turns an
@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 SOURCES = tuple(Path(__file__).resolve().parent / f
-                for f in ("fastjson.cpp", "arrow_tensor.cpp"))
+                for f in ("fastjson.cpp", "arrow_tensor.cpp", "crc32c.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "storm_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 MAX_RANK = 8
@@ -71,7 +71,8 @@ def _build(lib: Path) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found on PATH; storm_tpu_torch builds its codec "
-                           "(native/fastjson.cpp, native/arrow_tensor.cpp) from source "
+                           "(native/fastjson.cpp, native/arrow_tensor.cpp, native/crc32c.cpp) "
+                           "from source "
                            "at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build into a private name, then rename: a concurrent build in another
@@ -133,6 +134,8 @@ def load() -> ctypes.CDLL:
                 size_p, size_p,                    # out data offset, data span
                 int_p, int_p,                      # out Arrow type id, Int bit width
             ]
+            lib.stpu_crc32c.restype = ctypes.c_uint32
+            lib.stpu_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]
             _lib = lib
     return _lib
 
@@ -278,3 +281,37 @@ def decode_tensor(buf) -> np.ndarray:
     return np.ndarray(tuple(shape[i] for i in range(n)), _CODE_TO_DTYPE[dtype.value],
                       buffer=raw, offset=off.value,
                       strides=tuple(strides[i] for i in range(n)))
+
+
+# ---------------------------------------------------------------------------
+# CRC32C (Castagnoli): Kafka's record-batch v2 checksum and the dist wire's
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C over ``data`` (any bytes-like object); incremental: pass a
+    previous result as ``crc``."""
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return load().stpu_crc32c(data, len(data), crc)
+
+
+_CRC32C_TABLE = None
+
+
+def crc32c_reference(data, crc: int = 0) -> int:
+    """The pure-Python table version of :func:`crc32c` (the same
+    polynomial, storm_tpu's fallback), the twin the tests hold the native
+    one to."""
+    global _CRC32C_TABLE
+    if _CRC32C_TABLE is None:
+        table = []
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+            table.append(c)
+        _CRC32C_TABLE = table
+    crc ^= 0xFFFFFFFF
+    for b in bytes(data):
+        crc = (crc >> 8) ^ _CRC32C_TABLE[(crc ^ b) & 0xFF]
+    return crc ^ 0xFFFFFFFF

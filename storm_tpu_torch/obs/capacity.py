@@ -226,8 +226,8 @@ class EdgeLagTracker:
 
 
 def transport_depths(rt) -> Dict[str, int]:
-    """Outbound transport queue depth per peer. Empty on one host: the
-    port has no dist transport yet (a runtime without ``senders``)."""
+    """Outbound transport queue depth per peer. Empty for a runtime of
+    one process (it has no ``senders``); a dist worker's per peer."""
     out: Dict[str, int] = {}
     for idx, sender in (getattr(rt, "senders", None) or {}).items():
         q = getattr(sender, "queue", None)

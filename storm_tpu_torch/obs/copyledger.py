@@ -1,6 +1,5 @@
 """Data-plane copy ledger: the bytes and copies of each hop of the record
-path, copied from ``storm_tpu/obs/copyledger.py`` (without
-``merge_windows``, which waits for the dist wire).
+path, copied from ``storm_tpu/obs/copyledger.py``.
 
 Every serialize, deserialize or copy boundary on the record path reports
 one :func:`record` call per batch (per record where no batch exists):
@@ -22,7 +21,14 @@ d2h            the result back: the card's copy into the pooled pinned
                device result is one, see below)
 json_encode    ``{"predictions": ...}`` serialization
 sink_encode    the sink's str -> bytes re-encode before produce
+wire_encode    dist binary or JSON frame encode (``dist/wire.py``;
+               bytes 0 when the shm lane wrote the frame)
+shm_transport  the shared-memory segment write between two dist workers
+               on one host (``dist/shm.py``): the lane's one copy
+wire_decode    dist frame decode back to tuples (bytes 0 over shm views)
 ============= =====================================================
+
+:func:`merge_windows` adds the trees of several dist workers.
 
 Where the port moves bytes otherwise than storm_tpu, its rows say what the
 port does. One hop differs: ``d2h`` is two copies per batch (the padded
@@ -62,6 +68,7 @@ __all__ = [
     "enabled",
     "ensure_installed",
     "live_keys",
+    "merge_windows",
     "record",
     "set_enabled",
 ]
@@ -293,6 +300,28 @@ def derive_tree(rows: List[dict]) -> dict:
                    "ingest_records": ingest_records},
         "copy_amplification": amp,
     }
+
+
+def merge_windows(per_worker: Dict[int, dict]) -> dict:
+    """The dist ``copies`` merge: add the raw bytes, copies, allocations,
+    records and calls of each (stage, engine) across workers, take the
+    longest window span, and derive the per-record figures and the
+    amplification again from the totals (ratios do not merge, quantities
+    do)."""
+    acc: Dict[Tuple[str, str], dict] = {}
+    dt = 0.0
+    for _idx, tree in sorted(per_worker.items()):
+        dt = max(dt, float(tree.get("dt_s", 0.0) or 0.0))
+        for stage, st in (tree.get("stages") or {}).items():
+            for engine, row in (st.get("engines") or {}).items():
+                a = acc.setdefault((stage, engine), {
+                    "stage": stage, "engine": engine, "bytes": 0.0,
+                    "copies": 0, "allocs": 0, "records": 0, "calls": 0})
+                for k in ("bytes", "copies", "allocs", "records", "calls"):
+                    a[k] += row.get(k, 0) or 0
+    out = derive_tree(list(acc.values()))
+    out["dt_s"] = round(dt, 3)
+    return out
 
 
 def live_keys(rt) -> set:

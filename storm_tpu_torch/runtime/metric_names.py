@@ -41,6 +41,18 @@ METRIC_NAMES = frozenset({
     'delivered',
     'device_ms',
     'dispatch_wait_ms',
+    'dist_circuit_opens',
+    'dist_heartbeat_miss',
+    'dist_parked_batches',
+    'dist_replay_throttle_ms',
+    'dist_replay_throttled',
+    'dist_rerouted',
+    'dist_ring_remapped',
+    'dist_send_failures',
+    'dist_send_retries',
+    'dist_shm_batches',
+    'dist_tcp_batches',
+    'dist_wire_errors',
     'dropped_stale',
     'e2e_latency_ms',
     'emitted',
@@ -73,6 +85,7 @@ METRIC_NAMES = frozenset({
     'txn_offsets_deferred',
     'wait_frac',
     'watchdog_trips',
+    'worker_draining',
 })
 
 METRIC_PATTERNS = (
@@ -85,6 +98,7 @@ METRIC_PATTERNS = (
     'cascade_escalated_lane_*',
     'copies_bytes_per_rec_*',
     'copies_per_rec_*',
+    'dist_circuit_open_w*',
     'e2e_latency_ms_*',
     'edge_depth_*',
     'edge_growth_*',

@@ -1,11 +1,16 @@
-"""Tuples and ack identities, copied from ``storm_tpu/runtime/tuples.py``
-(single-process: no worker tags). A tuple carries its record's trace
+"""Tuples and ack identities, copied from ``storm_tpu/runtime/tuples.py``.
+A tuple carries its record's trace
 context and its source-log provenance (``origins``), which both follow
 anchoring; tick tuples are the executor's timer.
 
 Every tuple edge has a random 64-bit ``edge_id``; a tuple anchored to one
 or more root (spout) tuples carries their ids in ``anchors``, Storm's
 anchoring model, which the XOR ledger (:mod:`.acker`) completes.
+
+Dist routing: the top 8 bits of every id carry the index of the worker
+process that made it (:func:`set_worker_tag`), so a worker receiving a
+tuple routes the acks of its root back to the ledger's owner
+(:func:`owner_of`) with no lookup table. A single process keeps tag 0.
 """
 
 from __future__ import annotations
@@ -20,14 +25,29 @@ from typing import Any, FrozenSet, Optional, Sequence
 # process-seeded Mersenne Twister is far cheaper per call than urandom.
 _rng = random.Random(int.from_bytes(os.urandom(16), "big"))
 _randbits = _rng.getrandbits
+_worker_tag = 0
+
+
+def set_worker_tag(index: int) -> None:
+    """Stamp ids made in this process with a worker index (0..255)."""
+    global _worker_tag
+    if not 0 <= index < 256:
+        raise ValueError(f"worker index {index} out of range 0..255")
+    _worker_tag = index << 56
+
+
+def owner_of(ident: int) -> int:
+    """The index of the worker that made (and owns the ledger entry of) an id."""
+    return ident >> 56
 
 
 def new_id() -> int:
-    """Random non-zero 64-bit id (zero means 'complete' to the ledger)."""
+    """Random non-zero worker-tagged 64-bit id (zero means 'complete' to
+    the ledger)."""
     while True:
-        v = _randbits(64)
+        v = _randbits(56)
         if v:
-            return v
+            return _worker_tag | v
 
 
 class Values(list):

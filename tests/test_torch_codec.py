@@ -270,15 +270,16 @@ def test_library_is_built_once_and_cached_by_source_hash():
     native.load()
     assert path.exists() and path.parent.name == "storm_tpu_torch"
     assert native.load() is native.load()
-    # The port's library holds the JSON codec and the Arrow tensor codec;
-    # the CRC comes with the dist wire, which uses it.
+    # The port's library holds the JSON codec, the Arrow tensor codec and
+    # the CRC32C of the dist wire and the Kafka record batches.
     lib = native.load()
     for fn in ("stpu_parse_instances", "stpu_format_predictions", "stpu_free",
-               "stpu_tensor_encode", "stpu_tensor_decode", "stpu_tensor_decode_layout"):
+               "stpu_tensor_encode", "stpu_tensor_decode", "stpu_tensor_decode_layout",
+               "stpu_crc32c"):
         assert hasattr(lib, fn)
-    assert not hasattr(lib, "stpu_crc32c")
-    # the hash covers both sources
-    assert [s.name for s in native.SOURCES] == ["fastjson.cpp", "arrow_tensor.cpp"]
+    # the hash covers every source
+    assert [s.name for s in native.SOURCES] == ["fastjson.cpp", "arrow_tensor.cpp",
+                                                "crc32c.cpp"]
     with pytest.raises(native.ParseError, match="payload missing"):
         native.parse_instances(b'{"x": 1}')
 

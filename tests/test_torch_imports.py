@@ -4,11 +4,12 @@ flight recorder, copy ledger and cost profile, Arrow tensor marshalling,
 record frames, topology builder, observatory and cascade, the runtime's
 groupings, state, chaos monkey, transactions and metrics consumers, the
 exactly-once sink, the decode tier, the ring, DRPC, windows, joins, event
-time, shell components, the multilang child side, flux and training
-included), and
-neither chip_smoke.py nor kernel_sweep.py, imports JAX, orbax,
-scikit-learn, pyarrow or anything of the JAX package storm_tpu (the
-machine with the card has none of them)."""
+time, shell components, the multilang child side, flux, training, and
+the dist runtime with its Kafka wire client, stub broker and resilience
+primitives included), and neither chip_smoke.py nor kernel_sweep.py,
+imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
+package storm_tpu (the machine with the card has none of them; the
+port's dist RPCs run over the standard library's sockets)."""
 
 import ast
 import os
@@ -31,7 +32,8 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "orbax", "sklearn", "storm_tpu", "pyarrow")
+    return top in ("jax", "jaxlib", "flax", "orbax", "sklearn", "storm_tpu", "pyarrow",
+                   "grpc")
 
 
 def test_no_jax_or_storm_tpu_imports_in_source():
@@ -133,7 +135,7 @@ def test_importing_the_port_loads_no_jax():
               prometheus_text({{}}) == "\\n", issubclass(TransactionalSink, StatefulBolt))
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
-                                               "storm_tpu", "pyarrow"))
+                                               "storm_tpu", "pyarrow", "grpc"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -175,7 +177,13 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.runtime.join", "storm_tpu_torch.runtime.event_time",
                  "storm_tpu_torch.runtime.shell", "storm_tpu_torch.multilang",
                  "storm_tpu_torch.flux", "storm_tpu_torch.parallel.train",
-                 "storm_tpu_torch.data", "storm_tpu_torch.data.digits"):
+                 "storm_tpu_torch.data", "storm_tpu_torch.data.digits",
+                 "storm_tpu_torch.dist.controller", "storm_tpu_torch.dist.worker",
+                 "storm_tpu_torch.dist.transport", "storm_tpu_torch.dist.wire",
+                 "storm_tpu_torch.dist.shm", "storm_tpu_torch.connectors.kafka_protocol",
+                 "storm_tpu_torch.connectors.kafka_stub", "storm_tpu_torch.connectors.lz4",
+                 "storm_tpu_torch.connectors.snappy", "storm_tpu_torch.resilience.retry",
+                 "storm_tpu_torch.resilience.circuit", "storm_tpu_torch.resilience.tokens"):
         assert repr(name) in out.stdout, name
 
 
@@ -207,7 +215,7 @@ def test_observatory_and_cascade_load_no_jax():
         print("STEPPED", sorted(obs.snapshot()), rt.obs is obs, CascadeRouter, Escalated)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
-                                               "storm_tpu", "pyarrow"))
+                                               "storm_tpu", "pyarrow", "grpc"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -256,7 +264,7 @@ def test_decode_and_stream_operators_load_no_jax():
         print("CHILD", child)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
-                                               "storm_tpu", "pyarrow"))
+                                               "storm_tpu", "pyarrow", "grpc"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -291,7 +299,7 @@ def test_training_loads_no_jax(tmp_path):
               train_to_convergence.__name__)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
-                                               "storm_tpu", "pyarrow"))
+                                               "storm_tpu", "pyarrow", "grpc"))
         print("LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -299,3 +307,55 @@ def test_training_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     assert "TRAINED True lenet5 train_to_convergence" in out.stdout, out.stdout
+
+
+def test_dist_runtime_loads_no_jax_or_grpc():
+    """The worker's ``-m`` entry answers ``--help`` in a fresh interpreter,
+    and the dist runtime, the wire broker and the stub imported and used
+    there (a frame encoded, a transport call answered, the stub's log
+    written and read) load nothing of JAX, gRPC or storm_tpu."""
+    out = subprocess.run([sys.executable, "-m", "storm_tpu_torch.dist.worker", "--help"],
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "--index" in out.stdout and "--device" in out.stdout
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.path.insert(0, {ROOT!r})
+        sys.argv = ["storm_tpu_torch.dist.worker", "--help"]
+        try:
+            runpy.run_module("storm_tpu_torch.dist.worker", run_name="__main__")
+        except SystemExit as e:
+            print("HELP", e.code)
+        from storm_tpu_torch.dist import DistCluster, transport, wire
+        from storm_tpu_torch.connectors.kafka_protocol import KafkaWireBroker
+        from storm_tpu_torch.connectors.kafka_stub import KafkaStubBroker
+        from storm_tpu_torch.runtime.tuples import Tuple
+        frame = wire.encode_deliveries([("b", 0, Tuple(values=[b"x"], fields=("m",),
+                                                       source_component="s"))])
+        handler = transport.DistHandler(lambda r, c: b"{{}}", lambda r, c: b"{{}}",
+                                        lambda r, c: b'{{"ok": true}}', token="")
+        srv = transport.TransportServer(handler, port=0, host="127.0.0.1")
+        srv.start()
+        client = transport.WorkerClient(f"127.0.0.1:{{srv.port}}", token="")
+        client.deliver(frame)
+        print("PING", client.control("ping"))
+        client.close()
+        srv.stop()
+        stub = KafkaStubBroker(partitions=1)
+        b = KafkaWireBroker(f"127.0.0.1:{{stub.port}}")
+        b.produce("t", b"v")
+        print("FETCH", [r.value for r in b.fetch("t", 0, 0, 5)])
+        b.close()
+        stub.close()
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow", "grpc"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "HELP 0" in out.stdout, out.stdout
+    assert "PING {'ok': True}" in out.stdout, out.stdout
+    assert "FETCH [b'v']" in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout

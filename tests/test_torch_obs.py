@@ -18,7 +18,9 @@ import asyncio
 import copy
 import dataclasses
 import json
+import sys
 import time
+import weakref
 from types import SimpleNamespace
 
 import numpy as np
@@ -349,10 +351,23 @@ class _Engine:
 QUEUES = [{"engine": "lenet5", "pending_rows": 3, "oldest_ms": 7.5}]
 
 
+def _idle_decode_tier(impl, monkeypatch) -> None:
+    """The package's decode tier as a process that never decoded holds
+    it: a decode engine or session store that another test left in this
+    process would otherwise show in one package's snapshot only."""
+    pkg = impl.obs.__name__.split(".")[0]
+    engine, session = (sys.modules.get(f"{pkg}.decode.{m}") for m in ("engine", "session"))
+    if engine is not None:
+        monkeypatch.setattr(engine, "_SHARED", {})
+    if session is not None:
+        monkeypatch.setattr(session.SessionStore, "_ALL", weakref.WeakSet())
+
+
 def _observatory(impl, monkeypatch, rt, clock, **cfg_kw):
     engine = _Engine()
     monkeypatch.setattr(impl.engine, "live_engines", lambda: [engine])
     monkeypatch.setattr(impl.continuous, "registry_stats", lambda: list(QUEUES))
+    _idle_decode_tier(impl, monkeypatch)
     cfg = impl.config.ObsConfig(enabled=True, **cfg_kw)
     obs = impl.obs.Observatory(rt, cfg, sink_components=("sink",), clock=clock)
     obs.profile = impl.obs.ProfileStore()

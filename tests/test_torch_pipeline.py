@@ -476,7 +476,7 @@ def test_chaos_injector_engine_hang_budget():
     assert inj.engine_hang_s() == 0.0  # the budget is spent
     assert inj.counts["engine_hang"] == 2
     with pytest.raises(ValueError, match="unknown chaos knob"):
-        inj.configure(wire_drop_pct=1.0)
+        inj.configure(engine_hang_s=1.0)  # a misspelt knob
 
 
 # ---- the port's pipelined predictions, against storm_tpu's -------------------
