@@ -284,7 +284,38 @@ no result):
    and the duplicates printed), and a Control call with a wrong token
    refused ``UNAUTHENTICATED``. The kernels were built in phase 2, so the
    workers load them;
-17. the ``{"kernels": [...]}`` line, then the card line, then the last line
+17. the dist runtime's durable control plane, on phase 16's placement and
+   path in a fresh ``DistCluster(3)`` with ``control.journal_dir`` a
+   temporary directory, the spout resuming from its group's offsets, on
+   topics of its own: (a) 40 of phase 13's records and the poison served,
+   the controller ``abandon``ed, a rebalance of the inference bolt 4 -> 2
+   journaled and never applied, a fresh controller on the journal: it
+   reattaches (each worker's pid kept and ``submits`` still 1, w1's engine
+   and its buckets the same objects and no new ``graph_capture``), the
+   rebalance reconciled to 2, the next 40 records each answered once within
+   ``DIST_TOL`` of this script's forward with its argmax, w1's tally its
+   forwards x (73, 12, 12) across the phase; the time to reattach and
+   ``journal_stats()`` printed; (b) a burst of 128 while ``rolling_restart``
+   walks w0, w1 and w2 under the heartbeat monitor: every record answered
+   at least once, no worker left draining, the monitor never recovering
+   one, the restarted w1's tally its forwards x (73, 12, 12); each worker's
+   row (drain, restart and resubmit s), the duplicates and records/s
+   printed; (c) ``seek("kafka-spout", "earliest")`` answers each record of
+   the input log once more, each answer within ``DIST_TOL`` of its first,
+   and ``seek(..., 20)`` exactly the records at offset 20 or past in each
+   partition; (d) the spout rebuilt on ``offsets.group_protocol`` as 2
+   tasks: their partitions disjoint and covering the topic; after
+   ``rebalance("kafka-spout", 1)`` the survivor owns both and every record
+   is answered; (e) spout ``txn`` on w0, inference on w1, the transactional
+   sinks on w2, w1 SIGKILLed mid-burst of 128: a ``read_committed`` read
+   holds each input exactly once and the group's offsets stand at the
+   log's end; records/s, e2e p50 and the time to recover printed; (f)
+   ``profile(1, log_dir, 2.0)`` during traffic writes a trace naming the
+   three kernels' functions; ``decode_sessions()`` empty on the ViT mesh,
+   and on a decode mesh (``chip_smoke:decode_mesh``: SessionSpout on w0 ->
+   char_tiny's DecodeBolt on w1 -> a sink on w0) its tokens those at the
+   sink;
+18. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -5832,6 +5863,592 @@ def dist_runtime(torch, card: str, device: str = "cuda") -> dict:
     return res
 
 
+# ---- phase 17: the dist runtime's durable control plane ---------------------------
+
+P17_RECORDS = 40  # (a): records served before the controller dies, and after
+P17_BURST = 128  # (b) and (e): records a burst
+P17_ROUND_S = 1.5  # (b): a round of B records this often while the restart runs
+P17_GROUP = "chip-smoke-phase17"
+P17_TOPICS = ("p17-input", "p17-output", "p17-dead-letter")
+P17_EOS_TOPICS = ("p17e-input", "p17e-output", "p17e-dead-letter")
+P17_EOS_GROUP = "chip-smoke-phase17e"
+P17_DEC_SESSIONS, P17_DEC_TOKENS = 16, 24  # (f)'s decode mesh
+P17_DEC_PLACEMENT = {"requests": 0, "decode-bolt": 1, "kafka-bolt": 0}
+# The sm90 kernels of the main path, by the names phase 5 matches.
+P17_PROFILED = {k: f for k, f in KERNEL_FUNCS.items() if k in VIT_LAUNCHES}
+
+
+def p17_config(bootstrap: str, topics=P17_TOPICS, timeout_s: float = 10.0):
+    """Phase 16's path on topics of its own, the spout resuming from its
+    group's committed offsets (a restarted spout host replays what it had
+    not committed: duplicates, never a loss)."""
+    from storm_tpu_torch.config import OffsetsConfig
+
+    cfg = dist_config(bootstrap, timeout_s)
+    cfg.offsets = OffsetsConfig(policy="resume", group_id=P17_GROUP, max_behind=None)
+    cfg.broker.input_topic, cfg.broker.output_topic, cfg.broker.dead_letter_topic = topics
+    return cfg
+
+
+def decode_mesh(cfg, broker, device: str = "cuda"):
+    """(f)'s builder, resolved by a worker as ``chip_smoke:decode_mesh``:
+    SessionSpout -> char_tiny's DecodeBolt (ring grouping) -> a BrokerSink
+    producing each token to the output topic."""
+    from storm_tpu_torch.connectors import BrokerSink
+    from storm_tpu_torch.decode import DecodeBolt, DecodeConfig, SessionSpout
+    from storm_tpu_torch.runtime import TopologyBuilder
+
+    reqs = [{"session_id": f"p17-{i}", "prompt": p, "max_new_tokens": P17_DEC_TOKENS}
+            for i, p in enumerate(dec_prompts(P17_DEC_SESSIONS, seed=17))]
+    tb = TopologyBuilder()
+    tb.set_spout("requests", SessionSpout(reqs), 1)
+    tb.set_bolt("decode-bolt", DecodeBolt(DecodeConfig(seed=DEC_SEED,
+                                                       arena_blocks=P17_DEC_SESSIONS,
+                                                       max_new_tokens=P17_DEC_TOKENS),
+                                          device=device), 1) \
+        .ring_fields_grouping("requests", "session_id")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, cfg.broker.output_topic, cfg.sink), 1) \
+        .shuffle_grouping("decode-bolt")
+    return tb.build()
+
+
+def quiesce(cluster, label: str, component: str = "kafka-spout") -> float:
+    """Wait until no tree of ``component`` is in flight (nothing left to
+    time out and replay): an exact count after it sees no late duplicate."""
+    return wait_for(lambda: sum(r["inflight"] for r in cluster.component_stats(component))
+                    == 0, 120, f"{label}: the spout's trees in flight", poll_s=0.1)
+
+
+def log_records(producer, topic: str, payloads: list, start: int = 0) -> np.ndarray:
+    """How many times each of ``payloads`` is in the input log at an offset
+    of ``start`` or more in its partition (the poison is none of them)."""
+    index = {p.encode(): i for i, p in enumerate(payloads)}
+    counts = np.zeros(len(payloads), np.int64)
+    for part in range(producer.partitions_for(topic)):
+        off = start
+        while off < producer.latest_offset(topic, part):
+            recs = producer.fetch(topic, part, off, 512)
+            if not recs:
+                break
+            for r in recs:
+                if r.value in index:
+                    counts[index[r.value]] += 1
+            off = recs[-1].offset + 1
+    return counts
+
+
+def vit_engine(reports: dict, worker: int) -> dict:
+    [eng] = [e for e in reports[worker]["engines"] if e["model"] == vit_b16_config().name]
+    return eng
+
+
+def captures(cluster, worker: int) -> int:
+    """The ``graph_capture`` events in ``worker``'s flight recorder."""
+    flight = cluster.clients[worker].control("traces", n=100000).get("flight") or []
+    return sum(1 for e in flight if e["kind"] == "graph_capture")
+
+
+def served_once(rows: np.ndarray, ref: np.ndarray, label: str) -> None:
+    counts, groups = match_rows(rows, ref, label)
+    size = np.bincount(groups, minlength=len(ref))
+    if len(rows) != len(ref) or (counts != size).any():
+        raise AssertionError(f"{label}: {len(rows)} rows for {len(ref)} records (groups "
+                             f"answered {counts[size > 0].tolist()} times for "
+                             f"{size[size > 0].tolist()} records)")
+
+
+def p17_reattach(make_cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+                 card: str) -> tuple:
+    """17 (a): serve, the controller dies, a rebalance journaled and never
+    applied, a fresh controller on the journal adopts the mesh."""
+    cluster = make_cluster()
+    t0 = time.perf_counter()
+    cluster.submit("chip-smoke-phase17", p17_config(bootstrap), placement=DIST_PLACEMENT)
+    submit_s = time.perf_counter() - t0
+    out, dlq = TopicReader(producer, P17_TOPICS[1]), TopicReader(producer, P17_TOPICS[2])
+    got, dead = [], []
+    first = payloads[:P17_RECORDS]
+    for i, p in enumerate(first):
+        producer.produce(P17_TOPICS[0], p.encode())
+        if i == len(first) // 2:
+            producer.produce(P17_TOPICS[0], POISON.encode())
+
+    def done():
+        got.extend(out.take())
+        dead.extend(dlq.take())
+        return len(dist_rows(got)) >= len(first) and dead
+
+    wait_for(done, 180, "17 (a) before the controller dies")
+    quiesce(cluster, "17 (a)")
+    got += out.take()
+    first_rows = dist_rows(got)
+    served_once(first_rows, ref[:P17_RECORDS], "17 (a) before")
+    if len(dead) != 1:
+        raise AssertionError(f"17 (a): {len(dead)} dead letters")
+    before = worker_reports(cluster)
+    eng0 = vit_engine(before, 1)
+    caps0 = captures(cluster, 1)
+    pids = dict(cluster._pids)
+    cluster._jappend("rebalance", component="inference-bolt", parallelism=2)
+    cluster.abandon()
+
+    t0 = time.perf_counter()
+    cluster = make_cluster()
+    reattach_s = time.perf_counter() - t0
+    if not cluster.reattached:
+        raise AssertionError("17 (a): the controller did not reattach")
+    reports = cluster.state_reports()
+    if {i: r["pid"] for i, r in reports.items()} != pids or \
+            any(r["submits"] != 1 for r in reports.values()):
+        raise AssertionError(f"17 (a): pids {pids} -> {reports}")
+    if reports[1]["parallelism"]["inference-bolt"] != 2:
+        raise AssertionError(f"17 (a): the missed rebalance not reconciled: {reports[1]}")
+    after = worker_reports(cluster)
+    eng1 = vit_engine(after, 1)
+    caps1 = captures(cluster, 1)
+    if (eng1["id"], eng1["buckets"], caps1) != (eng0["id"], eng0["buckets"], caps0) or \
+            len(after[1]["engines"]) != len(before[1]["engines"]):
+        raise AssertionError(f"17 (a): w1 built or captured again: engine {eng0['id']} "
+                             f"{eng0['buckets']} -> {eng1['id']} {eng1['buckets']}, "
+                             f"captures {caps0} -> {caps1}")
+    got = []
+    second = payloads[P17_RECORDS:2 * P17_RECORDS]
+    t0 = time.perf_counter()
+    for p in second:
+        producer.produce(P17_TOPICS[0], p.encode())
+    wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= len(second), 180,
+             "17 (a) after the reattach")
+    wall = time.perf_counter() - t0
+    quiesce(cluster, "17 (a)")
+    got += out.take()
+    rows = dist_rows(got)
+    served_once(rows, ref[P17_RECORDS:2 * P17_RECORDS], "17 (a) after")
+    # each record's first answer, by its group of forwards
+    first = np.concatenate([first_rows, rows])
+    nearest = np.abs(first[:, None, :] - ref[None, :, :]).max(-1).argmin(1)
+    groups = ref_groups(ref)
+    firsts = {int(groups[i]): row for i, row in zip(nearest, first)}
+    reports = worker_reports(cluster)
+    tally = vit_tally(reports, 1, {}, "17 (a) the whole phase")
+    err = float(np.abs(rows[:, None, :] - ref[None, P17_RECORDS:2 * P17_RECORDS]).max(-1)
+                .min(1).max())
+    stats = cluster.journal_stats()
+    ctrl = cluster.ctrl_metrics.snapshot()["controller"]
+    log(f"  17 (a) on {card}: {P17_RECORDS} records + 1 poison through phase 16's placement "
+        f"(submit {submit_s:.3f} s), the controller abandoned, a rebalance of inference-bolt "
+        f"4 -> 2 journaled and never applied; a fresh controller reattached in "
+        f"{reattach_s:.3f} s: pids {pids} kept, submits 1, the rebalance reconciled to 2, w1's "
+        f"engine {eng1['id']} and buckets {eng1['buckets']} unchanged, graph captures "
+        f"{caps0} -> {caps1}; the next {len(second)} records each answered once in "
+        f"{wall:.3f} s, max |dp| {err:.2e} (bound {DIST_TOL}); w1's tally {tally['launches']} "
+        f"for {tally['forwards']} forwards; journal {stats}, replayed "
+        f"{ctrl.get('dist_journal_replayed', 0)}")
+    return cluster, {"submit_s": submit_s, "reattach_s": reattach_s, "journal": stats,
+                     "replayed": ctrl.get("dist_journal_replayed", 0), "max_abs_dp": err,
+                     "launches": tally["launches"], "forwards": tally["forwards"],
+                     "captures": caps1, "wall_s": wall}, firsts
+
+
+def p17_rolling(cluster, producer, payloads: list, ref: np.ndarray, card: str,
+                b16: dict) -> dict:
+    """17 (b): P17_BURST records while rolling_restart walks w0, w1 and w2
+    under the monitor: produced in rounds of B while the restart runs, so
+    every worker goes dark under traffic, the rest at once after it."""
+    import threading
+
+    burst = [payloads[i % len(payloads)] for i in range(P17_BURST)]
+    sent = np.bincount(np.arange(P17_BURST) % len(payloads), minlength=len(payloads))
+    out = TopicReader(producer, P17_TOPICS[1])
+    got: list = []
+    cluster.start_monitor(interval_s=0.5, misses=2)
+    rows_box: dict = {}
+
+    def roll():
+        rows_box["rows"] = cluster.rolling_restart(drain_timeout_s=30.0, settle_s=1.0)
+
+    roller = threading.Thread(target=roll, name="rolling-restart")
+    t0 = time.perf_counter()
+    roller.start()
+    sent_during = 0
+    while sent_during < P17_BURST and roller.is_alive():
+        for p in burst[sent_during:sent_during + B]:
+            producer.produce(P17_TOPICS[0], p.encode())
+        sent_during += B
+        time.sleep(P17_ROUND_S)
+    for p in burst[sent_during:]:
+        producer.produce(P17_TOPICS[0], p.encode())
+
+    def answered():
+        got.extend(out.take())
+        counts, groups = match_rows(dist_rows(got), ref, "17 (b)")
+        return (counts >= np.bincount(groups, weights=sent, minlength=len(ref))).all()
+
+    wait_for(answered, 300, "17 (b) every record through the rolling restart")
+    all_s = time.perf_counter() - t0
+    roller.join(timeout=300)
+    if roller.is_alive() or "rows" not in rows_box:
+        raise AssertionError("17 (b): the rolling restart did not finish")
+    wall = time.perf_counter() - t0
+    cluster.stop_monitor()
+    rows = rows_box["rows"]
+    reports = cluster.state_reports()
+    kinds = [e["kind"] for e in cluster.flight.tail(1000)]
+    if cluster._draining or any(r.get("draining") for r in reports.values()) or \
+            not all(r["drained"] and r["new_pid"] != r["old_pid"] for r in rows):
+        raise AssertionError(f"17 (b): rows {rows}, reports {reports}")
+    if "dist_worker_recovered" in kinds:
+        raise AssertionError("17 (b): the monitor recovered a worker the restart was draining")
+    quiesce(cluster, "17 (b)")
+    got += out.take()
+    counts, groups = match_rows(dist_rows(got), ref, "17 (b)")
+    dups = int(len(dist_rows(got)) - P17_BURST)
+    tally = vit_tally(worker_reports(cluster), 1, {}, "17 (b) the restarted w1")
+    rate = P17_BURST / all_s
+    for r in rows:
+        log(f"  17 (b) on {card}: w{r['worker']} drained {r['drained']} in {r['drain_s']} s, "
+            f"restarted (exit, then a fresh process with its CUDA context) in "
+            f"{r['restart_s']} s, resubmitted (the recipe; on w1 the engine's build and graph "
+            f"capture) in {r['resubmit_s']} s; pid {r['old_pid']} -> {r['new_pid']}")
+    log(f"  17 (b) on {card}: {P17_BURST} records through a rolling restart of 3 workers "
+        f"({sent_during} of them in rounds of {B} every {P17_ROUND_S} s while it ran): "
+        f"every record answered at least once {all_s:.3f} s after the first produce "
+        f"({rate:.3f} records/s against phase 16's three-process burst "
+        f"{b16['records_per_s']:.3f}), {dups} duplicates, no worker left draining, the "
+        f"monitor held off; the restarted w1's tally {tally['launches']} for "
+        f"{tally['forwards']} forwards")
+    return {"rows": rows, "all_answered_s": all_s, "records_per_s": rate, "duplicates": dups,
+            "sent_during": sent_during,
+            "wall_s": wall, "launches": tally["launches"], "forwards": tally["forwards"]}
+
+
+def p17_seek(cluster, producer, payloads: list, ref: np.ndarray, firsts: dict,
+             card: str) -> dict:
+    """17 (c): seek to "earliest" replays the input log, each replayed
+    record's answer its first one's; an offset skips what lies before it."""
+    out = TopicReader(producer, P17_TOPICS[1])
+    res = {}
+    for position in ("earliest", 20):
+        got: list = []
+        sent = log_records(producer, P17_TOPICS[0], payloads,
+                           0 if position == "earliest" else position)
+        groups = ref_groups(ref)
+        want = np.bincount(groups, weights=sent, minlength=len(ref))
+        t0 = time.perf_counter()
+        n = cluster.seek("kafka-spout", position)
+        wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= sent.sum(), 240,
+                 f"17 (c) seek {position}")
+        wall = time.perf_counter() - t0
+        quiesce(cluster, f"17 (c) seek {position}")
+        got += out.take()
+        rows = dist_rows(got)
+        counts, groups = match_rows(rows, ref, f"17 (c) seek {position}")
+        idx = np.abs(rows[:, None, :] - ref[None, :, :]).max(-1).argmin(1)
+        diff = max((float(np.abs(r - firsts[int(groups[i])]).max()) for r, i in zip(rows, idx)),
+                   default=0.0)
+        if (counts != want).any() or diff > DIST_TOL:
+            raise AssertionError(f"17 (c) seek {position}: {len(rows)} rows for "
+                                 f"{int(sent.sum())} records at or past it, groups answered "
+                                 f"{counts[want > 0].tolist()} for {want[want > 0].tolist()}, "
+                                 f"max |dp| to the first answer {diff:.2e}")
+        want = int(sent.sum())
+        res[str(position)] = {"tasks": n, "records": len(rows), "wall_s": wall,
+                              "max_abs_dp_to_first": diff}
+        log(f"  17 (c) on {card}: seek {position!r} ({n} tasks): {len(rows)} records "
+            f"replayed, each record at or past it once ({want}), none before it, in "
+            f"{wall:.3f} s, each answer within {diff:.2e} of its first")
+    return res
+
+
+def p17_group(cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+              card: str) -> dict:
+    """17 (d): the spout rebuilt on the group protocol as 2 tasks; then
+    shrunk to 1, records arriving."""
+    from storm_tpu_torch.config import OffsetsConfig
+
+    cluster.kill()
+    cfg = p17_config(bootstrap)
+    cfg.offsets = OffsetsConfig(policy="resume", group_id=P17_GROUP, max_behind=None,
+                                group_protocol=True)
+    cfg.topology.spout_parallelism = 2
+    cluster.submit("chip-smoke-phase17d", cfg, placement=DIST_PLACEMENT)
+
+    def owned():
+        return [r.get("partitions") or [] for r in cluster.component_stats("kafka-spout")]
+
+    split_s = wait_for(lambda: sorted(len(p) for p in owned()) == [1, 1], 60,
+                       "17 (d) the two tasks' assignment")
+    parts = owned()
+    if sorted(p for ps in parts for p in ps) != [0, 1]:
+        raise AssertionError(f"17 (d): the tasks own {parts}")
+    out = TopicReader(producer, P17_TOPICS[1])
+    got: list = []
+    sub = payloads[:16]
+    for p in sub[:8]:
+        producer.produce(P17_TOPICS[0], p.encode())
+    t0 = time.perf_counter()
+    cluster.rebalance("kafka-spout", 1)
+    for p in sub[8:]:
+        producer.produce(P17_TOPICS[0], p.encode())
+    shrink_s = wait_for(lambda: [len(p) for p in owned()] == [2], 60,
+                        "17 (d) the survivor's assignment")
+
+    def answered():
+        got.extend(out.take())
+        counts, groups = match_rows(dist_rows(got), ref[:16], "17 (d)")
+        return (counts >= np.bincount(groups, minlength=16)).all()
+
+    all_s = wait_for(answered, 120, "17 (d) every record after the shrink")
+    log(f"  17 (d) on {card}: the group protocol (group {P17_GROUP!r}) split partitions "
+        f"{parts} between the 2 tasks in {split_s:.3f} s; after rebalance(kafka-spout, 1) the "
+        f"survivor owns {owned()[0]} ({shrink_s:.3f} s), all 16 records answered "
+        f"({len(dist_rows(got))} rows) {all_s:.3f} s after the shrink began")
+    cluster.kill()
+    return {"split": parts, "split_s": split_s, "shrink_s": shrink_s, "all_answered_s": all_s,
+            "rows": int(len(dist_rows(got)))}
+
+
+def committed_rows(bootstrap: str, topic: str) -> np.ndarray:
+    from storm_tpu_torch.connectors.kafka_protocol import KafkaWireBroker
+
+    rc = KafkaWireBroker(bootstrap, message_format="v2", isolation="read_committed")
+    try:
+        vals = []
+        for p in range(rc.partitions_for(topic)):
+            off = 0
+            while True:
+                recs = rc.fetch(topic, p, off, 512)
+                if not recs:
+                    break
+                vals += [r.value for r in recs]
+                off = recs[-1].offset + 1
+        return dist_rows(vals)
+    finally:
+        rc.close()
+
+
+def p17_exactly_once(cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+                     card: str, b: dict) -> dict:
+    """17 (e): the spout under 'txn' on w0, inference on w1, the
+    transactional sinks on w2; w1 SIGKILLed mid-burst."""
+    import signal
+
+    from storm_tpu_torch.config import OffsetsConfig, SinkConfig
+
+    cfg = p17_config(bootstrap, topics=P17_EOS_TOPICS, timeout_s=8.0)
+    cfg.broker.message_format = "v2"
+    cfg.offsets = OffsetsConfig(policy="txn", group_id=P17_EOS_GROUP, max_behind=None)
+    cfg.sink = SinkConfig(mode="transactional", txn_batch=16, txn_ms=50.0,
+                          offsets_group=P17_EOS_GROUP)
+    cfg.topology.spout_parallelism = cfg.topology.sink_parallelism = 1
+    cfg.topology.spout_chunk = EOS_CHUNK
+    placement = {"kafka-spout": 0, "inference-bolt": 1, "kafka-bolt": 2, "dlq-bolt": 2}
+    cluster.submit("chip-smoke-phase17e", cfg, placement=placement)
+    cluster.start_monitor(interval_s=0.5, misses=2)
+    burst = [payloads[i % len(payloads)] for i in range(P17_BURST)]
+    sent = np.bincount(np.arange(P17_BURST) % len(payloads), minlength=len(payloads))
+    t0 = time.perf_counter()
+    for i, p in enumerate(burst):
+        producer.produce(P17_EOS_TOPICS[0], p.encode(), partition=i % 2)
+    wait_for(lambda: len(committed_rows(bootstrap, P17_EOS_TOPICS[1])) >= 2 * EOS_CHUNK, 180,
+             "17 (e) before the kill", poll_s=0.05)
+    old = cluster.procs[1].pid if cluster.procs[1] is not None else cluster._pids[1]
+    t_kill_wall = time.time()
+    os.kill(old, signal.SIGKILL)
+    all_s = wait_for(lambda: len(committed_rows(bootstrap, P17_EOS_TOPICS[1])) >= P17_BURST,
+                     300, "17 (e) after the kill", poll_s=0.2)
+    wall = time.perf_counter() - t0
+    rec = [e for e in cluster.flight.tail(1000) if e["kind"] == "dist_worker_recovered"]
+    if not rec:
+        wait_for(lambda: any(e["kind"] == "dist_worker_recovered"
+                             for e in cluster.flight.tail(1000)), 60, "17 (e) recovery")
+        rec = [e for e in cluster.flight.tail(1000) if e["kind"] == "dist_worker_recovered"]
+    recover_s = rec[-1]["ts"] - t_kill_wall
+    cluster.stop_monitor()
+    if not cluster.drain(timeout_s=60):
+        raise AssertionError("17 (e): the drain did not finish")
+    rows = committed_rows(bootstrap, P17_EOS_TOPICS[1])
+    counts, groups = match_rows(rows, ref, "17 (e)")
+    want = np.bincount(groups, weights=sent, minlength=len(ref))
+    committed = {p: producer.committed(P17_EOS_GROUP, P17_EOS_TOPICS[0], p) for p in (0, 1)}
+    ends = {p: producer.latest_offset(P17_EOS_TOPICS[0], p) for p in (0, 1)}
+    if len(rows) != P17_BURST or (counts != want).any() or committed != ends:
+        raise AssertionError(f"17 (e): read_committed holds {len(rows)} rows for {P17_BURST} "
+                             f"records; offsets {committed}, log ends {ends}")
+    snap = cluster.metrics()
+    p50 = snap["kafka-bolt"]["e2e_latency_ms"]["p50"]
+    rate = P17_BURST / all_s
+    tally = vit_tally(worker_reports(cluster), 1, {}, "17 (e) the replacement w1")
+    log(f"  17 (e) on {card}: exactly once across 3 workers (spout 'txn' in chunks of "
+        f"{EOS_CHUNK} on w0, inference on w1, transactional sinks on w2), w1 SIGKILLed "
+        f"mid-burst of {P17_BURST}: replaced {recover_s:.3f} s after the kill, a "
+        f"read_committed read holds each input exactly once {all_s:.3f} s after the first "
+        f"produce ({rate:.3f} records/s, sink e2e p50 {p50:.3f} ms, against (b)'s "
+        f"at-least-once {b['records_per_s']:.3f} records/s), offsets {committed} at the log "
+        f"ends; txn commits {snap['kafka-bolt'].get('txn_commits')}, aborts "
+        f"{snap['kafka-bolt'].get('txn_aborts', 0)}; the replacement's tally "
+        f"{tally['launches']} for {tally['forwards']} forwards")
+    cluster.kill()
+    return {"recover_s": recover_s, "all_committed_s": all_s, "records_per_s": rate,
+            "e2e_p50_ms": p50, "wall_s": wall, "offsets": committed,
+            "launches": tally["launches"], "forwards": tally["forwards"]}
+
+
+def p17_profile_and_decode(cluster, producer, bootstrap: str, payloads: list, card: str,
+                           tmp: str) -> dict:
+    """17 (f): a profile capture on w1 during traffic; decode_sessions on
+    the ViT mesh and on a decode mesh."""
+    from storm_tpu_torch.connectors.kafka_protocol import KafkaWireBroker
+
+    cluster.submit("chip-smoke-phase17f", p17_config(bootstrap), placement=DIST_PLACEMENT)
+    empty = cluster.decode_sessions()["merged"]
+    if empty != {"stores": [], "engines": [], "sessions_live": 0, "tokens_emitted": 0}:
+        raise AssertionError(f"17 (f): decode_sessions on the ViT mesh: {empty}")
+    out = TopicReader(producer, P17_TOPICS[1])
+    got: list = []
+    log_dir = os.path.join(tmp, "profile-w1")
+    trace = os.path.join(log_dir, "trace.json")
+    box: dict = {}
+
+    def written():  # the export writes the file as it goes: read it whole
+        try:
+            with open(trace) as f:
+                box["events"] = json.load(f).get("traceEvents", [])
+            return True
+        except (OSError, ValueError):
+            return False
+
+    # Traffic from before the capture starts until its trace is written: a
+    # round of B records every 0.1 s, below the path's rate (a process's
+    # first profiler takes seconds to start on the card).
+    import threading
+
+    stop = threading.Event()
+    sent = [0]
+    feed_producer = KafkaWireBroker(bootstrap)  # this thread's own connections
+
+    def feed():
+        while not stop.is_set():
+            for i in range(sent[0], sent[0] + B):
+                feed_producer.produce(P17_TOPICS[0], payloads[i % len(payloads)].encode())
+            sent[0] += B
+            time.sleep(0.1)
+
+    feeder = threading.Thread(target=feed, name="p17f-traffic")
+    feeder.start()
+    try:
+        wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= B, 120,
+                 "17 (f) traffic before the capture")
+        fwd = [vit_engine(worker_reports(cluster), 1)["forwards"]]
+        t0 = time.perf_counter()
+        cluster.profile(1, log_dir, 2.0)
+        start_s = time.perf_counter() - t0
+        fwd.append(vit_engine(worker_reports(cluster), 1)["forwards"])
+        time.sleep(2.0)
+        fwd.append(vit_engine(worker_reports(cluster), 1)["forwards"])
+        wait_for(written, 120, "17 (f) the trace file", poll_s=0.2)
+        prof_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        feeder.join(timeout=30)
+        feed_producer.close()
+    sent = sent[0]
+    wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= sent, 180,
+             "17 (f) traffic")
+    names = [e.get("name", "") for e in box["events"] if e.get("cat") == "kernel"]
+    seen = {k: sum(1 for n in names if f in n) for k, f in P17_PROFILED.items()}
+    if not all(seen.values()):
+        cats = sorted({str(e.get("cat")) for e in box["events"]})
+        raise AssertionError(f"17 (f): the profile's kernels {seen} ({len(names)} kernels "
+                             f"of {len(box['events'])} events, categories {cats}); w1's "
+                             f"forwards {fwd} before the call, when it answered "
+                             f"({start_s:.3f} s) and 2 s after")
+    cluster.kill()
+
+    dec_topics = ("p17-dec-requests", "p17-dec-tokens", "p17-dec-dead-letter")
+    dcfg = p17_config(bootstrap, topics=dec_topics)
+    cluster.submit("chip-smoke-phase17-decode", dcfg, placement=P17_DEC_PLACEMENT,
+                   builder="chip_smoke:decode_mesh")
+    t0 = time.perf_counter()
+    wait_for(lambda: sum(r["acked"] for r in cluster.component_stats("requests"))
+             >= P17_DEC_SESSIONS, 240, "17 (f) the decode sessions")
+    dec_s = time.perf_counter() - t0
+    time.sleep(1.0)
+    reader = KafkaWireBroker(bootstrap)
+    try:
+        tokens = sum(reader.latest_offset(dec_topics[1], p)
+                     for p in range(reader.partitions_for(dec_topics[1])))
+    finally:
+        reader.close()
+    dec = cluster.decode_sessions()
+    merged = dec["merged"]
+    if merged["tokens_emitted"] != tokens or not merged["stores"] or \
+            any(r["worker"] != 1 for r in merged["stores"]):
+        raise AssertionError(f"17 (f): decode_sessions {merged} against {tokens} tokens at "
+                             f"the sink")
+    log(f"  17 (f) on {card}: profile(1, 2.0 s) during traffic ({sent} records; the "
+        f"capture started {start_s:.3f} s after the call, w1's forwards {fwd} then and 2 s "
+        f"after) wrote {trace} with {len(names)} kernels, ours {seen}, in {prof_s:.3f} s; "
+        f"decode_sessions on the ViT "
+        f"mesh empty; on the decode mesh (SessionSpout on w0 -> char_tiny's DecodeBolt on w1 "
+        f"-> a sink on w0, builder chip_smoke:decode_mesh) {P17_DEC_SESSIONS} sessions in "
+        f"{dec_s:.3f} s: {merged['tokens_emitted']} tokens emitted, {tokens} at the sink")
+    cluster.kill()
+    return {"profile_kernels": seen, "profile_events": len(names), "profile_s": prof_s,
+            "profile_start_s": start_s, "profile_forwards": fwd,
+            "decode_tokens": tokens, "decode_s": dec_s,
+            "decode_sessions_live": merged["sessions_live"]}
+
+
+def control_plane(torch, card: str, phase16: dict, device: str = "cuda") -> dict:
+    """Phase 17 (see the module docstring). The kernels were built in phase
+    2, so the workers load them."""
+    import shutil
+    import tempfile
+
+    from storm_tpu_torch.connectors.kafka_protocol import KafkaWireBroker
+    from storm_tpu_torch.dist import DistCluster
+    from storm_tpu_torch.infer.engine import shared_engine
+
+    payloads, keys = life_payloads()
+    engine = shared_engine(p17_config("").model, p17_config("").batch, device=device)
+    xs = np.stack([np.frombuffer(k, np.float32).reshape(LIFE_SHAPE) for k in keys])
+    ref = np.concatenate([engine.predict(xs[i:i + B]) for i in range(0, len(xs), B)])
+    res: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-phase17-")
+    jdir = os.path.join(tmp, "journal")
+    t_phase = time.perf_counter()
+
+    def make_cluster():
+        return DistCluster(3, device=device, auth_token=DIST_TOKEN, journal_dir=jdir)
+
+    try:
+        with stub_process() as port:
+            bootstrap = f"127.0.0.1:{port}"
+            producer = KafkaWireBroker(bootstrap, message_format="v2")
+            cluster = None
+            try:
+                cluster, res["a"], firsts = p17_reattach(make_cluster, producer, bootstrap,
+                                                         payloads, ref, card)
+                res["b"] = p17_rolling(cluster, producer, payloads, ref, card,
+                                       phase16["b"]["three processes"])
+                res["c"] = p17_seek(cluster, producer, payloads, ref, firsts, card)
+                res["d"] = p17_group(cluster, producer, bootstrap, payloads, ref, card)
+                res["e"] = p17_exactly_once(cluster, producer, bootstrap, payloads, ref, card,
+                                            res["b"])
+                res["f"] = p17_profile_and_decode(cluster, producer, bootstrap, payloads,
+                                                  card, tmp)
+                res["journal"] = cluster.journal_stats()
+            finally:
+                producer.close()
+                if cluster is not None:
+                    cluster.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  17: the phase took {res['phase_s']:.1f} s; journal {res.get('journal')}")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -5947,7 +6564,13 @@ def run() -> int:
     phase16 = dist_runtime(torch, card)
     log(json.dumps({"dist_runtime": phase16, "card": card}, default=float))
 
-    log("[17] the kernels")
+    log("[17] the dist runtime's durable control plane: reattach without a rebuild, a rolling "
+        "restart, seek, the group protocol, exactly-once across workers, profile and "
+        "decode_sessions")
+    phase17 = control_plane(torch, card, phase16)
+    log(json.dumps({"control_plane": phase17, "card": card}, default=float))
+
+    log("[18] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -6004,6 +6627,13 @@ def run() -> int:
                 phase16["a"]["launches"][name]})
         paths.update({f"vit_b16 int8_fused dist burst, {label} (phase 16b)":
                       r["launches"][name] for label, r in phase16["b"].items()})
+        paths.update({
+            "vit_b16 int8_fused dist, w1 before and after a reattach (phase 17a)":
+                phase17["a"]["launches"][name],
+            "vit_b16 int8_fused dist, w1 after a rolling restart (phase 17b)":
+                phase17["b"]["launches"][name],
+            "vit_b16 int8_fused dist exactly-once, the replacement w1 (phase 17e)":
+                phase17["e"]["launches"][name]})
         paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]
                       for m, r in phase15["b"].items()})
         entry = {

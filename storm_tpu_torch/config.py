@@ -1,6 +1,6 @@
 """Typed configuration, copied from ``storm_tpu/config.py`` for the fields
 the port reads: model, batching, spout offsets, sink delivery, topology
-knobs, the broker, the control plane's token, resilience and chaos, QoS,
+knobs, the broker, the control plane's token and journal, resilience and chaos, QoS,
 the sink's SLO, the observatory and the cascade, with their validation.
 
 ``Config.to_dict`` and ``Config.from_dict`` carry a config through the
@@ -157,14 +157,25 @@ class OffsetsConfig:
     the committed offsets like 'resume' but never commits on ack: the
     transactional sink commits the consumed offsets inside its producer
     transaction (exactly-once), and the spout delivers one entry per
-    partition at a time. The group protocol (``group_protocol``) waits for
-    the Kafka wire broker and is not a field here."""
+    partition at a time. ``group_protocol=True`` takes the partitions from
+    Kafka consumer-group coordination (JoinGroup/SyncGroup) instead of the
+    task index, so the spout's tasks share them with any consumer of the
+    group; it needs an explicit ``group_id`` and a wire-protocol broker,
+    and is refused with 'txn' (v0 TxnOffsetCommit carries no generation,
+    so a revoked partition's offsets could regress the group)."""
 
     policy: str = "latest"  # 'latest' | 'earliest' | 'resume' | 'txn'
     max_behind: Optional[int] = 0  # drop records more than N behind; None = unbounded
     group_id: Optional[str] = None  # None = fresh random group per run
+    group_protocol: bool = False
 
     def __post_init__(self) -> None:
+        if self.group_protocol and not self.group_id:
+            # every task would otherwise mint its own group and be
+            # assigned every partition: N-fold duplicate consumption
+            raise ValueError(
+                "offsets.group_protocol requires an explicit group_id "
+                "(tasks must share one group to split partitions)")
         if self.policy not in ("latest", "earliest", "resume", "txn"):
             raise ValueError(f"unknown offsets policy {self.policy!r}")
         if self.policy == "txn" and not self.group_id:
@@ -177,6 +188,12 @@ class OffsetsConfig:
                 "offsets.policy='txn' requires max_behind=None — dropping "
                 "stale records under a freshness clamp contradicts the "
                 "exactly-once contract (set it explicitly)")
+        if self.policy == "txn" and self.group_protocol:
+            raise ValueError(
+                "offsets.policy='txn' requires group_protocol=False: "
+                "v0-era TxnOffsetCommit has no rebalance fencing, so a "
+                "revoked partition's in-flight offsets could regress the "
+                "group position (use static partition assignment)")
 
 
 @dataclass
@@ -379,10 +396,21 @@ class ControlConfig:
     when that is unset too. A ``DistCluster`` starts its workers with its
     own token (``DistCluster(auth_token=cfg.control.resolve_token())``),
     and its ``submit`` refuses a config whose token resolves to another.
-    storm_tpu's journal keys (``journal_dir``, ``journal_snapshot_every``,
-    ``reattach``) come with the port's journal."""
+
+    ``journal_dir`` arms the controller's write-ahead journal
+    (:mod:`storm_tpu_torch.dist.journal`; "" = none: a restarted
+    controller rebuilds every worker); ``journal_snapshot_every`` compacts
+    it after that many appends; ``reattach`` lets a controller started on
+    a journal adopt the live workers instead of rebuilding them."""
 
     auth_token: str = ""
+    journal_dir: str = ""
+    journal_snapshot_every: int = 64
+    reattach: bool = True
+
+    def __post_init__(self) -> None:
+        if int(self.journal_snapshot_every) < 1:
+            raise ValueError("control.journal_snapshot_every must be >= 1")
 
     def resolve_token(self) -> str:
         t = self.auth_token

@@ -1,7 +1,5 @@
 """Pure-Python Kafka wire-protocol client (no external client library),
-copied from ``storm_tpu/connectors/kafka_protocol.py`` but for its
-``GroupMembership`` (JoinGroup/SyncGroup/Heartbeat/LeaveGroup), which the
-port takes up with the spout's group protocol.
+copied from ``storm_tpu/connectors/kafka_protocol.py``.
 
 The reference reaches Kafka through storm-kafka + kafka-clients jars
 (pom.xml:39-78); the framework speaks the binary protocol directly, so
@@ -16,7 +14,9 @@ the same era as the reference's Kafka 0.11 (pom.xml:55-78):
 - ListOffsets v0 (api 2) — latest (-1) / earliest (-2)
 - FindCoordinator v0/v1 (api 10) — group + transaction coordinators
 - OffsetCommit v2 (api 8) / OffsetFetch v1 (api 9) — "simple consumer"
-  commits (generation -1, empty member), no group-membership protocol
+  commits (generation -1, empty member)
+- JoinGroup, SyncGroup, Heartbeat and LeaveGroup v0 (apis 11, 14, 12, 13)
+  — :class:`GroupMembership`, consumer groups with the range assignor
 - InitProducerId v0 (api 22), AddPartitionsToTxn v0 (api 24), EndTxn v0
   (api 26) — KIP-98 idempotent + transactional produce
 - AddOffsetsToTxn v0 (api 25), TxnOffsetCommit v0 (api 28) — offsets
@@ -37,8 +37,8 @@ tells the spout to fetch via a worker thread). Exercised end-to-end against
 the stub broker speaking the same protocol over real sockets
 (:mod:`storm_tpu_torch.connectors.kafka_stub`, and storm_tpu's
 ``tests/kafka_stub.py``). The dist runtime's workers share their topics
-through this broker; its spout and sink use produce, fetch, offsets and
-static partition assignment.
+through this broker; its spout and sink use produce, fetch, offsets,
+transactions and, with ``offsets.group_protocol``, the group protocol.
 """
 
 from __future__ import annotations
@@ -1527,6 +1527,249 @@ class KafkaWireClient:
             return result
 
         return self._coord_retry(group, f"offset_fetch({group})", attempt)
+
+
+# ---- consumer groups -----------------------------------------------------------
+
+
+class GroupMembership:
+    """Kafka consumer-group coordination (JoinGroup/SyncGroup/Heartbeat/
+    LeaveGroup v0), copied from storm_tpu's: dynamic partition assignment
+    across cooperating consumers, the modern replacement for the
+    reference's ZooKeeper-based assignment (MainTopology.java:96-99).
+
+    ``join()`` runs the join->sync cycle (the elected leader computes a
+    range assignment over ``topics``) and returns this member's
+    ``[(topic, partition), ...]``. ``heartbeat()`` returns False when the
+    group is rebalancing — call ``join()`` again (positions should then be
+    re-resolved per the offsets policy). ``leave()`` exits cleanly,
+    triggering a rebalance for the survivors.
+    """
+
+    PROTOCOL = "range"
+
+    # ConsumerProtocol v0 (Kafka's cross-client subscription/assignment
+    # format): interop with standard consumers requires speaking it — a
+    # foreign leader's assignment must parse here, and our leader's
+    # assignments must parse in kafka-python/Java clients.
+
+    @staticmethod
+    def _encode_subscription(topics: List[str]) -> bytes:
+        w = Writer()
+        w.i16(0)
+        w.i32(len(topics))
+        for t in topics:
+            w.string(t)
+        w.bytes_(b"")  # userdata
+        return bytes(w.buf)
+
+    @staticmethod
+    def _decode_subscription(blob: bytes) -> List[str]:
+        r = Reader(blob)
+        r.i16()
+        return [r.string() for _ in range(r.i32())]
+
+    @staticmethod
+    def _encode_assignment(parts: List[Tuple[str, int]]) -> bytes:
+        by_topic: Dict[str, List[int]] = {}
+        for t, p in parts:
+            by_topic.setdefault(t, []).append(p)
+        w = Writer()
+        w.i16(0)
+        w.i32(len(by_topic))
+        for t, ps in sorted(by_topic.items()):
+            w.string(t)
+            w.i32(len(ps))
+            for p in sorted(ps):
+                w.i32(p)
+        w.bytes_(b"")  # userdata
+        return bytes(w.buf)
+
+    @staticmethod
+    def _decode_assignment(blob: bytes) -> List[Tuple[str, int]]:
+        if not blob:
+            return []
+        try:
+            r = Reader(blob)
+            r.i16()
+            out: List[Tuple[str, int]] = []
+            for _ in range(r.i32()):
+                t = r.string()
+                for _ in range(r.i32()):
+                    out.append((t, r.i32()))
+            return sorted(out)
+        except KafkaProtocolError as e:
+            raise KafkaProtocolError(
+                f"undecodable ConsumerProtocol assignment: {e}") from e
+
+    def __init__(self, client: "KafkaWireClient", group: str,
+                 topics: List[str], session_timeout_ms: int = 10000) -> None:
+        client.ensure_features({"group"})
+        self.client = client
+        self.group = group
+        self.topics = list(topics)
+        self.session_timeout_ms = session_timeout_ms
+        self.member_id = ""
+        self.generation = -1
+        self.is_leader = False
+
+    # v0 wire bodies ----------------------------------------------------------
+
+    def _rpc(self, api: int, body: bytes) -> Reader:
+        """Membership RPC to the GROUP coordinator (FindCoordinator-cached,
+        re-discovered once on transport errors — a dead coordinator broker
+        must not wedge the member on a stale cached address)."""
+        return self.client._coordinator_request(self.group, api, 0, body)
+
+    def _rpc_err(self, api: int, body: bytes):
+        """(reader, None) or (None, code) when the coordinator LOOKUP
+        itself answers a retriable error (COORDINATOR_NOT_AVAILABLE on a
+        freshly started cluster, NOT_COORDINATOR mid-move) — the join
+        loop's in-band retry must also cover lookup-phase failures, or a
+        routine startup race escapes its 40-attempt patience."""
+        try:
+            return self._rpc(api, body), None
+        except KafkaProtocolError as e:
+            if e.code in COORD_RETRIABLE:
+                self.client.invalidate_coordinator(self.group)
+                return None, e.code
+            raise
+
+    def join(self, max_attempts: int = 40) -> List[Tuple[str, int]]:
+        for _ in range(max_attempts):
+            w = Writer()
+            w.string(self.group).i32(self.session_timeout_ms)
+            w.string(self.member_id).string("consumer")
+            w.i32(1)
+            w.string(self.PROTOCOL)
+            w.bytes_(self._encode_subscription(self.topics))
+            r, lookup_err = self._rpc_err(11, bytes(w.buf))
+            if r is None:
+                time.sleep(0.05)
+                continue
+            err = r.i16()
+            if err:
+                # retryable coordination errors: evicted member (25 — rejoin
+                # as new), coordinator moving/loading (14/15/16), rebalance
+                # (27). Anything else is a real fault.
+                if err == 25:
+                    self.member_id = ""
+                if err in COORD_RETRIABLE:
+                    self.client.invalidate_coordinator(self.group)
+                if err in (14, 15, 16, 25, 27):
+                    time.sleep(0.05)
+                    continue
+                raise _proto_error("join_group", err)
+            self.generation = r.i32()
+            r.string()  # protocol
+            leader = r.string()
+            self.member_id = r.string()
+            members = {}
+            for _ in range(r.i32()):
+                mid = r.string()
+                members[mid] = r.bytes_() or b""
+            self.is_leader = leader == self.member_id
+            assignments: Dict[str, bytes] = {}
+            if self.is_leader:
+                assignments = self._range_assign(members)
+            # sync; on REBALANCE_IN_PROGRESS the generation is still valid
+            # and only the leader's sync is pending — retry the SYNC, not
+            # the whole join (rejoining would never let a follower settle
+            # while its own retry loop holds the thread)
+            err, blob = 27, b""
+            for _ in range(20):
+                w = Writer()
+                w.string(self.group).i32(self.generation).string(self.member_id)
+                w.i32(len(assignments))
+                for mid, ablob in assignments.items():
+                    w.string(mid)
+                    w.bytes_(ablob)
+                r, lookup_err = self._rpc_err(14, bytes(w.buf))
+                if r is None:
+                    err, blob = lookup_err, b""
+                    time.sleep(0.05)
+                    continue
+                err = r.i16()
+                blob = r.bytes_()
+                if err != 27:
+                    break
+                time.sleep(0.05)
+            if err == 27:
+                continue  # leader still absent after patience: rejoin
+            if err:
+                self.member_id = self.member_id if err != 25 else ""
+                if err in COORD_RETRIABLE:
+                    self.client.invalidate_coordinator(self.group)
+                time.sleep(0.05)
+                continue
+            return self._decode_assignment(blob or b"")
+        raise KafkaProtocolError(
+            f"group {self.group!r} did not stabilize in {max_attempts} attempts")
+
+    def _range_assign(self, members: Dict[str, bytes]) -> Dict[str, bytes]:
+        """Contiguous ranges per topic, over the members SUBSCRIBED to that
+        topic (parsed from each member's ConsumerProtocol metadata)."""
+        subscriptions: Dict[str, List[str]] = {}
+        for mid, meta in members.items():
+            try:
+                subscriptions[mid] = self._decode_subscription(meta)
+            except KafkaProtocolError:
+                subscriptions[mid] = list(self.topics)  # tolerate odd members
+        all_topics = sorted({t for ts in subscriptions.values() for t in ts})
+        per_member: Dict[str, List[Tuple[str, int]]] = {m: [] for m in members}
+        for topic in all_topics:
+            subscribed = sorted(m for m, ts in subscriptions.items()
+                                if topic in ts)
+            if not subscribed:
+                continue
+            n_parts = self.client.partitions_for(topic)
+            base, extra = divmod(n_parts, len(subscribed))
+            p = 0
+            for i, m in enumerate(subscribed):
+                take = base + (1 if i < extra else 0)
+                for _ in range(take):
+                    per_member[m].append((topic, p))
+                    p += 1
+        return {m: self._encode_assignment(parts)
+                for m, parts in per_member.items()}
+
+    def heartbeat(self) -> bool:
+        """True = group stable; False = rejoin needed (rebalance in
+        progress, member evicted, ...). A coordinator MOVE is handled
+        in place: re-find and retry the heartbeat once — member and
+        generation stay valid on the new coordinator (group state lives
+        in __consumer_offsets), so a routine broker roll must not force
+        a group-wide rebalance."""
+        w = Writer()
+        w.string(self.group).i32(self.generation).string(self.member_id)
+        body = bytes(w.buf)
+        r, _ = self._rpc_err(12, body)
+        err = r.i16() if r is not None else 16
+        if err in COORD_RETRIABLE:
+            self.client.invalidate_coordinator(self.group)
+            r, _ = self._rpc_err(12, body)
+            err = r.i16() if r is not None else 16
+        return err == 0
+
+    def leave(self) -> None:
+        """Prompt exit (survivors rebalance immediately instead of waiting
+        out the session timeout) — so a leave answered NOT_COORDINATOR by
+        a stale cached address re-finds and retries; best-effort beyond
+        that (the session timeout is the backstop)."""
+        if not self.member_id:
+            return
+        w = Writer()
+        w.string(self.group).string(self.member_id)
+        body = bytes(w.buf)
+        try:
+            err = self._rpc(13, body).i16()
+            if err in COORD_RETRIABLE:
+                self.client.invalidate_coordinator(self.group)
+                self._rpc(13, body)
+        except (OSError, KafkaProtocolError):
+            pass  # best effort; session timeout reclaims the member
+        self.member_id = ""
+        self.generation = -1
 
 
 # ---- MemoryBroker-surface adapter -------------------------------------------

@@ -1,5 +1,5 @@
 """Ingest spout (the KafkaSpout equivalent), copied from
-``storm_tpu/connectors/spout.py``, without group coordination and seeks.
+``storm_tpu/connectors/spout.py``.
 
 A broker flagged ``blocking`` (network-backed: the Kafka wire broker,
 which dist workers share) is only ever called on a worker thread, never
@@ -20,7 +20,19 @@ source position as ``origins`` ``(topic, partition, last offset + 1)``.
 Each record is emitted with ``msg_id=(partition, offset)``;
 failed trees are re-emitted from a replay queue before new fetches unless
 the freshness policy says they are too stale. Partitions are assigned to
-spout tasks round-robin by task index.
+spout tasks round-robin by task index, or, with
+``offsets.group_protocol``, by Kafka consumer-group coordination
+(:class:`~storm_tpu_torch.connectors.kafka_protocol.GroupMembership`: the
+task joins on its first poll, heartbeats about once a second and joins
+again when the group rebalances; every group call runs on a worker
+thread; ``close`` leaves the group, so the others rebalance at once).
+
+``request_seek`` repositions every owned partition ("earliest",
+"latest", an offset, or a negative count behind the end); the spout
+applies it on its own loop at its next ``next_tuple``, never from the
+caller's thread. Queued replays are dropped; trees in flight still
+complete, so a seek backwards answers them twice (the at-least-once
+direction).
 
 ``scheme``: "string" emits each record decoded to ``str``; "raw" emits
 the broker bytes untouched. ``chunk`` > 1 slices one fetch into tuples of
@@ -54,6 +66,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import re
 import threading
 import time
 import uuid
@@ -68,6 +81,19 @@ from storm_tpu_torch.runtime.tracing import NOT_SAMPLED
 from storm_tpu_torch.runtime.tuples import Values
 
 log = logging.getLogger("storm_tpu_torch.spout")
+
+
+def parse_seek_position(s):
+    """"earliest" | "latest" | an int or an integer string -> a seek
+    position; anything else raises ValueError."""
+    if s in ("earliest", "latest"):
+        return s
+    if isinstance(s, int):
+        return s
+    if isinstance(s, str) and re.fullmatch(r"-?[0-9]+", s):
+        return int(s)
+    raise ValueError(
+        f"seek position must be earliest|latest|<int>, got {s!r}")
 
 
 class BrokerSpout(Spout):
@@ -121,9 +147,23 @@ class BrokerSpout(Spout):
         self._commit_lock = threading.Lock()
         # A random group per run unless the user pins one for resume.
         self.group = self.offsets_cfg.group_id or f"storm-tpu-torch-{uuid.uuid4()}"
-        n_parts = self.broker.partitions_for(self.topic)
-        self.my_partitions = [p for p in range(n_parts)
-                              if p % context.parallelism == context.task_index]
+        self._membership = None
+        self._last_hb = 0.0
+        if self.offsets_cfg.group_protocol:
+            client = getattr(self.broker, "client", None)
+            if client is None:
+                raise ValueError(
+                    "offsets.group_protocol needs a wire-protocol broker "
+                    "(KafkaWireBroker); the memory broker has no coordinator")
+            from storm_tpu_torch.connectors.kafka_protocol import GroupMembership
+
+            self._membership = GroupMembership(client, self.group, [self.topic])
+            self.my_partitions: List[int] = []  # assigned at the first poll
+        else:
+            n_parts = self.broker.partitions_for(self.topic)
+            self.my_partitions = [p for p in range(n_parts)
+                                  if p % context.parallelism == context.task_index]
+        self._seek = None  # a requested seek, applied at the next poll
         # msg_id -> a Record, or a chunk's list of Records.
         self.pending: Dict[Any, Any] = {}
         self.replay: Deque[Any] = collections.deque()
@@ -175,7 +215,101 @@ class BrokerSpout(Spout):
                 pos = latest - cfg.max_behind
         return pos
 
+    def _apply_assignment(self, parts: List[Tuple[str, int]], starts: Dict[int, int]) -> None:
+        """Adopt a group assignment: position each newly owned partition at
+        ``starts`` (its offset by the policy, resolved off the loop); drop
+        the replays of revoked ones (another member owns them now:
+        at-least-once covers the handoff). Runs on the loop, where the
+        ledger's callbacks touch the same state."""
+        owned = sorted(p for t, p in parts if t == self.topic)
+        revoked = set(self.my_partitions) - set(owned)
+        self.my_partitions = owned
+        if revoked:
+            self.replay = collections.deque(
+                e for e in self.replay
+                if (e[0] if isinstance(e, list) else e).partition not in revoked)
+        for p in owned:
+            if p not in self.positions:
+                self.positions[p] = starts[p]
+        for p in revoked:
+            self.positions.pop(p, None)
+            # a revoked partition's in-flight count must not gate it forever
+            # if a later rebalance hands it back
+            self._part_inflight.pop(p, None)
+
+    async def _group_poll(self) -> None:
+        """Join at the first poll; heartbeat about once a second; join again
+        when the group rebalances. Each broker call runs on a worker
+        thread; the assignment is applied on the loop."""
+        m = self._membership
+        now = time.monotonic()
+        if m.generation < 0:
+            await self._adopt(await asyncio.to_thread(m.join))
+            self._last_hb = now
+            return
+        if now - self._last_hb < 1.0:
+            return
+        self._last_hb = now
+        if not await asyncio.to_thread(m.heartbeat):
+            await self._adopt(await asyncio.to_thread(m.join))
+
+    async def _adopt(self, parts: List[Tuple[str, int]]) -> None:
+        """The newly owned partitions' starting offsets resolved on a worker
+        thread (per-partition offset calls), then the assignment applied."""
+        new = [p for t, p in parts if t == self.topic and p not in self.positions]
+        starts = await asyncio.to_thread(lambda: {p: self._initial_position(p) for p in new})
+        self._apply_assignment(parts, starts)
+
+    def request_seek(self, position) -> None:
+        """Reposition every owned partition at the next poll: "earliest",
+        "latest", an absolute offset (int >= 0) or a negative int (that many
+        records behind the log's end)."""
+        if position not in ("earliest", "latest") and not isinstance(position, int):
+            raise ValueError(f"bad seek position {position!r}")
+        self._seek = position
+
+    def _seek_positions(self, position) -> Dict[int, int]:
+        """Each owned partition's offset for ``position`` (broker calls
+        only: a blocking broker answers them on a worker thread)."""
+        out = {}
+        for p in self.my_partitions:
+            earliest = self.broker.earliest_offset(self.topic, p)
+            if position == "earliest":
+                out[p] = earliest
+            elif position == "latest":
+                out[p] = self.broker.latest_offset(self.topic, p)
+            elif position < 0:
+                out[p] = max(earliest, self.broker.latest_offset(self.topic, p) + position)
+            else:
+                # Clamped to [earliest, latest]: an offset outside the log
+                # would wedge a wire broker in a fetch-error loop.
+                out[p] = max(earliest, min(position, self.broker.latest_offset(self.topic, p)))
+        return out
+
+    def _apply_seek(self, positions: Dict[int, int]) -> None:
+        """On the loop: drop the queued replays and move the cursors."""
+        self.replay.clear()
+        if self._txn_mode:
+            # The dropped replays never ack: rebase the in-flight counts on
+            # the entries still pending, which will.
+            counts: Dict[int, int] = {}
+            for mid in self.pending:
+                p, _ = self._msg_part_off(mid)
+                counts[p] = counts.get(p, 0) + 1
+            self._part_inflight = counts
+        self.positions.update(positions)
+
     async def next_tuple(self) -> bool:
+        if self._membership is not None:
+            await self._group_poll()
+        if self._seek is not None:
+            position, self._seek = self._seek, None
+            if self._blocking:
+                positions = await asyncio.to_thread(self._seek_positions, position)
+            else:
+                positions = self._seek_positions(position)
+            self._apply_seek(positions)
+            return True
         # Replays first: failed trees take priority over new data.
         if self.replay:
             entry = self.replay.popleft()
@@ -184,6 +318,8 @@ class BrokerSpout(Spout):
             else:
                 await self._emit(entry)
             return True
+        if not self.my_partitions:
+            return False
         for _ in range(len(self.my_partitions)):
             p = self.my_partitions[self._rr % len(self.my_partitions)]
             self._rr += 1
@@ -353,6 +489,8 @@ class BrokerSpout(Spout):
         if self.offsets_cfg.policy != "resume":
             return
         p, off = self._msg_part_off(msg_id)
+        if self._membership is not None and p not in self.my_partitions:
+            return  # revoked in flight: the new owner commits it now
         # Commit the contiguous low-water mark of the partition, counting
         # the first offset of every open record or chunk and the records
         # awaiting replay, so a restart never skips them. With nothing
@@ -372,6 +510,13 @@ class BrokerSpout(Spout):
         if prev is None or low > prev:
             self.broker.commit(self.group, self.topic, p, low)
 
+    def close(self) -> None:
+        if getattr(self, "_membership", None) is not None:
+            try:
+                self._membership.leave()  # the others rebalance at once
+            except Exception:
+                pass  # the session timeout reclaims the member
+
     def _spawn_bg(self, coro) -> None:
         task = asyncio.get_event_loop().create_task(coro)
         self._bg.add(task)
@@ -390,6 +535,9 @@ class BrokerSpout(Spout):
         entry = self.pending.pop(msg_id, None)
         if entry is None:
             return
+        rec0 = entry[0] if isinstance(entry, list) else entry
+        if self._membership is not None and rec0.partition not in self.my_partitions:
+            return  # revoked in flight: the new owner serves it now
         # Queued first, so ack()'s low-water scan sees it while a blocking
         # broker's staleness verdict is pending; staleness then removes it.
         self.replay.append(entry)

@@ -18,7 +18,26 @@ Thrift and lets Nimbus schedule executors onto 8 workers
   swaps models, drains, deactivates, activates and kills;
 - watches the workers' heartbeats (``start_monitor``) and replaces a dead
   one (``recover_worker``): respawned at its index, its peers rewired,
-  the recipe shipped to it again at the live parallelism and model.
+  the recipe shipped to it again at the live parallelism and model;
+- with a ``journal_dir``, journals every control-plane transition
+  (:mod:`storm_tpu_torch.dist.journal`) before the calls that apply it:
+  ``workers``, ``submit``, ``rebalance``, ``swap_model``, ``peer_update``,
+  ``activation`` and ``kill``. A controller started on that journal
+  (``reattach=True``) probes each journaled worker (``state_report``),
+  adopts the live ones as they are (no submit, so engines and CUDA
+  graphs stay), re-issues the rebalances a worker missed
+  (``reconcile_parallelism``) and replaces the dead ones; with no
+  survivor it spawns a fresh mesh. ``abandon`` drops the controller's
+  handles and leaves the workers serving (a controller crash, in
+  process). An adopted worker has no ``Popen`` handle: it is waited for,
+  and killed where it must be, by its pid, and only while that pid is
+  still the worker's;
+- restarts the workers one at a time (``rolling_restart``: drain, exit,
+  respawn at the same index on the controller's device, recipe shipped
+  again, the monitor held off the restarting worker), repositions a
+  spout (``seek``), starts a ``torch.profiler`` capture on a worker
+  (``profile``) and merges the workers' decode tiers
+  (``decode_sessions``).
 
 Placement: explicit ``{component_id: worker_idx}``, resource-aware when
 ``topology.component_resources`` hints exist (``plan_placement``), else
@@ -26,11 +45,6 @@ round-robin with spouts pinned to worker 0 (the ledgers live with their
 spouts). Submit applies the dist default of the raw scheme with record
 frames (:func:`storm_tpu_torch.config.apply_dist_defaults`) to its copy
 of the config.
-
-storm_tpu's control-plane journal and what rests on it (reattach,
-``reconcile_parallelism``, ``state_reports``, ``rolling_restart``,
-``abandon``), ``seek``, ``profile`` and ``decode_sessions`` wait for a
-later slice of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import copy
 import json
 import logging
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -48,6 +63,7 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Set
 
 from storm_tpu_torch.config import Config, apply_dist_defaults
+from storm_tpu_torch.dist.journal import ControllerJournal, ControlPlaneState
 from storm_tpu_torch.dist.transport import WorkerClient
 
 #: The directory holding the ``storm_tpu_torch`` package: put on a spawned
@@ -82,6 +98,52 @@ def _probe_raw_spouts(cfg, builder: str) -> list:
     return sorted(
         cid for cid, spec in probe_topo.specs.items()
         if getattr(spec.obj, "scheme", None) == "raw")
+
+
+def _worker_alive(pid: int, index: int) -> bool:
+    """Whether ``pid`` is still worker ``index``'s process. A pid the
+    kernel has since given to another process is not, nor is a zombie
+    (reaped here when this process is its parent), so a stale journaled
+    pid is never taken for a live worker, or killed. Without procfs the
+    pid alone answers."""
+    try:
+        os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:
+        pass
+    if not os.path.isdir("/proc/self"):
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        except PermissionError:
+            pass
+        return True
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = f.read().split(b"\0")
+    except OSError:
+        return False
+    return (b"storm_tpu_torch.dist.worker" in argv and b"--index" in argv[:-1]
+            and argv[argv.index(b"--index") + 1] == str(index).encode())
+
+
+def _kill_worker_pid(pid: Optional[int], index: int) -> None:
+    """SIGKILL worker ``index`` by its pid, if that pid is still the
+    worker's."""
+    if pid and _worker_alive(pid, index):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def _await_worker_exit(pid: Optional[int], index: int, timeout_s: float) -> None:
+    """Wait for worker ``index``'s process, known by its pid alone, to exit;
+    kill it if it has not in ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while pid and _worker_alive(pid, index) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    _kill_worker_pid(pid, index)
 
 
 def merge_utilization(per_worker: Dict[int, dict]) -> Dict[str, dict]:
@@ -124,6 +186,9 @@ class DistCluster:
         auth_token: Optional[str] = None,
         device: str = "cuda",
         worker_threads: int = 0,
+        journal_dir: Optional[str] = None,
+        reattach: bool = True,
+        journal_snapshot_every: int = 64,
     ) -> None:
         """Spawn ``n_workers`` local worker processes on ``device`` (the
         card unless ``"cpu"``; raises without a card), or attach to
@@ -135,7 +200,16 @@ class DistCluster:
         $STORM_TPU_CONTROL_TOKEN) is the shared control-plane secret:
         exported to spawned workers and carried by every call; workers
         refuse calls without it; ``submit`` refuses a config whose
-        ``control`` token resolves to another."""
+        ``control`` token resolves to another.
+
+        ``journal_dir`` arms the control-plane journal (compacted every
+        ``journal_snapshot_every`` appends; 0 = never). A controller
+        started on a journal that names workers reattaches to them
+        (``reattach=True``, unless ``addrs`` are given): the live ones are
+        adopted without a submit, the dead ones replaced; when none
+        answers, a fresh mesh is spawned and the journal reset.
+        ``self.reattached`` says which path ran. A worker that reports
+        another device than ``device`` is refused."""
         from storm_tpu_torch.device import resolve_device
         from storm_tpu_torch.dist.transport import TOKEN_ENV, _env_token
 
@@ -169,12 +243,34 @@ class DistCluster:
         self.flight = FlightRecorder()
         self._hb_miss = self.ctrl_metrics.counter(
             "controller", "dist_heartbeat_miss")
+        self._journal_appends = self.ctrl_metrics.counter(
+            "controller", "dist_journal_appends")
+        self._journal_snapshots = self.ctrl_metrics.counter(
+            "controller", "dist_journal_snapshots")
+        self._journal_replayed = self.ctrl_metrics.counter(
+            "controller", "dist_journal_replayed")
         # Workers the controller itself is draining: the heartbeat
         # monitor must not declare these dead.
         self._draining: Set[int] = set()
         self._pids: Dict[int, int] = {}
         self._placement: Dict[str, int] = {}
         self.peers: Dict[int, str] = {}
+        self.reattached = False
+        self._journal: Optional[ControllerJournal] = None
+        if journal_dir:
+            self._journal = ControllerJournal(
+                journal_dir, snapshot_every=journal_snapshot_every)
+            st = self._journal.load()
+            if st.replayed:
+                self._journal_replayed.inc(st.replayed)
+            if reattach and not addrs and st.peers:
+                self.reattached = self._try_reattach(st)
+                if self.reattached:
+                    return  # the mesh is adopted: nothing to spawn
+                # The journaled mesh is gone: reset the fold, so its recipe
+                # cannot come back at the next restart on a mesh it was
+                # never shipped to.
+                self._jappend("kill")
         try:
             if addrs:
                 for addr in addrs:
@@ -194,6 +290,7 @@ class DistCluster:
             self.shutdown()
             raise
         self.peers = {i: c.target for i, c in enumerate(self.clients)}
+        self._jappend("workers", peers=self.peers, pids=self._pids)
 
     def _start_worker(self, index: int):
         """Popen one worker: a fresh interpreter (never a fork), the repo
@@ -236,6 +333,118 @@ class DistCluster:
             proc.kill()
             proc.wait(timeout=10)
             raise
+
+    # ---- control-plane durability (dist/journal.py) --------------------------
+
+    def _jappend(self, kind: str, **data: Any) -> None:
+        """Journal one transition. Callers append before the calls that
+        apply it, so the journal is only ever ahead of the mesh. A journal
+        that cannot write fails the transition (its error propagates)."""
+        j = self._journal
+        if j is None:
+            return
+        j.append(kind, **data)
+        self._journal_appends.inc()
+        if j.maybe_snapshot():
+            self._journal_snapshots.inc()
+
+    def journal_stats(self) -> Optional[Dict[str, int]]:
+        return self._journal.stats() if self._journal is not None else None
+
+    def state_reports(self, timeout: float = 5.0) -> Dict[int, dict]:
+        """Each worker's ``state_report``: its pid, submits and live
+        parallelisms (what reattach reconciles against)."""
+        return {i: c.control("state_report", timeout=timeout)
+                for i, c in enumerate(self.clients)}
+
+    @staticmethod
+    def reconcile_parallelism(
+        rebalances: Dict[str, int],
+        placement: Dict[str, int],
+        reports: Dict[int, dict],
+    ) -> Dict[str, int]:
+        """Components whose journaled parallelism disagrees with the
+        hosting worker's. The journal records intent (write-ahead), so its
+        value wins and the rebalance is issued again: a worker can only be
+        behind the journal (a call that never ran), never ahead of it."""
+        out: Dict[str, int] = {}
+        for component, par in rebalances.items():
+            rep = reports.get(placement.get(component)) or {}
+            actual = (rep.get("parallelism") or {}).get(component)
+            if actual is not None and int(actual) != int(par):
+                out[component] = int(par)
+        return out
+
+    def _try_reattach(self, st: ControlPlaneState) -> bool:
+        """Adopt the journaled mesh: probe every journaled worker, keep the
+        live ones as they are (no submit: engines and graphs stay),
+        reconcile them against the journal, replace the dead ones. False
+        (the caller spawns a fresh mesh) when no worker answers."""
+        t0 = time.monotonic()
+        reports: Dict[int, dict] = {}
+        clients: Dict[int, WorkerClient] = {}
+        for idx in sorted(st.peers):
+            c = WorkerClient(st.peers[idx], token=self._token)
+            clients[idx] = c
+            try:
+                rep = c.probe("state_report", timeout=3.0)
+                if rep.get("index") != idx:
+                    raise RuntimeError(f"it answers as worker {rep.get('index')}")
+                reports[idx] = rep
+            except Exception as e:
+                log.warning("reattach: worker %d at %s unreachable (%s)",
+                            idx, st.peers[idx], e)
+        wrong = {i: r.get("device") for i, r in reports.items()
+                 if r.get("device") != self.device}
+        if not reports or wrong:
+            for c in clients.values():
+                c.close()
+            if wrong:
+                raise ValueError(f"reattach: workers {wrong} run on another device "
+                                 f"than this controller's {self.device!r}")
+            log.warning("reattach: no survivors among %d journaled workers; "
+                        "spawning a fresh mesh", len(st.peers))
+            return False
+        n = max(st.peers) + 1
+        self.clients = [clients[i] for i in range(n)]
+        self.procs = [None] * n  # survivors are adopted, not owned
+        self.peers = dict(st.peers)
+        self._pids = {**st.pids, **{i: int(r["pid"]) for i, r in reports.items()}}
+        self._placement = dict(st.placement)
+        self._recipe = dict(st.recipe) if st.recipe else None
+        self._rebalances = dict(st.rebalances)
+        self._swaps = {k: dict(v) for k, v in st.swaps.items()}
+        self._activated = st.activated
+        # The journal's intent wins: re-issue the rebalances that never
+        # landed (the host first when growing, its peers first when
+        # shrinking, as rebalance() orders them).
+        fixes = self.reconcile_parallelism(self._rebalances, self._placement, reports)
+        for component, par in fixes.items():
+            w = self._placement[component]
+            current = int(reports[w]["parallelism"][component])
+            others = [self.clients[i] for i in sorted(reports) if i != w]
+            targets = ([self.clients[w], *others] if par >= current
+                       else [*others, self.clients[w]])
+            for c in targets:
+                c.control("rebalance", component=component, parallelism=par)
+        for idx in sorted(reports):
+            rep = reports[idx]
+            if self._recipe is not None and not rep.get("topology"):
+                # Alive but empty (restarted between controllers): it gets
+                # the whole recipe.
+                self._reship(idx, self.clients[idx])
+            elif rep.get("active") is not None and bool(rep["active"]) != self._activated:
+                self.clients[idx].control("activate" if self._activated else "deactivate")
+        dead = [i for i in range(n) if i not in reports]
+        self.flight.event(
+            "dist_reattached", survivors=sorted(reports), dead=dead,
+            replayed=st.replayed, reconciled=sorted(fixes),
+            reattach_s=round(time.monotonic() - t0, 3))
+        log.info("reattached to %d/%d workers in %.2fs (reconciled: %s)",
+                 len(reports), n, time.monotonic() - t0, sorted(fixes) or "-")
+        for idx in dead:
+            self.recover_worker(idx)
+        return True
 
     def _reship(self, idx: int, client: WorkerClient) -> None:
         """Send one worker the full live recipe: submit + two-phase start
@@ -323,6 +532,8 @@ class DistCluster:
             self._activated = True  # fresh topology starts active
             self._rebalances.clear()
             self._swaps.clear()
+            self._jappend("submit", name=name, config=cfg.to_dict(),
+                          builder=builder, placement=placement)
             for c in self.clients:
                 c.control(
                     "submit",
@@ -598,6 +809,10 @@ class DistCluster:
             current = host.control("parallelism", component=component)["parallelism"]
             others = [c for i, c in enumerate(self.clients) if i != w]
             targets = [host, *others] if parallelism >= current else [*others, host]
+            # Write-ahead: journaled before any worker changes, so a
+            # controller that dies midway leaves the intent for reattach to
+            # re-issue (reconcile_parallelism).
+            self._jappend("rebalance", component=component, parallelism=parallelism)
             for c in targets:
                 c.control("rebalance", component=component, parallelism=parallelism)
             # Recorded so a recovered worker rebuilds at the LIVE
@@ -631,9 +846,12 @@ class DistCluster:
         if tasks is None:
             # Canary swaps are deliberately NOT recorded for recovery
             # replay: a replaced worker restarts on the majority model.
+            # Journaled after the swap took (unlike a rebalance): replaying
+            # one a canary rejected would roll it onto the whole component.
             with self._lock:
                 merged = {**self._swaps.get(component, {}), **overrides}
                 self._swaps[component] = merged
+                self._jappend("swap_model", component=component, overrides=merged)
         return resp.get("model", {})
 
     def component_stats(self, component: str) -> list:
@@ -650,6 +868,57 @@ class DistCluster:
             if "KeyError" in str(e):
                 raise KeyError(component) from e
             raise
+
+    def seek(self, component: str, position) -> int:
+        """Reposition a spout component on its hosting worker; returns the
+        number of tasks repositioned."""
+        with self._lock:
+            w = self._placement.get(component)
+            if w is None:
+                raise KeyError(component)
+            client = self.clients[w]
+        try:
+            return int(client.control(
+                "seek", component=component, position=position)["instances"])
+        except RuntimeError as e:
+            # Worker errors come back as "TypeName: message"; re-typed as
+            # the in-process runtime raises them.
+            msg = str(e)
+            if "KeyError" in msg:
+                raise KeyError(component) from e
+            if "TypeError" in msg:
+                raise TypeError(msg) from e
+            raise
+
+    def profile(self, worker: int, log_dir: str, seconds: float) -> dict:
+        """Start a ``torch.profiler`` capture on one worker (the card's
+        timeline lives with the worker's engines)."""
+        with self._lock:
+            if not 0 <= worker < len(self.clients):
+                raise KeyError(f"no worker {worker}")
+            client = self.clients[worker]
+        return client.control("profile", log_dir=log_dir, seconds=seconds)
+
+    def decode_sessions(self) -> Dict[str, Any]:
+        """The decode tier across workers: each worker's session stores and
+        engines, concatenated. Sticky routing keeps each session on one
+        worker, so the totals are sums."""
+        per_worker = {i: c.control("decode_sessions")["decode"]
+                      for i, c in enumerate(self.clients)}
+        stores: List[dict] = []
+        engines: List[dict] = []
+        for i, d in sorted(per_worker.items()):
+            stores += [{**row, "worker": i} for row in d.get("stores", ())]
+            engines += [{**row, "worker": i} for row in d.get("engines", ())]
+        return {"workers": per_worker,
+                "merged": {
+                    "stores": stores,
+                    "engines": engines,
+                    "sessions_live": sum(d.get("sessions_live", 0)
+                                         for d in per_worker.values()),
+                    "tokens_emitted": sum(d.get("tokens_emitted", 0)
+                                          for d in per_worker.values()),
+                }}
 
     # ---- failure detection + elastic recovery --------------------------------
 
@@ -729,7 +998,7 @@ class DistCluster:
         self._monitor.join(timeout=120)
         self._monitor = None
 
-    def recover_worker(self, idx: int) -> None:
+    def recover_worker(self, idx: int, times: Optional[Dict[str, float]] = None) -> None:
         """Replace a dead worker: respawn the process at the same index,
         rewire surviving peers to the new address, and re-ship the topology
         recipe so the replacement rebuilds and restarts its components.
@@ -738,8 +1007,10 @@ class DistCluster:
         ledger times their trees out and replays them through the
         replacement (at-least-once — exactly Storm's story when a
         supervisor restarts a worker). Only valid for controller-spawned
-        workers: attached remote workers must be respawned by their own
-        host, then re-wired via ``on_dead``."""
+        (or adopted) workers: attached remote workers must be respawned by
+        their own host, then re-wired via ``on_dead``. ``times``, when
+        given, gets ``resubmit_s``: the recipe's submit and start on the
+        replacement."""
         with self._lock:
             if self._closing:
                 return
@@ -751,6 +1022,10 @@ class DistCluster:
             if old_proc is not None:
                 old_proc.kill()
                 old_proc.wait(timeout=10)
+            else:
+                # Adopted by reattach: no Popen handle, but the journaled
+                # pid, so a half-dead worker holds nothing.
+                _kill_worker_pid(self._pids.get(idx), idx)
             try:
                 self.clients[idx].close()
             except Exception:
@@ -761,6 +1036,7 @@ class DistCluster:
             self.clients[idx] = client
             self.peers[idx] = client.target
             self._pids[idx] = proc.pid
+            self._jappend("peer_update", idx=idx, addr=client.target, pid=proc.pid)
             # Surviving peers aim their senders at the replacement. A peer
             # left pointing at the dead address would replay its tuples
             # forever, so retry; if a LIVE peer stays unreachable, kill the
@@ -796,9 +1072,12 @@ class DistCluster:
             # lifecycle state: current parallelisms, and spouts paused if
             # the cluster is deactivated/draining.
             if self._recipe is not None:
+                t0 = time.monotonic()
                 self._reship(idx, client)
+                if times is not None:
+                    times["resubmit_s"] = time.monotonic() - t0
 
-    # ---- graceful drain --------------------------------------------------------
+    # ---- graceful drain and rolling restart ----------------------------------
 
     def drain_worker(self, idx: int, timeout_s: float = 30.0) -> dict:
         """Gracefully drain ONE worker: it stops intake (new deliveries
@@ -807,7 +1086,8 @@ class DistCluster:
         draining, the heartbeat monitor is suppressed for this index —
         the worker is busy on purpose; declaring it dead would race the
         caller's own restart of the same slot. The mark clears on
-        failure or on :meth:`clear_drain`."""
+        failure, on :meth:`clear_drain`, or when :meth:`rolling_restart`
+        has replaced the worker."""
         with self._lock:
             if not 0 <= idx < len(self.clients):
                 raise KeyError(f"no worker {idx}")
@@ -828,11 +1108,102 @@ class DistCluster:
         with self._lock:
             self._draining.discard(idx)
 
+    def rolling_restart(self, drain_timeout_s: float = 30.0,
+                        settle_s: float = 0.0) -> List[dict]:
+        """Restart every worker, one at a time: drain (intake off, its own
+        trees flushed) -> clean exit -> respawn at its index on the
+        controller's device, peers rewired, the recipe shipped again
+        (:meth:`recover_worker`). The drain mark holds the monitor off the
+        worker throughout. At-least-once covers each worker's blackout
+        (the spout's ledger replays trees headed for it). ``settle_s``
+        pauses between workers so the mesh catches up on the replays.
+        Returns one row per worker: ``drained``, the pids, and the drain,
+        restart (exit + spawn) and resubmit (the recipe's submit and start,
+        with the new process's CUDA context, engine build and graph
+        capture) seconds."""
+        results: List[dict] = []
+        last = len(self.clients) - 1
+        for idx in range(len(self.clients)):
+            t0 = time.monotonic()
+            old_pid = self._pids.get(idx)
+            drained = False
+            times: Dict[str, float] = {}
+            try:
+                try:
+                    ack = self.drain_worker(idx, timeout_s=drain_timeout_s)
+                    drained = bool(ack.get("ok"))
+                except Exception as e:
+                    log.warning("rolling restart: drain of worker %d failed (%s); "
+                                "restarting it anyway", idx, e)
+                    with self._lock:
+                        self._draining.add(idx)
+                t1 = time.monotonic()
+                times["drain_s"] = t1 - t0
+                with self._lock:
+                    client = self.clients[idx]
+                try:
+                    client.probe("shutdown", timeout=5.0)
+                except Exception:
+                    pass  # dead already, or killed below
+                self._wait_worker_exit(idx, timeout_s=15.0)
+                self.recover_worker(idx, times=times)
+                times["restart_s"] = time.monotonic() - t1 - times.get("resubmit_s", 0.0)
+            finally:
+                self.clear_drain(idx)
+            row = {"worker": idx, "drained": drained, "old_pid": old_pid,
+                   "new_pid": self._pids.get(idx),
+                   "drain_s": round(times.get("drain_s", 0.0), 3),
+                   "restart_s": round(times.get("restart_s", 0.0), 3),
+                   "resubmit_s": round(times.get("resubmit_s", 0.0), 3),
+                   "total_s": round(time.monotonic() - t0, 3)}
+            results.append(row)
+            self.flight.event("dist_worker_restarted", worker=idx,
+                              drained=drained, restart_s=row["total_s"])
+            if settle_s > 0 and idx < last:
+                time.sleep(settle_s)
+        return results
+
+    def _wait_worker_exit(self, idx: int, timeout_s: float = 15.0) -> None:
+        """Wait for a worker's process to exit after a shutdown call: by its
+        Popen handle when spawned here, by its journaled pid when adopted;
+        killed when it does not exit in ``timeout_s``."""
+        with self._lock:
+            proc = self.procs[idx] if self.procs else None
+            pid = self._pids.get(idx)
+        if proc is not None:
+            try:
+                proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5)
+            return
+        _await_worker_exit(pid, idx, timeout_s)
+
+    def abandon(self) -> None:
+        """Drop the controller's handles without touching the workers: a
+        controller crash, in process (the workers go on serving). The
+        journal keeps the control-plane state; a new ``DistCluster`` on
+        the same ``journal_dir`` reattaches to them."""
+        self.stop_monitor()
+        with self._lock:
+            self._closing = True
+            clients, self.clients = list(self.clients), []
+            self.procs = []
+            files, self._stderr_files = list(self._stderr_files), []
+            self._stderr_by_index.clear()
+        for c in clients:
+            c.close()
+        for f in files:
+            f.close()
+        if self._journal is not None:
+            self._journal.close()
+
     # ---- teardown ------------------------------------------------------------
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         with self._lock:  # serialize against a recovery in flight
             self._activated = False  # a recovery mid-drain must not re-emit
+            self._jappend("activation", activated=False)
             for c in self.clients:
                 c.control("deactivate")
             ok = True
@@ -849,6 +1220,7 @@ class DistCluster:
         spout state from ``self._activated``, which is already False."""
         with self._lock:
             self._activated = False
+            self._jappend("activation", activated=False)
             clients = list(self.clients)
         for c in clients:
             c.control("deactivate")
@@ -857,6 +1229,7 @@ class DistCluster:
         """Resume spouts after a deactivate/drain (Storm's 'activate')."""
         with self._lock:
             self._activated = True
+            self._jappend("activation", activated=True)
             clients = list(self.clients)
         for c in clients:
             c.control("activate")
@@ -873,6 +1246,7 @@ class DistCluster:
             self._recipe = None
             self._rebalances.clear()
             self._swaps.clear()
+            self._jappend("kill")
             clients = list(self.clients)
         for c in clients:
             c.control("kill", wait_secs=wait_secs)
@@ -887,6 +1261,8 @@ class DistCluster:
         # for the whole drain (LCK001).
         with self._lock:
             clients, self.clients = list(self.clients), []
+            # Adopted workers have no Popen handle: their pids stand in.
+            adopted = {i: self._pids.get(i) for i, p in enumerate(self.procs) if p is None}
             procs, self.procs = [p for p in self.procs if p is not None], []
             files, self._stderr_files = list(self._stderr_files), []
             self._stderr_by_index.clear()
@@ -896,6 +1272,8 @@ class DistCluster:
             except Exception:
                 pass  # dead already, or killed below
             c.close()
+        for i, pid in adopted.items():
+            _await_worker_exit(pid, i, 10.0)
         for p in procs:
             try:
                 p.wait(timeout=10)
@@ -906,6 +1284,8 @@ class DistCluster:
                 p.stdout.close()
         for f in files:
             f.close()
+        if self._journal is not None:
+            self._journal.close()
 
     def __enter__(self) -> "DistCluster":
         return self

@@ -20,16 +20,25 @@ MainTopology.java:25,66, and moves tuples between them with Netty):
   Control RPC. The worker's engines run on ``--device``, the card unless
   the caller asks for the CPU; without a card it raises.
 
-Control ops: ``ping``, ``submit``, ``chaos``, ``start_bolts``,
-``start_spouts``, ``parallelism``, ``rebalance``, ``component_stats``,
-``swap_model``, ``update_peer``, ``metrics`` (the registry's snapshot and,
-beside it, each live engine's forwards and kernel-launch tally and the
-process's eager kernel launches), ``utilization``, ``copies``, ``traces``,
-``health``, ``deactivate``, ``activate``, ``drain``, ``drain_worker``,
-``kill`` and ``shutdown``; ``replay_kernels``, the port's own, traces
-one replay of each engine bucket with ``torch.profiler`` beside the
-launches its capture recorded. storm_tpu's ``state_report``, ``seek``,
-``profile`` and ``decode_sessions`` wait for a later slice of the port.
+Control ops: ``ping``, ``state_report`` (pid, submits, wire, shm, and
+once a topology is submitted its name, draining, each component's
+parallelism and whether its spouts are active: what a reattaching
+controller adopts a live worker by; it works before a submit),
+``submit``, ``chaos``, ``start_bolts``, ``start_spouts``,
+``parallelism``, ``rebalance``, ``component_stats``, ``seek``,
+``profile`` (a ``torch.profiler`` capture of live traffic for
+``seconds`` on a thread of its own, written as a Chrome trace into
+``log_dir``), ``swap_model``, ``update_peer``, ``metrics`` (the
+registry's snapshot and, beside it, each live engine's forwards and
+kernel-launch tally and the process's eager kernel launches),
+``utilization``, ``copies``, ``traces``, ``decode_sessions`` (this
+worker's session stores and decode engines), ``health``,
+``deactivate``, ``activate``, ``drain``, ``drain_worker``, ``kill`` and
+``shutdown``; ``replay_kernels``, the port's own, traces one replay of
+each engine bucket with ``torch.profiler`` beside the launches its
+capture recorded. One profiler may be active in a process: ``profile``
+and ``replay_kernels`` share one lock, and each refuses while the other
+(or a second capture) holds it.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import asyncio
 import functools
 import json
 import logging
+import os
 import sys
 import threading
 import time
@@ -959,10 +969,12 @@ def _resolve_builder(name: str):
 
 
 def _engine_report() -> Dict[str, Any]:
-    """Each live engine's model, forwards and kernel-launch tally (every
-    forward a graph replay counts its capture's kernels), and the eager
-    launches of each kernel wrapper in this process: what the ``metrics``
-    op reports beside the registry's snapshot."""
+    """Each live engine's model, identity, built buckets, forwards and
+    kernel-launch tally (every forward a graph replay counts its capture's
+    kernels), and the eager launches of each kernel wrapper in this
+    process: what the ``metrics`` op reports beside the registry's
+    snapshot. The same identity and buckets after a controller's reattach
+    show that nothing was built or captured again."""
     out: Dict[str, Any] = {"engines": [], "eager_launches": {}}
     if "storm_tpu_torch.infer.engine" not in sys.modules:
         return out
@@ -973,6 +985,8 @@ def _engine_report() -> Dict[str, Any]:
         cfg = getattr(eng, "model_cfg", None)
         out["engines"].append({
             "model": getattr(cfg, "name", None),
+            "id": id(eng),
+            "buckets": sorted(eng.compiled_batches),
             "weights": getattr(cfg, "weights", None),
             "dtype": getattr(cfg, "dtype", None),
             "forwards": int(getattr(eng, "forwards", 0)),
@@ -1006,6 +1020,12 @@ def _replay_report(model: Optional[str] = None) -> List[Dict[str, Any]]:
     return out
 
 
+#: Held while ``torch.profiler`` runs in this process (a ``profile``
+#: capture or a ``replay_kernels`` trace): CUPTI allows one active
+#: profiler a process, so a second asks and is refused.
+_PROFILER = threading.Lock()
+
+
 class WorkerServer:
     """One worker process: the transport's server, an asyncio loop and one
     DistRuntime. ``device`` is where its engines run: the card (the
@@ -1019,8 +1039,13 @@ class WorkerServer:
         self.index = index
         self.loop = asyncio.new_event_loop()
         self.rt: Optional[DistRuntime] = None
+        # Topology builds since the process started: engines are built and
+        # their graphs captured only at a submit or a swap, so a reattaching
+        # controller reads this (``state_report``) to show that the workers
+        # it adopted kept theirs.
         self._submits = 0
         self._broker = None
+        self._profile_thread: Optional[threading.Thread] = None
         self._server = TransportServer(
             DistHandler(self._on_deliver, self._on_ack, self._on_control),
             port=port, host=host)
@@ -1085,6 +1110,8 @@ class WorkerServer:
                     rt is None or getattr(rt, "_shm_wire", True)):
                 resp["shm"] = shm_lane.host_key()
             return resp
+        if cmd == "state_report":
+            return self._state_report()
         if cmd == "submit":
             cfg = Config.from_dict(req["config"])
             from storm_tpu_torch.main import _make_broker
@@ -1118,8 +1145,25 @@ class WorkerServer:
             # record; this traces one replay of each bucket to hold the
             # record to what the card ran. Call it on an idle topology
             # (after a drain): a replay writes the bucket's buffers.
-            return {"index": self.index,
-                    "engines": _replay_report(req.get("model"))}
+            if not _PROFILER.acquire(blocking=False):
+                raise RuntimeError("a profiler is already running in this worker")
+            try:
+                return {"index": self.index,
+                        "engines": _replay_report(req.get("model"))}
+            finally:
+                _PROFILER.release()
+        if cmd == "profile":
+            return self._start_profile(req["log_dir"], float(req["seconds"]))
+        if cmd == "decode_sessions":
+            # Session sets are disjoint across workers (sticky routing), so
+            # the controller adds the rows up.
+            if "storm_tpu_torch.decode" not in sys.modules:
+                return {"index": self.index,
+                        "decode": {"stores": [], "engines": [],
+                                   "sessions_live": 0, "tokens_emitted": 0}}
+            from storm_tpu_torch.decode import decode_stats
+
+            return {"index": self.index, "decode": decode_stats()}
         if self.rt is None:
             raise RuntimeError(f"{cmd}: no topology submitted")
         if cmd == "start_bolts":
@@ -1141,6 +1185,9 @@ class WorkerServer:
             return {"ok": True, "previous": prev}
         if cmd == "component_stats":
             return {"executors": self.rt.component_stats(req["component"])}
+        if cmd == "seek":
+            n = self._run_on_loop(self.rt.seek(req["component"], req["position"]))
+            return {"ok": True, "instances": n}
         if cmd == "swap_model":
             import dataclasses as _dc
 
@@ -1221,6 +1268,64 @@ class WorkerServer:
             return {"ok": True}
         raise ValueError(f"unknown control cmd {cmd!r}")
 
+    def _state_report(self) -> Dict[str, Any]:
+        """The worker's self-description, before a submit too (an empty
+        worker is adoptable): ``submits`` still 1 after a controller's
+        restart shows that no engine was built again."""
+        rep: Dict[str, Any] = {
+            "ok": True, "index": self.index, "pid": os.getpid(),
+            "submits": self._submits, "wire": wire.WIRE_VERSION,
+            "device": self.device,
+        }
+        if shm_lane.available():
+            rep["shm"] = shm_lane.host_key()
+        rt = self.rt
+        if rt is not None:
+            rep["topology"] = rt.name
+            rep["draining"] = bool(rt._draining)
+            rep["parallelism"] = {cid: rt.parallelism_of(cid) for cid in rt.topology.specs}
+            if rt.spout_execs:
+                rep["active"] = any(e._active for execs in rt.spout_execs.values()
+                                    for e in execs)
+        return rep
+
+    def _start_profile(self, log_dir: str, seconds: float) -> Dict[str, Any]:
+        """A ``torch.profiler`` capture (host and card, every thread) of
+        whatever this process runs for ``seconds``, on a thread of its own,
+        written to ``<log_dir>/trace.json``; refused while a profiler runs
+        here. Answers once the profiler has started (its start takes
+        seconds on the card), so what the caller does next is in the
+        window."""
+        from storm_tpu_torch.runtime.tracing import device_trace
+
+        if not _PROFILER.acquire(blocking=False):
+            return {"error": "a profile capture is already running"}
+        started = threading.Event()
+        failed: List[BaseException] = []
+
+        def capture() -> None:
+            try:
+                with device_trace(log_dir):
+                    started.set()
+                    time.sleep(seconds)
+            except Exception as e:
+                failed.append(e)
+                log.exception("profile capture failed")
+            finally:
+                started.set()
+                _PROFILER.release()
+
+        try:
+            self._profile_thread = threading.Thread(target=capture, name="profile-capture")
+            self._profile_thread.start()
+        except BaseException:
+            _PROFILER.release()
+            raise
+        started.wait(timeout=120.0)
+        if failed:
+            return {"error": f"the profile capture failed to start: {failed[0]!r}"}
+        return {"ok": True, "log_dir": log_dir, "seconds": seconds}
+
     # ---- lifecycle -----------------------------------------------------------
 
     def serve_forever(self) -> None:
@@ -1232,6 +1337,10 @@ class WorkerServer:
             self.loop.run_forever()
         finally:
             self._server.stop()
+            # A capture in flight writes its whole trace before the exit.
+            t = self._profile_thread
+            if t is not None and t.is_alive():
+                t.join(timeout=310)
 
     def _wait_stop(self) -> None:
         self._stop.wait()

@@ -1,8 +1,8 @@
-"""The in-process cluster, copied from ``storm_tpu/runtime/cluster.py``
-without ``seek`` (the spout's seek waits for the group protocol):
+"""The in-process cluster, copied from ``storm_tpu/runtime/cluster.py``:
 routing, lifecycle, graceful drain, the at-least-once timeout sweep, the
-live model swap with canary (``swap_model``) and the per-task stats
-(``component_stats``).
+live model swap with canary (``swap_model``), the per-task stats
+(``component_stats``) and ``seek`` (a spout component repositioned:
+each task applies it at its next poll).
 
 - ``rebalance`` changes a component's parallelism under traffic: a new
   bolt task is prewarmed off the loop (``prewarm``, where the bolt has
@@ -353,6 +353,19 @@ class TopologyRuntime:
 
     # ---- elasticity ----------------------------------------------------------
 
+    async def seek(self, component_id: str, position) -> int:
+        """Reposition a spout component's consumption (replay, backfill).
+        Returns the number of tasks repositioned."""
+        execs = self.spout_execs.get(component_id)
+        if execs is None:
+            raise KeyError(component_id)
+        seekable = [e for e in execs if hasattr(e.spout, "request_seek")]
+        if not seekable:
+            raise TypeError(f"component {component_id!r} is not seekable")
+        for e in seekable:
+            e.spout.request_seek(position)
+        return len(seekable)
+
     async def rebalance(self, component_id: str, parallelism: int) -> None:
         """Change a component's parallelism under traffic."""
         if parallelism < 1:
@@ -467,8 +480,8 @@ class TopologyRuntime:
         """Per-task stats of one component: for a bolt the executed count,
         mean execute ms, errors, inbox depth and the model descriptor
         (``name[:checkpoint][:seed=N][:weights]``, as storm_tpu spells it);
-        for a spout the acked and failed trees, errors and in-flight
-        roots."""
+        for a spout the acked and failed trees, errors, in-flight roots
+        and, where the spout has them, the partitions it owns."""
         if component_id in self.bolt_execs:
             def model_of(e):
                 cfg = getattr(e.bolt, "model_cfg", None)
@@ -492,7 +505,9 @@ class TopologyRuntime:
                 for e in self.bolt_execs[component_id]]
         if component_id in self.spout_execs:
             return [{"task": e.task_index, "acked": e.n_acked, "failed": e.n_failed,
-                     "errors": e.n_errors, "inflight": e.inflight}
+                     "errors": e.n_errors, "inflight": e.inflight,
+                     **({"partitions": list(p)}
+                        if (p := getattr(e.spout, "my_partitions", None)) is not None else {})}
                     for e in self.spout_execs[component_id]]
         raise KeyError(component_id)
 

@@ -43,6 +43,9 @@ METRIC_NAMES = frozenset({
     'dispatch_wait_ms',
     'dist_circuit_opens',
     'dist_heartbeat_miss',
+    'dist_journal_appends',
+    'dist_journal_replayed',
+    'dist_journal_snapshots',
     'dist_parked_batches',
     'dist_replay_throttle_ms',
     'dist_replay_throttled',

@@ -57,8 +57,8 @@ EVENT_KINDS = frozenset({
     "batch_formed", "bottleneck_shift", "cascade_escalation", "chaos_injection",
     "copy_amplification_high", "decode_session_evicted", "decode_session_migrated",
     "decode_session_started", "dist_circuit_close", "dist_circuit_open",
-    "dist_heartbeat_miss", "dist_peer_replaced", "dist_worker_draining",
-    "dist_worker_recovered", "engine_quarantined", "engine_replaced", "executor_restart",
+    "dist_heartbeat_miss", "dist_peer_replaced", "dist_reattached", "dist_worker_draining",
+    "dist_worker_recovered", "dist_worker_restarted", "engine_quarantined", "engine_replaced", "executor_restart",
     "graph_capture", "profile_regression", "ring_handoff", "shed_decision", "shed_degrade",
     "shed_reject", "slo_breach", "slo_burn", "tree_timeout", "wire_error", "worker_drained",
     "worker_draining",
@@ -106,15 +106,19 @@ def span(metrics: Optional[MetricsRegistry], component: str, name: str) -> Itera
 def device_trace(log_dir: str) -> Iterator[Any]:
     """``torch.profiler`` trace of the host and, where a card exists, its
     kernels, written to ``<log_dir>/trace.json`` (Chrome trace format).
-    Yields the profiler, whose ``events()`` the caller may read."""
+    Every thread of the process is recorded, as storm_tpu's device trace
+    covers the whole process: a capture started on one thread holds the
+    kernels that other threads launched (an engine's replays) with their
+    launches. Yields the profiler, whose ``events()`` the caller may read."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts,
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

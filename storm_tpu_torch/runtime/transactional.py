@@ -23,11 +23,16 @@ writes and egress record the txid, so a replayed batch applies once.
 
 Transactional bolts and sinks refuse a parallelism above 1: the txid
 dedup is per task. One batch is in flight at a time, so commits are in
-txid order.
+txid order. A broker flagged ``blocking`` (the Kafka wire broker) is only
+called on a worker thread: the spout's plan, fetches and commits and the
+sink's marker read, produce and commit go through ``asyncio.to_thread``,
+so Trident's batches run over the wire broker as the spout and the sinks
+do.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 from typing import Any, Callable, Dict, List, Sequence, Tuple as Tup
 
@@ -66,7 +71,8 @@ class TransactionalSpout(Spout):
     def _pending_group(self) -> str:
         return self.group + ".pending"
 
-    # commit_many is emulated with per-partition commits where the adapter lacks it (the
+    # Blocking brokers (network clients) are called off-loop; commit_many is
+    # emulated with per-partition commits where the adapter lacks it (the
     # partial-commit window is safe here: state is checkpointed before ack,
     # so a half-committed batch re-forms as the same txid with the already-
     # applied subset, which the txid cells skip and the re-ack completes).
@@ -77,6 +83,11 @@ class TransactionalSpout(Spout):
         else:
             for p, off in offsets.items():
                 self.broker.commit(group, self.topic, p, off)
+
+    async def _call(self, fn, *args, **kw):
+        if getattr(self.broker, "blocking", False):
+            return await asyncio.to_thread(fn, *args, **kw)
+        return fn(*args, **kw)
 
     def open(self, context: TopologyContext, collector: OutputCollector) -> None:
         super().open(context, collector)
@@ -123,14 +134,14 @@ class TransactionalSpout(Spout):
         if not self._coordinator:
             return False
         if self._to_commit:
-            # acks defer their offset commit here: commits must precede
-            # the next batch
+            # acks defer their offset commit here: ack() is sync, network
+            # brokers are not, and commits must precede the next batch
             offsets, self._to_commit = self._to_commit, None
-            self._commit_sync(self.group, offsets)
+            await self._call(self._commit_sync, self.group, offsets)
         if self._replays:
             txid = self._replays.pop(0)
             ranges = self._inflight[txid]
-            records = self._fetch_range(ranges)
+            records = await self._call(self._fetch_range, ranges)
             await self.collector.emit(Values([records, txid]), msg_id=txid)
             return True
         if self._inflight:
@@ -139,29 +150,35 @@ class TransactionalSpout(Spout):
         records: List[str] = []
         budget = self.batch_size
 
-        for p in sorted(self._cursor):
-            if budget <= 0:
-                break
-            start = self._cursor[p]
-            got = self.broker.fetch(self.topic, p, start, max_records=budget)
-            if got:
-                ranges[p] = (start, start + len(got))
-                budget -= len(got)
-                for r in got:
-                    v = r.value
-                    # errors="replace", like BrokerSpout: one undecodable
-                    # record must not stall the coordinator forever
-                    records.append(
-                        v.decode("utf-8", "replace") if isinstance(v, bytes) else v
-                    )
+        def plan() -> None:
+            nonlocal budget
+            for p in sorted(self._cursor):
+                if budget <= 0:
+                    break
+                start = self._cursor[p]
+                got = self.broker.fetch(self.topic, p, start, max_records=budget)
+                if got:
+                    ranges[p] = (start, start + len(got))
+                    budget -= len(got)
+                    for r in got:
+                        v = r.value
+                        # errors="replace", like BrokerSpout: one undecodable
+                        # record must not stall the coordinator forever
+                        records.append(
+                            v.decode("utf-8", "replace") if isinstance(v, bytes) else v
+                        )
+
+        await self._call(plan)
         if not ranges:
             return False
         # Persist the planned ranges BEFORE first emit: a coordinator crash
         # mid-batch must re-form this exact batch, not a different one that
         # could overlap already-applied state updates (Trident persists its
         # coordinator metadata for the same reason).
-        self._commit_sync(self._pending_group,
-                          {p: end for p, (_s, end) in ranges.items()})
+        await self._call(
+            self._commit_sync, self._pending_group,
+            {p: end for p, (_s, end) in ranges.items()},
+        )
         for p, (_s, end) in ranges.items():
             self._cursor[p] = end
         txid = sum(self._cursor.values())
@@ -317,6 +334,7 @@ class TransactionalSink(StatefulBolt):
     # plain idempotent produce, no broker transaction.
     _txn = None
     _marker_synced = True
+    _blocking = False
 
     def __init__(self, broker, topic: str,
                  use_txn: "bool | None" = None) -> None:
@@ -344,19 +362,26 @@ class TransactionalSink(StatefulBolt):
             # (topic, 0) is the last committed txid — durable at the
             # broker, atomic with the records.
             self._marker_group = f"txnsink.{ident}"
+        self._blocking = bool(getattr(self.broker, "blocking", False))
 
-    def _sync_marker(self) -> None:
+    async def _call(self, fn, *args):
+        if self._blocking:
+            return await asyncio.to_thread(fn, *args)
+        return fn(*args)
+
+    async def _sync_marker(self) -> None:
         """Adopt the broker-side txid marker when it is ahead of local
         state — the exact crash shape the atomic commit exists for
         (produced + marker committed, state checkpoint lost)."""
-        marker = self.broker.committed(self._marker_group, self.topic, 0)
+        marker = await self._call(
+            self.broker.committed, self._marker_group, self.topic, 0)
         if marker is not None and marker > self.state.get("last_txid", -1):
             self.state.put("last_txid", marker)
         self._marker_synced = True
 
     async def execute(self, t: Tuple) -> None:
         if not self._marker_synced:
-            self._sync_marker()
+            await self._sync_marker()
         txid = t.get("txid", None)
         last = self.state.get("last_txid", -1)
         if txid is not None and txid <= last:
@@ -367,7 +392,7 @@ class TransactionalSink(StatefulBolt):
         values = [m if isinstance(m, (str, bytes)) else json.dumps(m)
                   for m in messages]
         if self._txn is not None:
-            try:
+            def commit_batch() -> None:
                 self._txn.begin()
                 for value in values:
                     self._txn.produce(self.topic, value)
@@ -375,9 +400,12 @@ class TransactionalSink(StatefulBolt):
                     self._txn.send_offsets(
                         self._marker_group, {(self.topic, 0): txid})
                 self._txn.commit()
+
+            try:
+                await self._call(commit_batch)
             except Exception as e:
                 try:
-                    self._txn.abort()
+                    await self._call(self._txn.abort)
                 except Exception:
                     pass  # fenced on next begin()
                 self.collector.report_error(e)
@@ -385,7 +413,7 @@ class TransactionalSink(StatefulBolt):
                 return
         else:
             for value in values:
-                self.broker.produce(self.topic, value)
+                await self._call(self.broker.produce, self.topic, value)
         if txid is not None:
             self.state.put("last_txid", txid)
         self.checkpoint_now()

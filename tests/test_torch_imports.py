@@ -5,8 +5,9 @@ record frames, topology builder, observatory and cascade, the runtime's
 groupings, state, chaos monkey, transactions and metrics consumers, the
 exactly-once sink, the decode tier, the ring, DRPC, windows, joins, event
 time, shell components, the multilang child side, flux, training, and
-the dist runtime with its Kafka wire client, stub broker and resilience
-primitives included), and neither chip_smoke.py nor kernel_sweep.py,
+the dist runtime with its Kafka wire client, stub broker, resilience
+primitives, controller journal and the worker's ``state_report``,
+``decode_sessions`` and ``profile`` ops included), and neither chip_smoke.py nor kernel_sweep.py,
 imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
 package storm_tpu (the machine with the card has none of them; the
 port's dist RPCs run over the standard library's sockets)."""
@@ -38,6 +39,9 @@ def _forbidden(name: str) -> bool:
 
 def test_no_jax_or_storm_tpu_imports_in_source():
     bad = []
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"storm_tpu_torch/dist/journal.py", "storm_tpu_torch/dist/worker.py",
+            "storm_tpu_torch/dist/controller.py"} <= scanned
     for path in _port_files():
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
         for node in ast.walk(tree):
@@ -133,6 +137,27 @@ def test_importing_the_port_loads_no_jax():
         tb.build()
         print("EOS", type(topo.specs["kafka-bolt"].obj).__name__, ChaosMonkey.__name__,
               prometheus_text({{}}) == "\\n", issubclass(TransactionalSink, StatefulBolt))
+        import tempfile
+        from storm_tpu_torch.connectors.kafka_protocol import GroupMembership
+        from storm_tpu_torch.connectors.spout import parse_seek_position
+        from storm_tpu_torch.dist.journal import ControllerJournal
+        from storm_tpu_torch.dist.worker import WorkerServer
+        d = tempfile.mkdtemp()
+        j = ControllerJournal(d)
+        j.append("workers", peers={{0: "127.0.0.1:1"}}, pids={{0: 1}})
+        j.close()
+        ws = WorkerServer(0, 0, device="cpu", host="127.0.0.1")
+        rep = ws._control({{"cmd": "state_report"}})
+        dec = ws._control({{"cmd": "decode_sessions"}})
+        prof = ws._control({{"cmd": "profile", "log_dir": d + "/p", "seconds": 0.05}})
+        ws._profile_thread.join(timeout=60)
+        ws._server.stop()
+        print("CONTROL", ControllerJournal(d).load().peers, rep["submits"],
+              dec["decode"]["tokens_emitted"], prof["ok"],
+              os.path.exists(d + "/p/trace.json"), parse_seek_position("-3"),
+              GroupMembership.PROTOCOL)
+        import shutil
+        shutil.rmtree(d)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu", "pyarrow", "grpc"))
@@ -146,6 +171,7 @@ def test_importing_the_port_loads_no_jax():
     assert "OBS ['engines'] True" in out.stdout, out.stdout
     assert "TENSOR (1, 2, 3) True True" in out.stdout, out.stdout
     assert "EOS TransactionalBrokerSink ChaosMonkey True True" in out.stdout, out.stdout
+    assert "CONTROL {0: '127.0.0.1:1'} 0 0 True True -3 range" in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer
     # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
@@ -180,7 +206,8 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.data", "storm_tpu_torch.data.digits",
                  "storm_tpu_torch.dist.controller", "storm_tpu_torch.dist.worker",
                  "storm_tpu_torch.dist.transport", "storm_tpu_torch.dist.wire",
-                 "storm_tpu_torch.dist.shm", "storm_tpu_torch.connectors.kafka_protocol",
+                 "storm_tpu_torch.dist.shm", "storm_tpu_torch.dist.journal",
+                 "storm_tpu_torch.connectors.kafka_protocol",
                  "storm_tpu_torch.connectors.kafka_stub", "storm_tpu_torch.connectors.lz4",
                  "storm_tpu_torch.connectors.snappy", "storm_tpu_torch.resilience.retry",
                  "storm_tpu_torch.resilience.circuit", "storm_tpu_torch.resilience.tokens"):
