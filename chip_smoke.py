@@ -315,7 +315,39 @@ no result):
    and on a decode mesh (``chip_smoke:decode_mesh``: SessionSpout on w0 ->
    char_tiny's DecodeBolt on w1 -> a sink on w0) its tokens those at the
    sink;
-18. the ``{"kernels": [...]}`` line, then the card line, then the last line
+18. the parallel serving paths: four rank processes on ``cuda:0``,
+   spawned once by ``parallel.launch.spawn_ranks`` over gloo (NCCL refuses
+   two ranks on one GPU), every rank joined with a deadline; every mode
+   bf16 ``int8_fused``, seeded, in that one world, one batch of 8 seeded
+   records decoded, predicted and encoded by the port's JSON codec as
+   ``tests/mh_serve_worker.py`` does: (a) ViT-B/16 at dp4, dp2 x tp2 and
+   tp4, (b) longseq_encoder at dp2 x sp2 and sp4, (c) moe_vit_b16 at ep4
+   and dp2 x ep2: each mode's encoded predictions byte-identical across
+   ranks and, against the one-rank engine's forward of the batch, equal
+   for dp and ep, within ``P18_SP_TOL`` for sp and within ``P18_TP_TOL``
+   on the logits for tp (the argmax kept on rows whose one-rank top-2
+   margin exceeds twice the bound), each of 5 more forwards equal to the
+   first on every rank, two planted faults (dp2 x tp2 with one
+   row-parallel all-reduce skipped) rejected by the tp bound, every
+   kernel launch signature of the ranks (name, shape, plan, load mode)
+   one that phase 3 held against the plain version, each rank's tally
+   exactly forwards x (73, 12, 12),
+   (26, 0, 0) (storm_tpu's apply_sp: plain norms and the ring) and (61,
+   12, 6), every multi-rank engine serialized (depth 0, no graph), tp2's
+   bytes per rank below 0.75 x the one-rank engine's and at least 0.9 x
+   half; (d) lenet5 and resnet20 at dp4, vit_tiny at dp2 x tp2 and
+   moe_vit_tiny at ep4 on the 449 held-out digits, each within
+   ``accuracy_harness``'s EPSILON of ``ACCURACY_r04.json``'s dp8, tp2 and
+   ep4 rows; gloo's CUDA collectives probed on this card
+   (``parallel/collectives.py:probe``) and held to the table the port
+   stages by; (e) information only: each mode's forward ms per rank
+   (eager, collectives included) and the share spent in collectives,
+   beside the one-rank forward by replay and eager. Phase 3 holds the
+   kernels at the shapes the ranks give them: the w8a16 kernel's f32
+   epilogue (tp's row-parallel partials) and its bf16 kernel at the tp2
+   and tp4 shards, at one data rank's rows and at longseq's S / sp rows,
+   flash at H / tp heads and the fused norm at a data rank's rows;
+19. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -355,6 +387,14 @@ ARGMAX_ULPS = 4
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+STARTED = time.monotonic()
+
+
+def phase(title: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{title} (at {time.monotonic() - STARTED:.1f} s)")
 
 
 def nvidia_smi() -> str:
@@ -438,6 +478,30 @@ def eager_ms(torch, fn, reps: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+# Each launch signature phase 3 held against its plain version
+# (launch_signatures); phase 18 holds the ranks' launches to it.
+PARITY_LAUNCHES: set = set()
+
+
+@contextlib.contextmanager
+def launch_signatures(into: set):
+    """Add to ``into`` the signature of each kernel launch in the block:
+    the kernel's name and its scalar arguments (shape, plan, load mode,
+    scale), all that its code path depends on beside the data. Only the
+    arguments are read; every launch runs and counts as before."""
+    from storm_tpu_torch.ops import _build
+
+    launch = _build.Kernel.launch
+
+    def recording(self, device, *args):
+        into.add((self.name, tuple(float(np.float32(a)) if t is _build.F else a
+                                   for a, t in zip(args, self.argtypes) if t is not _build.P)))
+        return launch(self, device, *args)
+
+    with mock.patch.object(_build.Kernel, "launch", recording):
+        yield into
 
 
 @contextlib.contextmanager
@@ -568,6 +632,71 @@ def parity_cases(torch, rows: list) -> dict:
             got = launched(lambda: w8a16_matmul(x, q, s), variant)
             check(rows, variant, case + ("_bf16" if dt == bf16 else ""),
                   rel_err(got, want), 2e-2 if dt == bf16 else 1e-5, "rel")
+
+    # Tensor parallelism's row-parallel partials (phase 18): the tensor-core
+    # kernel's f32 epilogue, at ViT-B/16's o and mlp_out shards (dp2 x tp2:
+    # 4 of the 8 rows, K / 2; tp4: every row, K / 4) and a ragged shape (an
+    # odd N: no f32 pairs), against the plain version's f32 output. The
+    # products are exact in f32 either way; only the sum's order differs.
+    for case, (m, k, n) in [("vit_b16 tp2 o", (4 * SEQ, DIM // 2, DIM)),
+                            ("vit_b16 tp2 mlp_out", (4 * SEQ, MLP // 2, DIM)),
+                            ("vit_b16 tp4 o", (M, DIM // 4, DIM)),
+                            ("vit_b16 tp4 mlp_out", (M, MLP // 4, DIM)),
+                            ("ragged", (5, 100, 71))]:
+        x = randn(m, k, dtype=bf16)
+        q, s = quantized(k, n)
+        want = w8a16_matmul_reference(x, q, s, f32)
+        got = launched(lambda: w8a16_matmul(x, q, s, out_dtype=f32), "w8a16_matmul_sm90")
+        if got.dtype != f32:
+            raise AssertionError(f"f32 out {case}: the kernel wrote {got.dtype}")
+        check(rows, "w8a16_matmul_sm90", f"f32 out {case} {m}x{k}@{k}x{n}",
+              rel_err(got, want), 1e-5, "rel")
+
+    # Phase 18's sharded shapes on the bf16 kernels: ViT-B/16's layers at
+    # the rows of one data rank (dp4: 2 records, dp2: 4; moe_vit_b16's
+    # dense layers at dp2 x ep2 too), its column-parallel q, k, v and
+    # mlp_in shards (N / tp), and longseq_encoder's layers at a sequence
+    # rank's S / sp rows (dp2 x sp2: 4 x 1024, sp4: 8 x 512; one launch
+    # shape) and its head; the fused norm with the model's bf16 g and b at
+    # a data rank's rows and at all 8 records (tp, ep4). Phase 18 holds
+    # every rank's launches to the signatures phase 3 checked.
+    for case, xshape, k, n in [
+            ("vit_b16 dp4 qkvo", (2 * SEQ, DIM), DIM, DIM),
+            ("vit_b16 dp4 mlp_in", (2 * SEQ, DIM), DIM, MLP),
+            ("vit_b16 dp4 mlp_out", (2 * SEQ, MLP), MLP, DIM),
+            ("vit_b16 dp4 head", (2, DIM), DIM, CLASSES),
+            ("vit_b16 dp2 qkvo", (4 * SEQ, DIM), DIM, DIM),
+            ("vit_b16 dp2 mlp_in", (4 * SEQ, DIM), DIM, MLP),
+            ("vit_b16 dp2 mlp_out", (4 * SEQ, MLP), MLP, DIM),
+            ("vit_b16 dp2 head", (4, DIM), DIM, CLASSES),
+            ("vit_b16 dp2xtp2 qkv", (4 * SEQ, DIM), DIM, DIM // 2),
+            ("vit_b16 dp2xtp2 mlp_in", (4 * SEQ, DIM), DIM, MLP // 2),
+            ("vit_b16 tp4 qkv", (M, DIM), DIM, DIM // 4),
+            ("vit_b16 tp4 mlp_in", (M, DIM), DIM, MLP // 4),
+            ("longseq sp embed", (4, LS_SEQ // 2, LS_FEAT), LS_FEAT, LS_DIM),
+            ("longseq sp qkvo", (8, LS_SEQ // 4, LS_DIM), LS_DIM, LS_DIM),
+            ("longseq sp mlp_in", (4, LS_SEQ // 2, LS_DIM), LS_DIM, LS_MLP),
+            ("longseq sp mlp_out", (8, LS_SEQ // 4, LS_MLP), LS_MLP, LS_DIM),
+            ("longseq dp2 head", (4, LS_DIM), LS_DIM, LS_CLASSES),
+            ("longseq head", (8, LS_DIM), LS_DIM, LS_CLASSES)]:
+        x = randn(*xshape, dtype=bf16)
+        q, s = quantized(k, n)
+        got = launched(lambda: w8a16_matmul(x, q, s), "w8a16_matmul_sm90")
+        check(rows, "w8a16_matmul_sm90", f"{case} {math.prod(xshape[:-1])}x{k}@{k}x{n}",
+              rel_err(got, w8a16_matmul_reference(x, q, s)), 2e-2, "rel")
+    for case, shape in [("vit_b16 dp4", (2, HEADS, SEQ, HDIM)),
+                        ("vit_b16 dp2xtp2", (4, HEADS // 2, SEQ, HDIM)),
+                        ("vit_b16 tp4", (B, HEADS // 4, SEQ, HDIM)),
+                        ("moe_vit_b16 dp2xep2", (4, HEADS, SEQ, HDIM))]:
+        q, k, v = (randn(*shape, dtype=bf16) for _ in range(3))
+        got = launched(lambda: flash_attention(q, k, v), "flash_attention_sm90")
+        check(rows, "flash_attention_sm90", f"{case} {'x'.join(map(str, shape))} bf16",
+              rel_err(got, flash_attention_reference(q, k, v)), 1e-2, "rel")
+    for case, rows_n in [("vit_b16 dp4", 2 * SEQ), ("vit_b16 dp2", 4 * SEQ),
+                         ("vit_b16 every row", M)]:
+        norm_case(f"{case} {rows_n}x{DIM} bf16_bf16_g_b", randn(rows_n, DIM, dtype=bf16),
+                  randn(rows_n, DIM, dtype=bf16), randn(DIM, dtype=bf16),
+                  randn(DIM, dtype=bf16), 1e-2, 1e-2, "rel")
 
     # The mixer's token MLP reads a transposed, non-contiguous activation:
     # the wrapper copies it once, then launches.
@@ -1111,44 +1240,55 @@ KERNEL_FUNCS = {"w8a16_matmul_sm90": "w8a16_sm90_kernel<", "w8a16_matmul": "w8a1
 def profiled_kernels(torch, fn) -> tuple:
     """Kernels the card ran in ``fn()`` under ``torch.profiler``: counts by
     variant and of all CUDA kernels, and their device ms alike. The
-    profiler can miss the first kernels it records on a stream (one to
-    three of a replay's, seen on the card late in this script): ``fn()``
-    runs once to warm it, then a spin kernel, then ``fn()`` again, and only
-    what the card ran after the spin is counted. A trace that lost the spin
-    kernel itself (seen once on the card, in phase 8b), or every kernel
-    after it (seen on the card in phase 12 (a): ``fn()`` always launches
-    some), is taken again, up to five times."""
+    profiler can lose kernels it should have recorded: the first ones on a
+    stream (one to three of a replay's, seen on the card late in this
+    script), the spin kernel itself (seen once, in phase 8b), every kernel
+    after it (seen in phase 12 (a)), or the last 55 of a resnet20 replay's
+    289 (seen in phase 12 (c)). So ``fn()`` runs once to warm it, then twice
+    more, each run between two spin kernels; a trace is kept only when it
+    holds all three spins and the two runs between them ran the same
+    kernels, and is taken again otherwise, up to five times. The counts
+    and ms are the first bracketed run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+
+    def tally(window) -> tuple:
+        counts = dict.fromkeys(KERNEL_FUNCS, 0)
+        counts["all"] = 0
+        ms = dict.fromkeys(counts, 0.0)
+        for ev in window:
+            t = (ev.time_range.end - ev.time_range.start) / 1e3
+            for name in ["all"] + [n for n, f in KERNEL_FUNCS.items() if f in ev.name]:
+                counts[name] += 1
+                ms[name] += t
+        return counts, ms
 
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
+            spin()
             fn()
-            torch.cuda.synchronize()
+            spin()
+            fn()
+            spin()
         kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
                           and "Memcpy" not in ev.name and "Memset" not in ev.name),
                          key=lambda ev: ev.time_range.start)
         spins = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
-        if spins and spins[-1] + 1 < len(kernels):
-            break
-        log(f"  the profiler recorded {'no kernel after' if spins else 'no'} separating "
-            f"spin kernel (trace {attempt + 1} of 5)")
-    else:
-        raise AssertionError("the profiler recorded no separating spin kernel with kernels "
-                             "after it in 5 traces")
-    counts = dict.fromkeys(KERNEL_FUNCS, 0)
-    counts["all"] = 0
-    ms = dict.fromkeys(counts, 0.0)
-    for ev in kernels[spins[-1] + 1:]:
-        t = (ev.time_range.end - ev.time_range.start) / 1e3
-        for name in ["all"] + [n for n, f in KERNEL_FUNCS.items() if f in ev.name]:
-            counts[name] += 1
-            ms[name] += t
-    return counts, ms
+        if len(spins) == 3:
+            first, second = (tally(kernels[a + 1:b]) for a, b in zip(spins, spins[1:]))
+            if first[0]["all"] and first[0] == second[0]:
+                return first
+            why = f"two runs of fn() recorded {first[0]} and {second[0]} kernels"
+        else:
+            why = f"{len(spins)} of 3 spin kernels recorded"
+        log(f"  the profiler lost kernels: {why} (trace {attempt + 1} of 5)")
+    raise AssertionError("the profiler lost kernels in 5 traces of the same work")
 
 
 def check_tally(torch, engine, per_forward: dict, wrapper_counts: dict, path: str) -> dict:
@@ -1338,7 +1478,8 @@ DIGITS_MODES = {"bf16": {}, "int8": {"weights": "int8"},
 # accuracy_harness.py's bounds: |acc - JAX acc| per mode, and the
 # transport proof (L-inf per row against the same mode's engine-direct
 # predictions; the share of rows within it; the share with equal argmax).
-EPSILON = {"bf16": 0.01, "uint8_wire": 0.02, "int8": 0.02, "int8_fused": 0.02}
+EPSILON = {"bf16": 0.01, "uint8_wire": 0.02, "int8": 0.02, "int8_fused": 0.02,
+           "dp8": 0.01, "tp2": 0.01, "ep4": 0.01}
 TRANSPORT_TOL = {"bf16": 0.05, "uint8_wire": 0.15, "int8": 0.05, "int8_fused": 0.05}
 MIN_ROW_MATCH, MIN_ARGMAX_AGREE = 0.90, 0.97
 MARGIN = 0.02  # JAX top-2 probability margin above which the argmax must agree
@@ -6449,6 +6590,385 @@ def control_plane(torch, card: str, phase16: dict, device: str = "cuda") -> dict
     return res
 
 
+# ---- phase 18: the parallel serving paths, four ranks on one card -----------
+
+P18_WORLD = 4
+P18_SEED = 18
+# Each rank's wrapper tally per forward: tensor parallelism splits a
+# layer's heads or columns, never the layer, so a rank launches every
+# kernel of the one-rank forward; the sequence-parallel forward runs
+# storm_tpu's apply_sp, plain LayerNorms and the ring, so its blocks launch
+# w8a16 alone (26: the embedding, 6 a block, the head).
+P18_LAUNCHES = {"vit_b16": VIT_B16_LAUNCHES, "moe_vit_b16": FAMILY_LAUNCHES["moe_vit_b16"],
+                "longseq_encoder": {"w8a16_matmul_sm90": 26}}
+# (label, model, sharding): every mode runs in the one world, in this order.
+P18_MODES = [
+    ("vit_b16 dp4", "vit_b16", {"data_parallel": 4}),
+    ("vit_b16 dp2xtp2", "vit_b16", {"data_parallel": 2, "tensor_parallel": 2}),
+    ("vit_b16 tp4", "vit_b16", {"data_parallel": 1, "tensor_parallel": 4}),
+    ("longseq_encoder dp2xsp2", "longseq_encoder",
+     {"data_parallel": 2, "sequence_parallel": 2}),
+    ("longseq_encoder sp4", "longseq_encoder", {"data_parallel": 1, "sequence_parallel": 4}),
+    ("moe_vit_b16 ep4", "moe_vit_b16", {"data_parallel": 1, "expert_parallel": 4}),
+    ("moe_vit_b16 dp2xep2", "moe_vit_b16", {"data_parallel": 2, "expert_parallel": 2}),
+]
+# (checkpoint, accuracy_harness mode of ACCURACY_r04.json, sharding); the
+# degree of DP does not change the arithmetic.
+P18_ACCURACY = [
+    ("lenet5_digits", "dp8", {"data_parallel": 4}),
+    ("resnet20_digits", "dp8", {"data_parallel": 4}),
+    ("vit_tiny_digits", "tp2", {"data_parallel": 2, "tensor_parallel": 2}),
+    ("moe_vit_tiny_digits", "ep4", {"data_parallel": 1, "expert_parallel": 4}),
+]
+P18_REPS = 5
+# A rank's predictions against the one-rank engine's forward of the same
+# batch, by the kind of the mesh's second axis. Data and expert
+# parallelism compute each row exactly as one rank does (the kernels are
+# row-independent, the EP combine has one nonzero term a row): equal
+# bytes. The sp path runs plain norms and the ring where the one-rank
+# forward runs the fused norm and flash, in bf16: max |dp| / max p within
+# 3e-3 (my chip runs read 8.8e-4 and 9.1e-4). Tensor parallelism sums f32
+# partials where the one rank rounds the whole sum once, and random
+# ViT-B/16 weights give near-uniform probabilities over 1000 classes (no
+# row's top-2 margin is decided), so tp is held on the logits, which the
+# f32 softmax keeps: log p centred on each row, max |d logit| over the
+# one-rank logits' max |logit|, within P18_TP_TOL (my chip run read
+# 8.6e-3 at dp2 x tp2 and 8.1e-3 at tp4, the planted faults below 4.7e-1
+# and 8.9e-2).
+P18_SP_TOL = 3e-3
+P18_TP_TOL = 3e-2
+# Planted faults (information that must fail): dp2 x tp2 with one
+# row-parallel layer's all-reduce skipped on every rank, so its output is
+# this rank's partial sum; the tp bound must reject each.
+P18_FAULTS = [("vit_b16 dp2xtp2", f"blocks.{i}.{layer}")
+              for i, layer in ((0, "attn.o"), (DEPTH - 1, "mlp_out"))]
+
+
+def p18_config(name: str):
+    """bf16 int8_fused, seeded: the full-width families at their phases'
+    configs, a ``*_tiny`` sibling (a CPU rehearsal) at 32x32x3, 10 classes."""
+    from storm_tpu_torch.config import ModelConfig
+
+    if name == "vit_b16":
+        return vit_b16_config()
+    if name.startswith("longseq"):
+        return longseq_config(name)
+    if name.endswith("_tiny"):
+        return ModelConfig(name=name, dtype="bfloat16", weights="int8_fused", num_classes=10,
+                           input_shape=(32, 32, 3))
+    return family_config(name)
+
+
+def p18_payload(name: str) -> str:
+    """The batch of 8 seeded records of ``name``, as one JSON payload."""
+    shape = tuple(p18_config(name).input_shape)
+    x = np.random.RandomState(P18_SEED).rand(B, *shape).astype(np.float32)
+    return json.dumps({"instances": x.tolist()})
+
+
+def parallel_rank(rank: int, world: int, device: str = "cuda", modes=(), accuracy=(),
+                  faults=(), reps: int = P18_REPS) -> dict:
+    """One rank of phase 18's world (``parallel.launch.spawn_ranks``): every
+    mode's engine in one order, each batch decoded, predicted (its
+    launches' signatures recorded) and encoded as
+    ``tests/mh_serve_worker.py`` does, then timed; after a mode named in
+    ``faults``, its forward again with that layer's all-reduce skipped;
+    the accuracy rows."""
+    import gc
+
+    import torch
+
+    from storm_tpu_torch.api.schema import decode_instances, encode_predictions
+    from storm_tpu_torch.config import BatchConfig, ModelConfig, ShardingConfig
+    from storm_tpu_torch.data import load_digits_nhwc
+    from storm_tpu_torch.infer.engine import InferenceEngine
+    from storm_tpu_torch.models import model_def
+    from storm_tpu_torch.models.convert import init_params
+    from storm_tpu_torch.parallel import collectives
+
+    collectives.set_sync_timing(True)
+    out = {"modes": {}, "accuracy": {}}
+    trees, payloads = {}, {}
+    for label, name, sharding in modes:
+        mc = p18_config(name)
+        if name not in trees:
+            md = model_def(mc.name, num_classes=mc.num_classes,
+                           input_shape=tuple(mc.input_shape))
+            trees[name] = init_params(md, mc.seed)
+            payloads[name] = p18_payload(name)
+        t = time.perf_counter()
+        eng = InferenceEngine(mc, BatchConfig(max_batch=B, buckets=(B,)), device=device,
+                              params=trees[name][0], state=trees[name][1],
+                              sharding_cfg=ShardingConfig(**sharding))
+        build_s = time.perf_counter() - t
+        x = decode_instances(payloads[name]).data
+        t = time.perf_counter()
+        with launch_signatures(set()) as sigs:
+            preds = eng.predict(x)
+        first_ms = (time.perf_counter() - t) * 1e3
+        wire = encode_predictions(preds)
+        collectives.reset_collective_stats()
+        times, repeats_differ = [], 0
+        for _ in range(reps):
+            t = time.perf_counter()
+            again = eng.predict(x)
+            times.append((time.perf_counter() - t) * 1e3)
+            repeats_differ += int(not np.array_equal(again, preds))
+        stats = collectives.collective_stats()
+        out["modes"][label] = {
+            "preds": preds, "wire": wire, "tally": eng.launch_tally(),
+            "forwards": eng.forwards, "mesh": dict(eng.mesh.shape),
+            "pipeline_depth": eng.pipeline_depth, "compiled": sorted(eng.compiled_batches),
+            "param_bytes": eng.param_bytes(),
+            "param_bytes_per_device": eng.param_bytes_per_device(),
+            "build_s": build_s, "first_ms": first_ms, "ms": float(np.median(times)),
+            "collective_share": stats["seconds"] * 1e3 / sum(times),
+            "collectives": stats["calls"] / reps, "staged": stats["staged"] / reps,
+            "repeats_differ": repeats_differ, "launch_sigs": sigs, "faults": {}}
+        for path in (p for lab, p in faults if lab == label):
+            layer = eng.model.get_submodule(path)
+            reduce, layer.reduce = layer.reduce, None
+            out["modes"][label]["faults"][path] = eng.predict(x)
+            layer.reduce = reduce
+        del eng
+        if all(n != name for _, n, _ in modes[modes.index((label, name, sharding)) + 1:]):
+            del trees[name], payloads[name]  # the model's last mode
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    for tag, mode, sharding in accuracy:
+        mc = ModelConfig.from_checkpoint(f"checkpoints/{tag}", dtype="bfloat16",
+                                         weights="int8_fused")
+        x_te, y_te = load_digits_nhwc(tuple(mc.input_shape), seed=0)[2:]
+        eng = InferenceEngine(mc, BatchConfig(max_batch=64, buckets=(64,)), device=device,
+                              sharding_cfg=ShardingConfig(**sharding))
+        preds = np.concatenate([eng.predict(x_te[i:i + 64]) for i in range(0, len(x_te), 64)])
+        out["accuracy"][tag] = {"argmax": preds.argmax(-1),
+                                "acc": float((preds.argmax(-1) == y_te).mean()),
+                                "tally": eng.launch_tally(), "forwards": eng.forwards}
+        del eng
+    return out
+
+
+def p18_one_rank(torch, device: str) -> dict:
+    """The one-rank engine of each model (the default ``ShardingConfig()``:
+    graphs, pipeline depth 2): its forward of the batch, by replay and
+    eager, and its bytes."""
+    from storm_tpu_torch.api.schema import decode_instances
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.infer.engine import InferenceEngine
+    from storm_tpu_torch.infer.graphs import eager_ms as graph_eager_ms
+    from storm_tpu_torch.infer.graphs import replay_ms
+
+    ref = {}
+    for name in dict.fromkeys(n for _, n, _ in P18_MODES):
+        eng = InferenceEngine(p18_config(name), BatchConfig(max_batch=B, buckets=(B,)),
+                              device=device)
+        x = decode_instances(p18_payload(name)).data
+        row = {"preds": eng.predict(x), "param_bytes_per_device": eng.param_bytes_per_device(),
+               "pipeline_depth": eng.pipeline_depth}
+        if device != "cpu":
+            bucket = eng.graph_for(B)
+            if bucket.graph is None:
+                raise AssertionError(f"{name}: the one-rank engine captured no graph")
+            row.update(replay_ms=replay_ms(bucket), eager_ms=graph_eager_ms(bucket))
+        ref[name] = row
+        del eng
+    return ref
+
+
+def p18_check_tally(res: dict, per_forward: dict, label: str) -> dict:
+    tally, forwards = res["tally"], res["forwards"]
+    for name in KERNEL_FUNCS:
+        want = per_forward.get(name, 0) * forwards
+        if tally.get(name, 0) != want:
+            raise AssertionError(f"{label}: {name} tallied {tally.get(name, 0)} for "
+                                 f"{forwards} forwards (want {want})")
+    return {n: tally.get(n, 0) for n in KERNEL_FUNCS}
+
+
+def p18_kind(sharding: dict) -> str:
+    if sharding.get("tensor_parallel", 1) > 1:
+        return "tp"
+    return "sp" if sharding.get("sequence_parallel", 1) > 1 else "exact"
+
+
+def p18_reading(got: np.ndarray, want: np.ndarray, kind: str) -> dict:
+    """A rank's predictions against the one-rank forward (``P18_SP_TOL``'s
+    comment): the error, its bound, and the argmax changes on the rows
+    whose one-rank top-2 margin exceeds twice the bound."""
+    equal = bool(np.array_equal(got, want))
+    tol = {"exact": 0.0, "sp": P18_SP_TOL, "tp": P18_TP_TOL}[kind]
+    if kind == "tp":
+        got, want = (np.log(a.astype(np.float64)) for a in (got, want))
+        got, want = (a - a.mean(-1, keepdims=True) for a in (got, want))
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * tol * scale
+    flips = int((got.argmax(-1) != want.argmax(-1))[decided].sum())
+    holds = (equal if kind == "exact" else err <= tol) and not flips
+    return {"on": "logits" if kind == "tp" else "probabilities", "rel_err": err, "bound": tol,
+            "decided_rows": int(decided.sum()), "flips": flips, "holds": holds}
+
+
+def parallel_serving(torch, card: str, device: str = "cuda") -> dict:
+    """Phase 18: four rank processes on ``cuda:0`` over gloo, every mode in
+    one world; each mode's predictions byte-identical across ranks, equal
+    to the one-rank forward's for dp and ep, within ``P18_SP_TOL`` for sp
+    and ``P18_TP_TOL`` on the logits for tp, and each repeated forward
+    equal to the first; the planted faults rejected; every launch
+    signature of the ranks one that phase 3 held against the plain
+    version; each tally per forward exact; tp2's bytes per rank; the four
+    accuracy rows; the ranks' forward ms and collective share beside the
+    one-rank forward's (information)."""
+    import threading
+
+    from storm_tpu_torch.parallel.launch import spawn_ranks
+
+    log("  backend gloo: NCCL refuses two ranks on one GPU, and the four ranks share "
+        "cuda:0; the collectives gloo does not take on CUDA tensors are staged through "
+        "pinned host memory (parallel/collectives.py)")
+    box = {}
+
+    def world():
+        try:
+            box["ranks"] = spawn_ranks(
+                "chip_smoke:parallel_rank", P18_WORLD,
+                {"device": device, "modes": P18_MODES, "accuracy": P18_ACCURACY,
+                 "faults": P18_FAULTS},
+                timeout_s=150, collective_timeout_s=120, env={"OMP_NUM_THREADS": "2"})
+        except BaseException as e:  # noqa: BLE001 - raised below
+            box["error"] = e
+
+    def gloo_probe():
+        from storm_tpu_torch.parallel import collectives
+
+        try:
+            box["probe"] = collectives.probe()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            box["probe_error"] = e
+
+    if device != "cpu":
+        import gc
+
+        gc.collect()  # the earlier phases' engines, before four more processes
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"  the card before the world: {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=f, daemon=True) for f in (world, gloo_probe)]
+    for th in threads[:1 if device == "cpu" else 2]:
+        th.start()
+    ref = p18_one_rank(torch, device)
+    for th in threads[:1 if device == "cpu" else 2]:
+        th.join(timeout=180)
+    for key in ("error", "probe_error"):
+        if key in box:
+            raise box[key]
+    if "ranks" not in box:
+        raise AssertionError("phase 18's rank processes did not finish")
+    ranks = box["ranks"]
+    wall_s = time.perf_counter() - t0
+    if device != "cpu":
+        from storm_tpu_torch.parallel.collectives import GLOO_CUDA, KINDS
+
+        native = {k for k, v in box["probe"].items() if v == "native"}
+        log(f"  gloo on CUDA tensors, two processes on this card: {box['probe']}")
+        if native != set(GLOO_CUDA):
+            raise AssertionError(f"gloo takes {sorted(native)} on CUDA tensors here, the port "
+                                 f"stages all but {sorted(GLOO_CUDA)} of {KINDS}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "ACCURACY_r04.json")) as f:
+        rows = json.load(f)["results"]
+    res = {"modes": {}, "accuracy": {}, "faults": {}, "wall_s": wall_s, "launches": {}}
+    sigs = set()
+    for label, name, sharding in P18_MODES:
+        per = [r["modes"][label] for r in ranks]
+        if len({p["wire"] for p in per}) != 1:
+            raise AssertionError(f"{label}: the ranks' encoded predictions differ")
+        if any(p["pipeline_depth"] != 0 for p in per):
+            raise AssertionError(f"{label}: a multi-rank engine must serialize")
+        launches = [p18_check_tally(p, P18_LAUNCHES[name], f"{label} rank {i}")
+                    for i, p in enumerate(per)]
+        one = ref[name]
+        row = p18_reading(per[0]["preds"], one["preds"], p18_kind(sharding))
+        if not row["holds"]:
+            raise AssertionError(f"{label}: against the one-rank forward {row}")
+        if any(p["repeats_differ"] for p in per):
+            raise AssertionError(f"{label}: forwards unlike the first per rank "
+                                 f"{[p['repeats_differ'] for p in per]}")
+        sigs.update(*(p["launch_sigs"] for p in per))
+        row.update(launches=launches[0], forwards=per[0]["forwards"],
+                   mesh=per[0]["mesh"], ms=[p["ms"] for p in per],
+                   first_ms=per[0]["first_ms"], build_s=per[0]["build_s"],
+                   collective_share=[p["collective_share"] for p in per],
+                   collectives=per[0]["collectives"], staged=per[0]["staged"],
+                   repeats_differ=[p["repeats_differ"] for p in per],
+                   param_bytes_per_device=[p["param_bytes_per_device"] for p in per],
+                   one_rank_bytes=one["param_bytes_per_device"],
+                   one_rank_replay_ms=one.get("replay_ms"),
+                   one_rank_eager_ms=one.get("eager_ms"))
+        if "tp2" in label:
+            full = one["param_bytes_per_device"]
+            for b in row["param_bytes_per_device"]:
+                if not 0.9 * full / 2 <= b < 0.75 * full:
+                    raise AssertionError(f"{label}: {b} bytes on a rank against {full} on "
+                                         f"one (want [0.9 x half, 0.75 x whole))")
+        res["modes"][label] = row
+        res["launches"][label] = launches[0]
+        log(f"  {label}: mesh {row['mesh']}, ranks byte-identical, rel err {row['rel_err']:.3e}"
+            f" on the {row['on']} against one rank (bound {row['bound']:g}; "
+            f"{row['decided_rows']} decided rows keep their argmax), "
+            f"tally {launches[0]} for {row['forwards']} forwards = per forward "
+            f"{P18_LAUNCHES[name]}, bytes per rank {row['param_bytes_per_device']} (one rank "
+            f"{row['one_rank_bytes']})")
+        log(f"    forward per rank {['%.3f' % m for m in row['ms']]} ms (eager, wall, "
+            f"collectives {row['collectives']:.0f} a forward, {row['staged']:.0f} staged, "
+            f"{max(row['collective_share']) * 100:.1f} % of the forward at most); one rank "
+            f"{row['one_rank_replay_ms']} ms by replay, {row['one_rank_eager_ms']} ms eager; "
+            f"first forward {row['first_ms']:.1f} ms, build {row['build_s']:.1f} s; {P18_REPS} "
+            f"timed forwards each equal to the first on every rank; {card}")
+        for path, preds in per[0]["faults"].items():
+            fault = p18_reading(preds, one["preds"], p18_kind(sharding))
+            res["faults"][f"{label}, {path} not reduced"] = fault
+            log(f"  planted fault {label}, {path}'s all-reduce skipped: rel err "
+                f"{fault['rel_err']:.3e} on the {fault['on']} (bound {fault['bound']:g}), "
+                f"{fault['flips']} of {fault['decided_rows']} decided rows changed argmax")
+    if len(res["faults"]) != len(P18_FAULTS):
+        raise AssertionError(f"planted faults run {sorted(res['faults'])} of {P18_FAULTS}")
+    unchecked = sorted(sigs - PARITY_LAUNCHES)
+    if unchecked:
+        raise AssertionError(f"the ranks launched {len(unchecked)} kernel signatures that "
+                             f"phase 3 did not hold against the plain version: {unchecked}")
+    log(f"  the ranks' {len(sigs)} kernel launch signatures (name, shape, plan, load mode) "
+        f"are each among the {len(PARITY_LAUNCHES)} that phase 3 held against the plain "
+        f"version")
+    for tag, mode, sharding in P18_ACCURACY:
+        per = [r["accuracy"][tag] for r in ranks]
+        if any(not np.array_equal(p["argmax"], per[0]["argmax"]) for p in per):
+            raise AssertionError(f"{tag}: the ranks' predictions differ")
+        model = tag[:-len("_digits")]
+        want = next(r for r in rows if (r["model"], r["mode"]) == (model, mode))
+        acc = per[0]["acc"]
+        if abs(acc - want["acc_float_device"]) > EPSILON[mode]:
+            raise AssertionError(f"{tag} {sharding}: accuracy {acc} against "
+                                 f"{want['acc_float_device']} ({mode} row) beyond "
+                                 f"{EPSILON[mode]}")
+        res["accuracy"][tag] = {"acc": acc, "row": want["acc_float_device"], "mode": mode,
+                                "sharding": sharding, "forwards": per[0]["forwards"],
+                                "tally": {n: per[0]["tally"].get(n, 0) for n in KERNEL_FUNCS}}
+        res["launches"][f"{tag} accuracy"] = res["accuracy"][tag]["tally"]
+        log(f"  {tag} {sharding}: accuracy {acc:.4f} on the 449 held-out rows, "
+            f"ACCURACY_r04.json {mode} {want['acc_float_device']} (epsilon "
+            f"{EPSILON[mode]}), ranks identical")
+    passed = [k for k, f in res["faults"].items() if f["holds"]]
+    if passed:
+        raise AssertionError(f"the bounds let planted faults pass: {passed}")
+    log(f"  phase 18: {wall_s:.1f} s (the world and the one-rank references together)")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -6466,8 +6986,8 @@ def run() -> int:
     from storm_tpu_torch.device import resolve_device
 
     card = nvidia_smi()
-    log(f"[1] environment: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    phase(f"[1] environment: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {sys.version.split()[0]}")
     # The package resolves the card as every entry point does; that sets
     # its arithmetic (no TF32, f32 accumulation of bf16 GEMMs) before the
     # kernel phases compare anything.
@@ -6476,7 +6996,7 @@ def run() -> int:
     assert_numeric_flags(torch, "after storm_tpu_torch.device.resolve_device")
     t = time.perf_counter()
     libs = _build.build_all()
-    log(f"[2] built {len(libs)} kernels in {time.perf_counter() - t:.1f} s")
+    phase(f"[2] built {len(libs)} kernels in {time.perf_counter() - t:.1f} s")
     for k in _build.KERNELS.values():
         entry = ""
         for line in k.build_log().splitlines():
@@ -6485,13 +7005,14 @@ def run() -> int:
             elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                 log(f"  ptxas {k.name} {entry}: {line.strip()}")
 
-    log("[3] kernel parity on the card")
+    phase("[3] kernel parity on the card")
     rows = []
-    errs = parity_cases(torch, rows)
-    failed = [r for r in rows if not r["pass"]]
-    if failed:
-        raise AssertionError(f"kernel parity failed: {failed}")
-    longseq_kernel_cases(torch, rows)
+    with launch_signatures(PARITY_LAUNCHES):
+        errs = parity_cases(torch, rows)
+        failed = [r for r in rows if not r["pass"]]
+        if failed:
+            raise AssertionError(f"kernel parity failed: {failed}")
+        longseq_kernel_cases(torch, rows)
     failed = [r for r in rows if not r["pass"]]
     if failed:
         raise AssertionError(f"kernel parity failed: {failed}")
@@ -6499,78 +7020,85 @@ def run() -> int:
     mixer = mixer_times(torch)
     longseq = longseq_times(torch)
 
-    log("[4] forward parity, ViT-B/16 int8_fused")
+    phase("[4] forward parity, ViT-B/16 int8_fused")
     forward_parity(torch)
 
-    log("[5] main path: 2x spout -> 4x InferenceBolt -> 2x sink, ViT-B/16 bf16 int8_fused")
+    phase("[5] main path: 2x spout -> 4x InferenceBolt -> 2x sink, ViT-B/16 bf16 int8_fused")
     served = main_path(torch)
 
-    log("[6] trained checkpoints: lenet5, lenet5_rgb, resnet20, vit_tiny on the digits")
+    phase("[6] trained checkpoints: lenet5, lenet5_rgb, resnet20, vit_tiny on the digits")
     digits = trained_checkpoints(torch, rows, card)
 
-    log("[7] the split-phase engine: graph parity, ring integrity, timings, watchdog, "
-        "cold bucket")
+    phase("[7] the split-phase engine: graph parity, ring integrity, timings, watchdog, "
+          "cold bucket")
     split = split_phase(torch, card)
     log(json.dumps({"split_phase": split, "card": card}))
 
-    log("[8] moe_vit_b16 path: 2x spout -> 4x InferenceBolt -> 2x sink, bf16 int8_fused")
+    phase("[8] moe_vit_b16 path: 2x spout -> 4x InferenceBolt -> 2x sink, bf16 int8_fused")
     moe = moe_path(torch, card)
-    log("[8b] mixer_s16, mobilenetv2, resnet50 at 224x224x3, bf16 int8_fused, B=8")
+    phase("[8b] mixer_s16, mobilenetv2, resnet50 at 224x224x3, bf16 int8_fused, B=8")
     families = full_width_families(torch, card)
     log(json.dumps({"served": {"vit_b16": served, "moe_vit_b16": moe},
                     "families": families, "card": card}, default=float))
 
-    log("[9a] longseq_encoder at S = 2048, bf16 int8_fused, engine-direct at B = 8 and 32; "
-        "longseq_tiny (D = 8)")
+    phase("[9a] longseq_encoder at S = 2048, bf16 int8_fused, engine-direct at B = 8 and 32; "
+          "longseq_tiny (D = 8)")
     ls_direct = longseq_engine_direct(torch, card)
-    log("[9b] longseq_encoder served: 2x spout -> 4x InferenceBolt -> 2x sink, QoS lanes, "
-        "continuous batching, shedding")
+    phase("[9b] longseq_encoder served: 2x spout -> 4x InferenceBolt -> 2x sink, QoS lanes, "
+          "continuous batching, shedding")
     ls_served = longseq_served(torch, card)
     log(json.dumps({"longseq": {"engine_direct": ls_direct, "served": ls_served},
                     "card": card}, default=float))
 
-    log("[10] observe and swap: the traced main path, the overhead turns, the shed turn "
-        "with the flight recorder, the canary swap and rollback")
+    phase("[10] observe and swap: the traced main path, the overhead turns, the shed turn "
+          "with the flight recorder, the canary swap and rollback")
     observed = observe_and_swap(torch, card)
     log(json.dumps({"observe_and_swap": observed, "card": card}, default=float))
 
-    log("[11] the binary record plane: Arrow tensor records, chunked spouts, record "
-        "frames and frame egress, ViT-B/16 and longseq_encoder")
+    phase("[11] the binary record plane: Arrow tensor records, chunked spouts, record "
+          "frames and frame egress, ViT-B/16 and longseq_encoder")
     plane = record_plane(torch, card, served)
     log(json.dumps({"record_plane": plane, "card": card}, default=float))
 
-    log("[12] the cascade at its published operating point (float32, bf16 int8_fused), the "
-        "degrade cascade, and the Observatory on the main path")
+    phase("[12] the cascade at its published operating point (float32, bf16 int8_fused), the "
+          "degrade cascade, and the Observatory on the main path")
     phase12 = cascade_and_observatory(torch, card, served)
     log(json.dumps({"cascade_and_observatory": phase12, "card": card}, default=float))
 
-    log("[13] the Storm runtime's core and exactly-once delivery, ViT-B/16 bf16 int8_fused: "
-        "rebalance under traffic, supervision, the transactional sink")
+    phase("[13] the Storm runtime's core and exactly-once delivery, ViT-B/16 bf16 int8_fused: "
+          "rebalance under traffic, supervision, the transactional sink")
     phase13 = runtime_and_exactly_once(torch, card)
     log(json.dumps({"runtime_and_exactly_once": phase13, "card": card}, default=float))
 
-    log("[14] the decode tier (char_tiny, engine-direct and served on the ring grouping, "
-        "eviction, a rolling restart) and DRPC into ViT-B/16 bf16 int8_fused")
+    phase("[14] the decode tier (char_tiny, engine-direct and served on the ring grouping, "
+          "eviction, a rolling restart) and DRPC into ViT-B/16 bf16 int8_fused")
     phase14 = decode_and_drpc(torch, card)
     log(json.dumps({"decode_and_drpc": phase14, "card": card}, default=float))
 
-    log("[15] training on the card: ViT-B/16 float32 steps (kernels against plain), the "
-        "digits models to convergence, a card-trained resnet20 served back")
+    phase("[15] training on the card: ViT-B/16 float32 steps (kernels against plain), the "
+          "digits models to convergence, a card-trained resnet20 served back")
     phase15 = training(torch, card)
     log(json.dumps({"training": phase15, "card": card}, default=float))
 
-    log("[16] the distributed runtime: 3 worker processes on the card over the port's Kafka "
-        "stub, ViT-B/16 bf16 int8_fused; one process against three; faults")
+    phase("[16] the distributed runtime: 3 worker processes on the card over the port's Kafka "
+          "stub, ViT-B/16 bf16 int8_fused; one process against three; faults")
     phase16 = dist_runtime(torch, card)
     log(json.dumps({"dist_runtime": phase16, "card": card}, default=float))
 
-    log("[17] the dist runtime's durable control plane: reattach without a rebuild, a rolling "
-        "restart, seek, the group protocol, exactly-once across workers, profile and "
-        "decode_sessions")
+    phase("[17] the dist runtime's durable control plane: reattach without a rebuild, a rolling "
+          "restart, seek, the group protocol, exactly-once across workers, profile and "
+          "decode_sessions")
     phase17 = control_plane(torch, card, phase16)
     log(json.dumps({"control_plane": phase17, "card": card}, default=float))
 
-    log("[18] the kernels")
+    phase("[18] the parallel serving paths: four ranks on cuda:0 over gloo, ViT-B/16 at dp4, "
+          "dp2xtp2, tp4; longseq_encoder at dp2xsp2, sp4; moe_vit_b16 at ep4, dp2xep2; the "
+          "digits accuracy rows")
+    phase18 = parallel_serving(torch, card)
+    log(json.dumps({"parallel_serving": {k: v for k, v in phase18.items() if k != "launches"},
+                    "card": card}, default=float))
+
+    phase("[19] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -6634,6 +7162,8 @@ def run() -> int:
                 phase17["b"]["launches"][name],
             "vit_b16 int8_fused dist exactly-once, the replacement w1 (phase 17e)":
                 phase17["e"]["launches"][name]})
+        paths.update({f"{label} int8_fused, rank 0 of 4 (phase 18)": c[name]
+                      for label, c in phase18["launches"].items()})
         paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]
                       for m, r in phase15["b"].items()})
         entry = {

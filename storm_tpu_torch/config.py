@@ -1,7 +1,8 @@
 """Typed configuration, copied from ``storm_tpu/config.py`` for the fields
-the port reads: model, batching, spout offsets, sink delivery, topology
-knobs, the broker, the control plane's token and journal, resilience and chaos, QoS,
-the sink's SLO, the observatory and the cascade, with their validation.
+the port reads: model, batching, the engine's sharding over ranks, spout
+offsets, sink delivery, topology knobs, the broker, the control plane's
+token and journal, resilience and chaos, QoS, the sink's SLO, the
+observatory and the cascade, with their validation.
 
 ``Config.to_dict`` and ``Config.from_dict`` carry a config through the
 dist controller's submit recipe to its workers; a section or key the
@@ -146,6 +147,26 @@ class ModelConfig:
         return cls(name=meta["model"], checkpoint=checkpoint,
                    input_shape=tuple(meta["input_shape"]),
                    num_classes=meta["num_classes"], **fields)
+
+
+@dataclass
+class ShardingConfig:
+    """How an inference engine's work maps onto a mesh of ranks
+    (``storm_tpu_torch.parallel.mesh``): one process a rank, all of them in
+    one ``torch.distributed`` process group that the caller initializes.
+
+    ``data_parallel`` shards the batch axis over ranks (0 = every rank left
+    once the second axis is sized). At most one of the other three sizes
+    the mesh's second axis: ``tensor_parallel`` shards the attention and
+    MLP weights Megatron-style, ``sequence_parallel`` the sequence axis of
+    a model with ``apply_sp`` (ring attention), ``expert_parallel`` the
+    experts of a MoE family. The default is one rank, no process group."""
+
+    data_parallel: int = 1
+    tensor_parallel: int = 1
+    sequence_parallel: int = 1
+    expert_parallel: int = 1
+    axis_names: tuple = ("data", "model")
 
 
 @dataclass
@@ -685,6 +706,7 @@ class Config:
     topology: TopologyConfig = field(default_factory=TopologyConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     batch: BatchConfig = field(default_factory=BatchConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
     offsets: OffsetsConfig = field(default_factory=OffsetsConfig)
     sink: SinkConfig = field(default_factory=SinkConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)

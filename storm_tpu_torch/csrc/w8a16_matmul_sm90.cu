@@ -1,5 +1,6 @@
 // w8a16 dequant-matmul on Hopper's tensor cores, bf16 activations:
-// out(M, N) = (x(M, K) @ q(K, N)) * s(N), x and out bf16, q int8, s f32.
+// out(M, N) = (x(M, K) @ q(K, N)) * s(N), x bf16, out bf16 (or f32), q int8,
+// s f32.
 //
 // Replaces the Pallas TPU kernel storm_tpu/ops/quant_matmul.py:_qmm_kernel
 // (pallas_call at :107) on the bf16 path; csrc/w8a16_matmul.cu stays the
@@ -54,7 +55,9 @@
 //   group. The fragments a running group reads are never written, so ptxas
 //   keeps the wgmmas asynchronous.
 // - Epilogue: the f32 accumulator times s[n], rounded to bf16, stored as
-//   bf16 pairs with masks on M and N.
+//   bf16 pairs with masks on M and N; or, with an f32 output (a
+//   row-parallel partial product under tensor parallelism, summed across
+//   ranks before it is rounded), stored as f32 pairs unrounded.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -252,8 +255,8 @@ template <int WG, int BT, int MODE>
 __global__ void __launch_bounds__(128 * WG)
 w8a16_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                  const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
-                  int M, int N, int K) {
+                  const float* __restrict__ s, void* __restrict__ out,
+                  int M, int N, int K, int out_f32) {
   using C = Cfg<WG>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // The swizzle is a function of the address: every x tile starts on 1024 bytes.
@@ -315,7 +318,18 @@ w8a16_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       if (m >= M) continue;
       const float v0 = acc[4 * j + i] * s0;
       const float v1 = acc[4 * j + 2 + i] * s1;
-      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n;
+      const size_t at = static_cast<size_t>(m) * N + n;
+      if (out_f32) {  // uniform over the grid
+        float* o = static_cast<float*>(out) + at;
+        if (pair) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
+        }
+        continue;
+      }
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
       if (pair) {
         *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
       } else {
@@ -328,7 +342,7 @@ w8a16_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
 
 template <int WG, int BT, int MODE>
 int launch(const void* x, const void* q, const void* s, void* out, int M, int N,
-           int K, cudaStream_t st) {
+           int K, int out_f32, cudaStream_t st) {
   constexpr int smem = static_cast<int>(sizeof(Smem<WG, BT>)) + 1024;  // + alignment
   // Above 48 KB dynamic shared memory must be opted into (once per kernel).
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -352,17 +366,18 @@ int launch(const void* x, const void* q, const void* s, void* out, int M, int N,
   const dim3 grid((N + Cfg<WG>::BN - 1) / Cfg<WG>::BN, (M + BT - 1) / BT);
   w8a16_sm90_kernel<WG, BT, MODE><<<grid, Cfg<WG>::THREADS, smem, st>>>(xmap,
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out), M, N, K);
+      static_cast<const float*>(s), out, M, N, K, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int WG, int BT>
 int dispatch_mode(int mode, const void* x, const void* q, const void* s, void* out,
                   int M, int N, int K, cudaStream_t st) {
-  switch (mode) {
-    case 2: return launch<WG, BT, 2>(x, q, s, out, M, N, K, st);
-    case 1: return launch<WG, BT, 1>(x, q, s, out, M, N, K, st);
-    case 0: return launch<WG, BT, 0>(x, q, s, out, M, N, K, st);
+  const int out_f32 = (mode >> 2) & 1;
+  switch (mode & 3) {
+    case 2: return launch<WG, BT, 2>(x, q, s, out, M, N, K, out_f32, st);
+    case 1: return launch<WG, BT, 1>(x, q, s, out, M, N, K, out_f32, st);
+    case 0: return launch<WG, BT, 0>(x, q, s, out, M, N, K, out_f32, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -370,9 +385,10 @@ int dispatch_mode(int mode, const void* x, const void* q, const void* s, void* o
 }  // namespace
 
 // tile: 64 output channels per warpgroup times wg warpgroups (1 or 2), by
-// tile_m tokens (64, 128 or 160); mode: 2 = 16-byte copies of x and
-// q, 1 = 16-byte copies of x and 8-byte copies of q, 0 = element loads
-// (the wrapper's sm90_load_mode states when each applies).
+// tile_m tokens (64, 128 or 160); mode, bits 0-1: 2 = 16-byte copies of x
+// and q, 1 = 16-byte copies of x and 8-byte copies of q, 0 = element loads
+// (the wrapper's sm90_load_mode states when each applies); bit 2: out is
+// f32 (else bf16).
 extern "C" int w8a16_matmul_sm90(const void* x, const void* q, const void* s,
                                  void* out, int M, int N, int K, int wg, int tile_m,
                                  int mode, void* stream) {

@@ -25,10 +25,29 @@ timings and each cold bucket's build time to the process profile sink
 ``on_compile`` hook. None of them runs under the engine's lock or inside
 a timed phase.
 
-``shared_engine`` keeps one engine per model identity and batch policy per
-process, so the inference operator tasks of a topology share one copy of
-the weights on the card; its cache is bounded by a byte budget (85 % of
-the card's memory by default) that evicts only engines nothing else holds.
+``shared_engine`` keeps one engine per model identity, sharding and batch
+policy per process, so the inference operator tasks of a topology share
+one copy of the weights on the card; its cache is bounded by a byte
+budget (85 % of the card's memory by default) that evicts only engines
+nothing else holds.
+
+Sharded serving (``sharding_cfg``, ``mesh``; storm_tpu's
+``engine.py:400-538``): the engine is one rank of a mesh
+(``parallel/mesh.py``) of data parallelism times at most one of Megatron
+tensor parallelism (``tp``), ring-attention sequence parallelism (``sp``,
+a family with ``apply_sp``) and expert parallelism (``ep``, a MoE
+family). Its weights are quantized first, then sharded
+(``parallel/sharding.py``), and the module's row-parallel layers or MoE
+blocks get their collectives. storm_tpu's multi-process contract holds
+(``engine.py:437-454``, ``:965-980``): every rank feeds the same batches
+in the same order; the engine runs the serialized predict (pipeline depth
+0), each rank its rows (and its shard of the sequence) of the padded
+batch, and gathers the data axis's rows with one all-gather under its
+lock, so every rank returns the whole batch. gloo's collectives are host
+calls a CUDA graph cannot capture, so a multi-rank engine runs its forward
+eagerly and captures no graph; its tally counts the eager launches. A mesh
+of one rank (the default ``ShardingConfig()``) makes no process group and
+keeps the split-phase engine and its graphs.
 """
 
 from __future__ import annotations
@@ -47,12 +66,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from storm_tpu_torch.config import BatchConfig, ModelConfig
+from storm_tpu_torch.config import BatchConfig, ModelConfig, ShardingConfig
 from storm_tpu_torch.device import resolve_device
 from storm_tpu_torch.infer.graphs import BucketForward
-from storm_tpu_torch.models.convert import from_jax_params, init_params
+from storm_tpu_torch.models.convert import (
+    from_jax_params, init_params, prepared_nbytes, tree_leaves)
 from storm_tpu_torch.models.registry import check_checkpoint, load_checkpoint, model_def
 from storm_tpu_torch.obs import copyledger as _copyledger
+from storm_tpu_torch.parallel.mesh import make_mesh
 from storm_tpu_torch.resilience.chaos import get_injector
 from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES
 
@@ -403,27 +424,57 @@ def _forward_fn(model: torch.nn.Module, dtype: torch.dtype):
     return forward
 
 
+def _sharded_forward_fn(model: torch.nn.Module, dtype: torch.dtype, mesh, data_axis: str,
+                        seq_axis: Optional[str]):
+    """One rank's forward of a padded batch: its rows (and, with
+    ``seq_axis``, its shard of their sequence) through the model, the f32
+    softmax, and the data axis's rows gathered, so every rank returns the
+    whole batch."""
+    from storm_tpu_torch.parallel.collectives import all_gather
+    from storm_tpu_torch.parallel.sequence import shard_sequence
+    from storm_tpu_torch.parallel.sharding import shard_batch
+
+    def forward(x: torch.Tensor, scale: Optional[torch.Tensor],
+                offset: Optional[torch.Tensor]) -> torch.Tensor:
+        x = shard_batch(mesh, x, data_axis)
+        if scale is not None:
+            x = (x.float() * scale + offset).to(dtype)
+        if seq_axis is not None:
+            logits = model.forward_sp(shard_sequence(mesh, x, seq_axis), mesh, seq_axis)
+        else:
+            logits = model(x)
+        return all_gather(logits.float().softmax(dim=-1), mesh, data_axis)
+
+    return forward
+
+
 class InferenceEngine:
     """``params`` and ``state``: numpy trees in the JAX layout (e.g.
     carried from storm_tpu). With ``params`` None the engine loads
     ``model_cfg.checkpoint`` (an exported checkpoint, see
     :func:`storm_tpu_torch.models.registry.checkpoint_path`), or, without
-    one, initializes from ``model_cfg.seed``."""
+    one, initializes from ``model_cfg.seed``. ``sharding_cfg`` and
+    ``mesh``: this rank's place in a sharded engine (module docstring);
+    ``mesh`` None builds one from ``sharding_cfg`` (every rank of the
+    world calls, in one order)."""
 
     def __init__(self, model_cfg: ModelConfig,
                  batch_cfg: Optional[BatchConfig] = None, *,
-                 device=None, params=None, state=None) -> None:
+                 device=None, params=None, state=None,
+                 sharding_cfg: Optional[ShardingConfig] = None, mesh=None) -> None:
         if model_cfg.dtype not in DTYPES:
             raise ValueError(
                 f"model.dtype must be one of {sorted(DTYPES)}, got {model_cfg.dtype!r}")
         self.model_cfg = model_cfg
         self.batch_cfg = batch_cfg or BatchConfig()
+        self.sharding_cfg = sharding_cfg or ShardingConfig()
         self.device = resolve_device(device)
         self.dtype = DTYPES[model_cfg.dtype]
         self.num_classes = int(model_cfg.num_classes)
         self.model_def = model_def(model_cfg.name, num_classes=model_cfg.num_classes,
                                    input_shape=tuple(model_cfg.input_shape),
                                    **model_cfg.extra)
+        self._place(mesh)
         if params is None and model_cfg.checkpoint:
             params, state, meta = load_checkpoint(model_cfg.checkpoint)
             check_checkpoint(self.model_def, params, state, meta, model_cfg.checkpoint)
@@ -431,19 +482,28 @@ class InferenceEngine:
             params, state = init_params(self.model_def, model_cfg.seed)
         self.model = from_jax_params(params, self.model_def, state,
                                      weights=model_cfg.weights, dtype=self.dtype,
-                                     device=self.device)
+                                     device=self.device, shard=self._shard_params(params))
+        self._attach_collectives(params)
+        if self._full_param_bytes is not None:
+            self._full_param_bytes += sum(np.asarray(a, np.float32).nbytes
+                                          for a in tree_leaves(state or {}))
         self.wire_uint8 = model_cfg.transfer_dtype == "uint8"
         # The forward the buckets run; it holds the model, never the engine,
         # so the engine stays free of reference cycles (the cache finds
         # orphans by refcount).
-        self._forward = _forward_fn(self.model, self.dtype)
+        self._forward = (_sharded_forward_fn(self.model, self.dtype, self.mesh,
+                                             self.data_axis, "seq" if self.sp > 1 else None)
+                         if self.multirank else _forward_fn(self.model, self.dtype))
         # The dtype that crosses to the card: one byte a value on the
         # uint8 wire, else the compute dtype (half of f32 for bf16).
         self.wire_dtype = torch.uint8 if self.wire_uint8 else self.dtype
         self._lock = threading.Lock()
         cuda = self.device.type == "cuda"
-        # Split-phase pipeline state (see dispatch / _fetch_loop).
-        self.pipeline_depth = max(0, int(self.batch_cfg.pipeline_depth))
+        # Split-phase pipeline state (see dispatch / _fetch_loop). A
+        # multi-rank engine serializes: its collectives must be issued in
+        # one order on every rank, end to end under the lock.
+        self.pipeline_depth = 0 if self.multirank else max(
+            0, int(self.batch_cfg.pipeline_depth))
         pool = int(self.batch_cfg.staging_pool) or self.pipeline_depth + 1
         self._staging = StagingPool(pool, pin=cuda)
         self._ring: Optional[threading.Semaphore] = (
@@ -484,6 +544,92 @@ class InferenceEngine:
         self.forwards = 0
         self._tally: Counter = Counter()
 
+    # ---- sharding ----------------------------------------------------------------
+
+    def _place(self, mesh) -> None:
+        """storm_tpu's checks (``engine.py:400-429``), then this rank's
+        mesh: tp, sp and ep are mutually exclusive; sp needs ``apply_sp``
+        and a sequence that divides; at most one of them sizes the second
+        axis."""
+        cfg, name = self.sharding_cfg, self.model_cfg.name
+        self.sp = int(cfg.sequence_parallel)
+        self.ep = int(cfg.expert_parallel)
+        tp_req = int(cfg.tensor_parallel)
+        if sum(n > 1 for n in (tp_req, self.sp, self.ep)) > 1:
+            raise ValueError("tensor_parallel, sequence_parallel, and expert_parallel "
+                             "are mutually exclusive for serving")
+        if self.sp > 1:
+            if self.model_def.apply_sp is None:
+                raise ValueError(f"model {name!r} has no apply_sp; sequence_parallel > 1 "
+                                 f"needs an SP-aware family (e.g. longseq_encoder)")
+            if self.model_def.input_shape[0] % self.sp:
+                raise ValueError(f"sequence {self.model_def.input_shape[0]} not divisible "
+                                 f"by sequence_parallel={self.sp}")
+        axis2, size2 = ("seq", self.sp) if self.sp > 1 else (
+            ("expert", self.ep) if self.ep > 1 else (None, tp_req))
+        names = ("data", axis2) if axis2 else tuple(cfg.axis_names)
+        if mesh is None:
+            mesh = make_mesh(cfg.data_parallel, size2, names, device=self.device)
+        elif mesh.device is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the engine's "
+                             f"{self.device}")
+        for axis, n in (("seq", self.sp), ("expert", self.ep)):
+            if n > 1 and mesh.shape.get(axis) != n:
+                raise ValueError(f"{axis} axis of {n} ranks wanted, the mesh has {mesh.shape}")
+        self.mesh = mesh
+        self.data_axis = "data" if axis2 else cfg.axis_names[0]
+        self.model_axis = cfg.axis_names[1] if len(cfg.axis_names) > 1 else "model"
+        self.tp = int(mesh.shape.get(self.model_axis, 1))
+        self.multirank = mesh.size > 1
+        heads = self.model_def.hyper.get("num_heads")
+        if self.tp > 1 and heads and heads % self.tp:
+            raise ValueError(f"{heads} heads do not divide over tensor_parallel={self.tp}")
+
+    def _shard_params(self, params):
+        """The numpy tree -> this rank's shard (None: unsharded), keeping
+        the whole quantized tree's bytes as :meth:`param_bytes`. storm_tpu
+        refuses an expert mesh over a model without (divisible) experts
+        (``engine.py:479-505``), and so does this."""
+        from storm_tpu_torch.parallel.sharding import (
+            expert_dims, shard_params_ep, shard_params_tp)
+
+        self._full_param_bytes = None
+        if self.ep > 1:
+            dims = expert_dims(params)
+            if not dims:
+                raise ValueError(f"model {self.model_cfg.name!r} has no MoE params; "
+                                 f"expert_parallel > 1 needs an MoE family (e.g. moe_vit_tiny)")
+            if any(e % self.ep for e in dims):
+                raise ValueError(f"n_experts {set(dims)} not divisible by "
+                                 f"expert_parallel={self.ep}")
+            place = lambda t: shard_params_ep(self.mesh, t, "expert")  # noqa: E731
+        elif self.tp > 1:
+            place = lambda t: shard_params_tp(self.mesh, t, self.model_axis)  # noqa: E731
+        else:
+            return None
+
+        def shard(tree):
+            self._full_param_bytes = prepared_nbytes(tree, self.model_cfg.weights,
+                                                     self.dtype)
+            return place(tree)
+
+        return shard
+
+    def _attach_collectives(self, params) -> None:
+        """The row-parallel reduces of a TP shard, the expert shard of each
+        MoE block under EP."""
+        if self.tp > 1:
+            from storm_tpu_torch.parallel.sharding import attach_tp
+
+            attach_tp(self.model, self.mesh, params, self.model_axis)
+        if self.ep > 1:
+            from storm_tpu_torch.parallel.moe import ExpertShard
+
+            shard = ExpertShard(self.mesh, "expert", self.data_axis)
+            for m in self.model.modules():
+                if hasattr(m, "shard") and hasattr(m, "w_in"):
+                    m.shard = shard
+
     # ---- occupancy telemetry -------------------------------------------------
 
     @property
@@ -516,20 +662,27 @@ class InferenceEngine:
     # ---- memory accounting ---------------------------------------------------
 
     def param_bytes(self) -> int:
-        """Device bytes held by the weights and state."""
-        return sum(b.numel() * b.element_size() for b in self.model.buffers())
+        """Device bytes of the whole model's weights and state (on a
+        sharded engine: of every rank's shards together)."""
+        if self._full_param_bytes is not None:
+            return self._full_param_bytes
+        return self.param_bytes_per_device()
 
     def param_bytes_per_device(self) -> int:
-        """The weights' bytes on the one device that holds them all (the
-        cache's budget is per device)."""
-        return self.param_bytes()
+        """The bytes this rank holds on its device (all of them on one
+        rank; the cache's budget is per device)."""
+        return sum(b.numel() * b.element_size() for b in self.model.buffers())
 
     # ---- shape management ----------------------------------------------------
 
     def pad_batch(self, n: int) -> int:
         """The bucket a batch of ``n`` pads to; a batch larger than
-        ``max_batch`` keeps its own size (a bucket of its own)."""
-        return max(n, self.batch_cfg.bucket_for(n))
+        ``max_batch`` keeps its own size (a bucket of its own). Every
+        bucket divides over the data axis (rounded up to a multiple of its
+        ranks)."""
+        dp = self.mesh.shape[self.data_axis]
+        b = max(n, self.batch_cfg.bucket_for(n))
+        return max(dp, -(-b // dp) * dp)
 
     def warmup(self, buckets: Optional[Tuple[int, ...]] = None) -> None:
         """Build each bucket before traffic arrives: its eager forward
@@ -578,9 +731,9 @@ class InferenceEngine:
         bucket = BucketForward(
             self._forward, padded, self.input_shape, self.wire_dtype, self.num_classes,
             self.device, self.ring_capacity, wire=self.wire_uint8, streams=self._streams,
-            pool=self._graph_pool)
+            pool=self._graph_pool, capture=not self.multirank)
         counts = bucket.build()
-        if cuda:
+        if counts is not None:
             self._note_forward(counts)
             peak = torch.cuda.max_memory_allocated(self.device) - base
             self.graph_pool_bytes = max(self.graph_pool_bytes, peak)
@@ -601,7 +754,7 @@ class InferenceEngine:
         computed, done, counts = bucket.run(
             slot, host_in, host_out, None if scale is None else float(scale),
             None if offset is None else float(offset), eager=eager)
-        self._note_forward(counts if eager or not bucket.cuda else bucket.launches)
+        self._note_forward(counts if eager or bucket.graph is None else bucket.launches)
         return _DeviceResult(host_out, computed, done)
 
     # ---- the hot call --------------------------------------------------------
@@ -869,16 +1022,21 @@ def _freeze(v):
 
 
 def shared_engine(model_cfg: ModelConfig, batch_cfg: Optional[BatchConfig] = None,
-                  *, device=None) -> InferenceEngine:
-    """One engine per (model identity, batch policy, device) per process:
-    operator tasks share one copy of the weights on the device. The
-    engine is built outside the cache's lock; concurrent requests for one
-    key build once and wait on that build."""
+                  *, device=None, sharding_cfg: Optional[ShardingConfig] = None
+                  ) -> InferenceEngine:
+    """One engine per (model identity, sharding, batch policy, device) per
+    process: operator tasks share one copy of the weights on the device.
+    The engine is built outside the cache's lock; concurrent requests for
+    one key build once and wait on that build. ``sharding_cfg`` None is
+    the default ``ShardingConfig()`` (one key for both)."""
     dev = resolve_device(device)
+    sh = sharding_cfg or ShardingConfig()
     key = (model_cfg.name, model_cfg.dtype, model_cfg.transfer_dtype,
            tuple(model_cfg.input_shape), model_cfg.num_classes,
            model_cfg.checkpoint, model_cfg.seed, model_cfg.weights,
            _freeze(model_cfg.extra),
+           (sh.data_parallel, sh.tensor_parallel, sh.sequence_parallel,
+            sh.expert_parallel),
            # the batch policy is part of the identity: buckets, ring and
            # pool are the engine's
            (batch_cfg.max_batch, tuple(batch_cfg.buckets), batch_cfg.pipeline_depth,
@@ -899,7 +1057,7 @@ def shared_engine(model_cfg: ModelConfig, batch_cfg: Optional[BatchConfig] = Non
     # completion still pops the _BUILDS entry and resolves the future.
     engine = None
     try:
-        engine = InferenceEngine(model_cfg, batch_cfg, device=dev)
+        engine = InferenceEngine(model_cfg, batch_cfg, device=dev, sharding_cfg=sharding_cfg)
         if _insert_would_exceed_budget(engine):
             # Outside the lock: an engine held only by a reference cycle
             # looks referenced until the collector runs, and finalizers may

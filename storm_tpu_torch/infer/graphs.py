@@ -23,7 +23,10 @@ the compute stream runs replay and output copy in order, N+1's replay
 cannot overwrite N's output before N's copy has read it.
 
 On the CPU there is no graph: the same buffers and copies run, with the
-eager forward writing the static output in place of a replay.
+eager forward writing the static output in place of a replay. Nor is
+there one on the card for a forward built with ``capture=False`` (a
+multi-rank engine's, whose collectives run on the host): each batch runs
+it eagerly on the compute stream.
 """
 
 from __future__ import annotations
@@ -50,15 +53,18 @@ class BucketForward:
     None without the uint8 wire), to (padded, ``classes``) f32. ``slots``:
     the ring slots, each with its own device input buffer. ``streams``: (compute, copy) CUDA streams,
     None on the CPU. ``pool``: the engine's graph memory pool, shared by
-    all its buckets (their replays never overlap: one compute stream)."""
+    all its buckets (their replays never overlap: one compute stream).
+    ``capture``: False runs every batch eagerly, with no graph."""
 
     def __init__(self, forward: Callable, padded: int, input_shape: Tuple[int, ...],
                  wire_dtype: torch.dtype, classes: int, device: torch.device, slots: int,
-                 *, wire: bool, streams: Optional[Tuple] = None, pool=None) -> None:
+                 *, wire: bool, streams: Optional[Tuple] = None, pool=None,
+                 capture: bool = True) -> None:
         self.forward = forward
         self.padded = padded
         self.device = device
         self.cuda = device.type == "cuda"
+        self.capture = capture
         shape = (padded, *input_shape)
         self.static_in = torch.zeros(shape, dtype=wire_dtype, device=device)
         self.slot_in: List[torch.Tensor] = [
@@ -92,14 +98,19 @@ class BucketForward:
         first (it builds the kernels, sets their attributes and lets the
         libraries pick their algorithms), then the capture, in
         ``thread_local`` mode so another thread's calls cannot invalidate
-        it. A failed capture raises: there is no eager fallback."""
+        it. A failed capture raises: there is no eager fallback. Without
+        ``capture`` nothing is built (None), once the streams are ordered
+        after the buffers' zeroing."""
         if not self.cuda:
             return None
+        compute, copy = self._streams
+        # The buffers were zeroed on the current stream: a batch's copy into
+        # a slot on the copy stream must not race that zeroing.
+        compute.wait_stream(torch.cuda.current_stream(self.device))
+        copy.wait_stream(torch.cuda.current_stream(self.device))
+        if not self.capture:
+            return None
         with torch.inference_mode(), _build.record_launches() as eager_counts:
-            compute, copy = self._streams
-            # The buffers were zeroed on the current stream.
-            compute.wait_stream(torch.cuda.current_stream(self.device))
-            copy.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(compute):
                 self._eager()
             compute.synchronize()
@@ -124,6 +135,7 @@ class BucketForward:
         the kernel launches of an eager forward (``eager=True``, the
         reference a replay is held to, or any forward on the CPU)."""
         counts: Counter = Counter()
+        eager = eager or self.graph is None
         if not self.cuda:
             self.slot_in[slot].copy_(host_in)
             self.static_in.copy_(self.slot_in[slot])

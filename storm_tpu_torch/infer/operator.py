@@ -104,7 +104,7 @@ from storm_tpu_torch.api.schema import (
     DeadLetter, Overloaded, SchemaError, decode_instances, encode_predictions)
 from storm_tpu_torch.cascade.policy import CascadeConfig
 from storm_tpu_torch.cascade.router import CascadeRouter, Escalated
-from storm_tpu_torch.config import BatchConfig, ModelConfig, QosConfig
+from storm_tpu_torch.config import BatchConfig, ModelConfig, QosConfig, ShardingConfig
 from storm_tpu_torch.infer.batcher import Batch, MicroBatcher
 from storm_tpu_torch.infer.continuous import continuous_for
 from storm_tpu_torch.infer.engine import shared_engine
@@ -215,15 +215,22 @@ class InferenceBolt(Bolt):
     shared one (e.g. a ``NullEngine``); ``warmup=False`` skips building
     the buckets before traffic. ``passthrough``: input fields copied onto
     every output tuple. ``qos``: a ``QosConfig`` (on when enabled).
-    ``cascade``: a ``CascadeConfig`` (on when enabled)."""
+    ``cascade``: a ``CascadeConfig`` (on when enabled). ``sharding``: the
+    ``ShardingConfig`` of every engine the task takes from
+    ``shared_engine`` (storm_tpu's ``sharding``; the default is one rank).
+    A sharded engine's ranks each run one such task, fed the same records
+    in the same order (the multi-process contract of
+    ``infer/engine.py``)."""
 
     def __init__(self, model: Optional[ModelConfig] = None,
                  batch: Optional[BatchConfig] = None, device=None,
                  engine=None, warmup: bool = True, passthrough: Sequence[str] = (),
                  qos: Optional[QosConfig] = None,
-                 cascade: Optional[CascadeConfig] = None) -> None:
+                 cascade: Optional[CascadeConfig] = None,
+                 sharding: Optional[ShardingConfig] = None) -> None:
         self.model_cfg = model or ModelConfig()
         self.batch_cfg = batch or BatchConfig()
+        self.sharding_cfg = sharding or ShardingConfig()
         self.device = device
         self._engine = engine
         self._warmup = warmup
@@ -234,7 +241,7 @@ class InferenceBolt(Bolt):
     def clone(self) -> "InferenceBolt":
         return InferenceBolt(self.model_cfg, self.batch_cfg, self.device,
                              self._engine, self._warmup, self.passthrough, self.qos,
-                             self.cascade)
+                             self.cascade, self.sharding_cfg)
 
     def declare_output_fields(self):
         fields = ("message",) + self.passthrough
@@ -245,7 +252,8 @@ class InferenceBolt(Bolt):
         return [t.get(f, None) for f in self.passthrough]
 
     def _shared_engine(self, model_cfg: Optional[ModelConfig] = None):
-        return shared_engine(model_cfg or self.model_cfg, self.batch_cfg, device=self.device)
+        return shared_engine(model_cfg or self.model_cfg, self.batch_cfg, device=self.device,
+                             sharding_cfg=self.sharding_cfg)
 
     def prewarm(self) -> None:
         """Build and warm the engine (and a cascade's tier engines), and
@@ -490,7 +498,8 @@ class InferenceBolt(Bolt):
         and replay records still in this task's batcher."""
 
         def build():
-            eng = shared_engine(model_cfg, self.batch_cfg, device=self.device)
+            eng = shared_engine(model_cfg, self.batch_cfg, device=self.device,
+                                sharding_cfg=self.sharding_cfg)
             self._hook_compile(eng)
             if self._warmup:
                 eng.warmup()

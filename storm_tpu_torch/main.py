@@ -84,6 +84,7 @@ def build_standard_topology(cfg: Config, broker, *, input_topic: Optional[str] =
     qos = cfg.qos if cfg.qos.enabled else None
     cascade = cfg.cascade if cfg.cascade.enabled else None
     bolt = InferenceBolt(cfg.model, cfg.batch, device=device, engine=engine, qos=qos,
+                         sharding=cfg.sharding,
                          cascade=cascade, passthrough=("qos_lane",) if qos else ())
     return _build(cfg, broker, bolt, input_topic, output_topic, dead_letter_topic)
 
@@ -103,5 +104,6 @@ def build_null_engine_topology(cfg: Config, broker, *, input_topic: Optional[str
     cascade = cfg.cascade if cfg.cascade.enabled else None
     engine = NullEngine(cfg.model.input_shape, cfg.model.num_classes)
     bolt = InferenceBolt(cfg.model, cfg.batch, engine=engine, warmup=False, qos=qos,
+                         sharding=cfg.sharding,
                          cascade=cascade, passthrough=("qos_lane",) if qos else ())
     return _build(cfg, broker, bolt, input_topic, output_topic, dead_letter_topic)

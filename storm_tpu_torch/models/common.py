@@ -24,7 +24,12 @@ from storm_tpu_torch.ops import layers as L
 
 
 class Dense(nn.Module):
-    """``{"w": (in, out) float | {"__q": int8, "__s": f32}, "b"}``."""
+    """``{"w": (in, out) float | {"__q": int8, "__s": f32}, "b"}``.
+
+    ``reduce``: None, or, for a row-parallel layer under tensor
+    parallelism (``parallel/sharding.py:attach_tp``), the sum of its
+    partial products over the model axis; :meth:`params` then carries it
+    to ``ops.layers.dense``."""
 
     def __init__(self, p: dict) -> None:
         super().__init__()
@@ -36,9 +41,12 @@ class Dense(nn.Module):
         else:
             self.register_buffer("w", w)
         self.register_buffer("b", p["b"])
+        self.reduce = None
 
     def params(self) -> dict:
         w = {"__q": self.q, "__s": self.s} if self.quantized else self.w
+        if self.reduce is not None:
+            return {"w": w, "b": self.b, "reduce": self.reduce}
         return {"w": w, "b": self.b}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -86,9 +86,11 @@ def dequantize_params(qparams, dtype: torch.dtype, keep_dense: bool = False):
     return _map(deq, qparams)
 
 
-def prepare_params(params, weights: str, dtype: torch.dtype):
+def prepare_params(params, weights: str, dtype: torch.dtype, shard=None):
     """Numpy float32 tree (JAX layout) -> the tensor tree a module is
-    built from, for ``weights``:
+    built from, for ``weights`` (``shard``, if given, maps the numpy tree
+    to this rank's shard of it after quantization and before anything
+    becomes a tensor: ``parallel/sharding.py``):
 
     - "float": every leaf cast to the compute dtype;
     - "int8": every float leaf of rank >= 2 (dense and convolution
@@ -101,12 +103,34 @@ def prepare_params(params, weights: str, dtype: torch.dtype):
     if weights not in ("float", "int8", "int8_fused"):
         raise ValueError(f"weights must be float|int8|int8_fused, got {weights!r}")
 
+    shard = shard or (lambda tree: tree)
     f32 = _map(lambda leaf, _p: np.asarray(leaf, np.float32), params)
     if weights == "float":
-        return _map(lambda leaf, _p: _tensor(leaf, dtype), f32)
-    tree = dequantize_params(quantize_params(f32), dtype,
+        return _map(lambda leaf, _p: _tensor(leaf, dtype), shard(f32))
+    tree = dequantize_params(shard(quantize_params(f32)), dtype,
                              keep_dense=weights == "int8_fused")
     return _map(lambda t, _p: t if _is_qleaf(t) else t.to(dtype), tree)
+
+
+def prepared_nbytes(tree, weights: str, dtype: torch.dtype) -> int:
+    """The bytes :func:`prepare_params` makes of ``tree`` (its numpy tree
+    as ``shard`` receives it: quantized unless ``weights`` is "float"),
+    counted without building a tensor."""
+    size = torch.empty((), dtype=dtype).element_size()
+    keep_dense = weights == "int8_fused"
+    total = 0
+
+    def count(leaf, path):
+        nonlocal total
+        if not _is_qleaf(leaf):
+            total += np.asarray(leaf).size * size
+        elif keep_dense and leaf["__q"].ndim == 2 and path and path[-1] == "w":
+            total += leaf["__q"].size + leaf["__s"].size * 4
+        else:
+            total += leaf["__q"].size * size
+
+    _map(count, tree)
+    return total
 
 
 def prepare_state(state):
@@ -117,13 +141,14 @@ def prepare_state(state):
 
 def from_jax_params(params, model: ModelDef, state=None, *, weights: str = "float",
                     dtype: torch.dtype = torch.float32,
-                    device=None) -> nn.Module:
+                    device=None, shard=None) -> nn.Module:
     """Build ``model``'s module from numpy ``params`` and ``state`` trees
     in the JAX layout (``jax.tree.map(np.asarray, ...)`` of storm_tpu's,
     or :func:`storm_tpu_torch.models.registry.load_checkpoint`'s) on
-    ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU)."""
+    ``device`` (default ``cuda``; pass ``"cpu"`` for the CPU); with
+    ``shard``, from this rank's shard of them (:func:`prepare_params`)."""
     dev = resolve_device(device)
-    module = model.make(prepare_params(params, weights, dtype), prepare_state(state))
+    module = model.make(prepare_params(params, weights, dtype, shard), prepare_state(state))
     return module.eval().to(dev)
 
 

@@ -10,9 +10,15 @@ the card every block runs the flash kernel at S = seq and the fused norm
 at the model width, and under ``int8_fused`` each dense layer (the
 embedding and head included) the w8a16 kernel. Stateless.
 
-storm_tpu's ``apply_sp`` (the sequence-parallel forward on the ring
-attention of ``parallel/sequence.py``) is not ported: it waits for the
-parallel paths.
+``apply_sp`` (``LongSeq.forward_sp``) is storm_tpu's sequence-parallel
+forward (``storm_tpu/models/longseq.py:66-78``): this rank's shard of the
+sequence through the embedding and its slice of the position embedding,
+the encoder of ``parallel/sequence.py`` (plain LayerNorms and ring
+attention, no flash kernel and no fused norm, as storm_tpu's), the final
+LayerNorm, the sequence mean as a sum over the shard reduced over the
+sequence axis (GSPMD inserts that reduce in storm_tpu), and the head on
+every rank. Under ``int8_fused`` each dense layer still runs the w8a16
+kernel, at S / sp rows.
 """
 
 from __future__ import annotations
@@ -24,11 +30,14 @@ from torch import nn
 from storm_tpu_torch.models.common import Dense, LayerNorm, dense_init, ln_init, normal
 from storm_tpu_torch.models.registry import ModelDef, register
 from storm_tpu_torch.models.vit import Block
+from storm_tpu_torch.parallel.collectives import all_reduce
+from storm_tpu_torch.parallel.sequence import seq_parallel_encoder
 
 
 class LongSeq(nn.Module):
     def __init__(self, p: dict, *, num_heads: int, **_hyper) -> None:
         super().__init__()
+        self.num_heads = num_heads
         self.embed = Dense(p["embed"])
         self.register_buffer("pos", p["pos"])
         self.blocks = nn.ModuleList(Block(bp, num_heads) for bp in p["blocks"])
@@ -43,6 +52,21 @@ class LongSeq(nn.Module):
         h = self.ln(h)
         # The mean over the sequence, accumulated in f32 (jnp.mean's upcast).
         h = h.float().mean(dim=1).to(h.dtype)
+        return self.head(h)
+
+    def forward_sp(self, x: torch.Tensor, mesh, seq_axis: str = "seq") -> torch.Tensor:
+        """This rank's (B, S / sp, F) shard of the sequence (the ranks of
+        ``seq_axis`` hold it in order) -> the (B, num_classes) logits, the
+        same on every rank of the axis."""
+        n, i = mesh.shape[seq_axis], mesh.coord(seq_axis)
+        s = x.shape[1]
+        h = self.embed(x) + self.pos[:, i * s:(i + 1) * s].to(x.dtype)
+        h = seq_parallel_encoder([blk.params() for blk in self.blocks], h, self.num_heads,
+                                 mesh, seq_axis)
+        h = self.ln(h)
+        # The mean over the whole sequence in f32: the shard's sum, summed
+        # over the axis.
+        h = (all_reduce(h.float().sum(dim=1), mesh, seq_axis) / (s * n)).to(h.dtype)
         return self.head(h)
 
 
@@ -70,8 +94,18 @@ def build_longseq(name: str, num_classes: int, input_shape: tuple, dim: int,
         }
         return params, {}
 
+    def apply_sp(params, state, x: torch.Tensor, mesh, seq_axis: str = "seq",
+                 train: bool = False):
+        """storm_tpu's ``apply_sp``: ``(logits, state)`` of the module built
+        from the tensor trees, on this rank's shard ``x`` of the sequence
+        (:meth:`LongSeq.forward_sp`)."""
+        if train:
+            raise NotImplementedError("sequence-parallel training is not ported")
+        return LongSeq(params, **hyper).forward_sp(x, mesh, seq_axis), state
+
     return ModelDef(name, tuple(input_shape), num_classes, init,
-                    lambda params, _state: LongSeq(params, **hyper), hyper)
+                    lambda params, _state: LongSeq(params, **hyper), hyper,
+                    apply_sp=apply_sp)
 
 
 @register("longseq_encoder")

@@ -1,7 +1,8 @@
 """MoE-ViT, the counterpart of ``storm_tpu/models/moe_vit.py``: the ViT of
 ``models/vit.py`` whose odd blocks (1, 3, ...) carry a top-1
 mixture-of-experts MLP in place of the dense one (the Switch
-placement), served at one expert shard (``storm_tpu_torch.parallel.moe``).
+placement), served at one expert shard or with its experts split over the
+ranks of an ``expert`` mesh axis (``storm_tpu_torch.parallel.moe``).
 
 At inference the router still runs, capacity-overflowed tokens pass
 through the residual, and the load-balancing loss is not computed; in
@@ -22,16 +23,16 @@ from torch import nn
 from storm_tpu_torch.models.common import LayerNorm, dense_init, ln_init, normal
 from storm_tpu_torch.models.registry import ModelDef, register
 from storm_tpu_torch.models.vit import Block, MultiHeadAttention, ViT, vit_init
-from storm_tpu_torch.parallel.moe import moe_block
-
-MOE_KEYS = ("gate", "w_in", "b_in", "w_out", "b_out")
+from storm_tpu_torch.parallel.moe import MOE_KEYS, moe_block
 # storm_tpu's moe_layer default: the Switch load-balancing loss's weight.
 AUX_LOSS_WEIGHT = 1e-2
 
 
 class MoEBlock(nn.Module):
     """``x + MHA(LN1(x))``, then ``+ MoE(LN2(.))``
-    (``storm_tpu_torch.parallel.moe.moe_block``)."""
+    (``storm_tpu_torch.parallel.moe.moe_block``). ``shard``: None, or under
+    expert parallelism the block's :class:`~storm_tpu_torch.parallel.moe.ExpertShard`
+    (its buffers then hold this rank's experts)."""
 
     def __init__(self, p: dict, num_heads: int, capacity_factor: float) -> None:
         super().__init__()
@@ -43,13 +44,14 @@ class MoEBlock(nn.Module):
         for k in MOE_KEYS:
             self.register_buffer(k, p["moe"][k])
         self.aux_loss = None
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = {"ln1": self.ln1.params(), "ln2": self.ln2.params(),
              "attn": {n: getattr(self.attn, n).params() for n in "qkvo"},
              "moe": {k: getattr(self, k) for k in MOE_KEYS}}
         x, aux = moe_block(p, x, self.num_heads, self.capacity_factor,
-                           AUX_LOSS_WEIGHT if self.training else None)
+                           AUX_LOSS_WEIGHT if self.training else None, self.shard)
         if self.training:
             self.aux_loss = aux
         return x

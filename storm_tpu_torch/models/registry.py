@@ -52,6 +52,11 @@ class ModelDef:
     init: Callable[[np.random.RandomState], Tuple[Any, Any]]
     make: Callable[[Any, Any], nn.Module]
     hyper: Dict[str, Any]
+    # ``apply_sp(params, state, x, mesh, seq_axis="seq", train=False)``:
+    # the sequence-parallel forward on this rank's shard of the sequence,
+    # for the families that have one (longseq); its module serves it as
+    # ``forward_sp(x, mesh, seq_axis)``.
+    apply_sp: Optional[Callable] = None
 
     def apply(self, params, state, x: torch.Tensor, train: bool = False):
         """``(logits, new_state)``: :func:`storm_tpu_torch.models.convert.apply`."""

@@ -7,6 +7,13 @@ the compute dtype; pre-LN blocks whose second LayerNorm is fused with the
 residual add; classification from token 0 after the final LayerNorm.
 Dense layers whose weights are int8 run the w8a16 kernel, attention runs
 the flash kernel and the fused norm its kernel (on CUDA tensors).
+
+Under Megatron tensor parallelism (``parallel/sharding.py``) a rank's
+block holds the column-parallel q, k, v and mlp_in shards and the
+row-parallel o and mlp_out ones: its attention runs H / tp heads through
+the flash kernel, and the row-parallel outputs are summed over the model
+axis before the residual (``ops/layers.py:dense``), the bias added once
+after the sum.
 """
 
 from __future__ import annotations
@@ -46,7 +53,16 @@ class Block(nn.Module):
         self.mlp_in = Dense(p["mlp_in"])
         self.mlp_out = Dense(p["mlp_out"])
 
+    def params(self) -> dict:
+        """The block's parameter dict (storm_tpu's block layout)."""
+        return {"ln1": self.ln1.params(), "ln2": self.ln2.params(),
+                "attn": {n: getattr(self.attn, n).params() for n in "qkvo"},
+                "mlp_in": self.mlp_in.params(), "mlp_out": self.mlp_out.params()}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Under tensor parallelism attn and the MLP's output are reduced
+        # over the model axis inside their row-parallel dense layers, so
+        # the fused norm runs at full width on every rank.
         attn = self.attn(self.ln1(x))
         y, n2 = residual_layernorm(self.ln2.params(), attn, x)
         return y + self.mlp_out(L.gelu(self.mlp_in(n2)))

@@ -188,7 +188,8 @@ KERNELS: Dict[str, Kernel] = {
     k.name: k for k in (
         # (dtype, x, q, s, out, M, N, K, stream)
         Kernel("w8a16_matmul", "w8a16_matmul.cu", [I, P, P, P, P, I, I, I, P]),
-        # (x, q, s, out, M, N, K, warpgroups, tile_m, load_mode, stream)
+        # (x, q, s, out, M, N, K, warpgroups, tile_m, load mode | 4 for an f32
+        #  out, stream)
         # (links the driver library for cuTensorMapEncodeTiled)
         Kernel("w8a16_matmul_sm90", "w8a16_matmul_sm90.cu",
                [P, P, P, P, I, I, I, I, I, I, P], libs=("-lcuda",)),

@@ -35,16 +35,23 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def multi_head_attention(p: dict, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Self-attention over (B, S, C) activations; ``p`` holds the q, k, v
     and o dense layers. Heads split as ``reshape(b, s, h, d)`` then
-    ``(0, 2, 1, 3)``, made contiguous for the kernel, and merge back."""
+    ``(0, 2, 1, 3)``, made contiguous for the kernel, and merge back.
+
+    Under tensor parallelism q, k and v are column-parallel: this rank's
+    projections hold ``h = num_heads / tp`` of the heads (their width
+    says how many), which run through the kernel alone, and o, row-
+    parallel, sums its partial products over the model axis."""
     b, s, c = x.shape
     d = c // num_heads
+    q = dense(p["q"], x)
+    h = q.shape[-1] // d
 
     def split(y: torch.Tensor) -> torch.Tensor:
-        return y.reshape(b, s, num_heads, d).transpose(1, 2).contiguous()
+        return y.reshape(b, s, h, d).transpose(1, 2).contiguous()
 
-    q = split(dense(p["q"], x))
+    q = split(q)
     k = split(dense(p["k"], x))
     v = split(dense(p["v"], x))
     out = scaled_dot_attention(q, k, v)
-    out = out.transpose(1, 2).reshape(b, s, c)
+    out = out.transpose(1, 2).reshape(b, s, h * d)
     return dense(p["o"], out)

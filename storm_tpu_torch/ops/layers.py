@@ -17,12 +17,19 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from storm_tpu_torch.ops.quant_matmul import qdense
+from storm_tpu_torch.ops.quant_matmul import qdense, w8a16_matmul
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ w + b``: accumulated in f32, cast to x.dtype, then the bias
     added in x.dtype (``jnp.dot(..., preferred_element_type=float32)``).
+
+    A row-parallel layer under tensor parallelism carries ``p["reduce"]``
+    (``models/common.py:Dense``): this rank holds a slice of w's rows and
+    x's matching columns, so its product is a partial sum, kept in f32
+    (:func:`dense_partial`), summed over the model axis by ``reduce``,
+    then cast, and the bias, which every rank holds whole, added once.
+    The one-rank layer rounds the same f32 sum; only its order differs.
 
     On a CUDA tensor that is one GEMM in x.dtype, which cuBLAS accumulates
     in f32 for bf16 as long as
@@ -33,11 +40,23 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     operands are cast to f32 first: its bf16 GEMM is not shown to
     accumulate in f32."""
     w = p["w"]
+    reduce = p.get("reduce")
+    if reduce is not None:
+        return reduce(dense_partial(w, x)).to(x.dtype) + p["b"]
     if isinstance(w, dict):
         return qdense(p, x)
     if x.is_cuda and w.dtype == x.dtype:
         return torch.matmul(x, w) + p["b"]
     return torch.matmul(x.float(), w.float()).to(x.dtype) + p["b"]
+
+
+def dense_partial(w, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32, unrounded and without the bias: int8 weights
+    through the w8a16 kernel's f32 output, float ones as an f32 product
+    (exact products of bf16 operands, as the one-rank GEMM forms them)."""
+    if isinstance(w, dict):
+        return w8a16_matmul(x, w["__q"], w["__s"], out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float())
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:

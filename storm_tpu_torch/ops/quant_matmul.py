@@ -59,6 +59,10 @@ def sm90_tile(m: int, n: int) -> tuple:
     return wg, tile_m
 
 
+# Bit 2 of the tensor-core kernel's mode argument: an f32 output.
+SM90_OUT_F32 = 4
+
+
 def sm90_load_mode(k: int, n: int, x_ptr: int, q_ptr: int) -> int:
     """How the tensor-core kernel copies its tiles: 2 = x by TMA and q in
     16-byte asynchronous copies, 1 = x by TMA and q in 8-byte copies (the
@@ -72,12 +76,12 @@ def sm90_load_mode(k: int, n: int, x_ptr: int, q_ptr: int) -> int:
     return 0
 
 
-def w8a16_matmul_reference(x: torch.Tensor, q: torch.Tensor,
-                           s: torch.Tensor) -> torch.Tensor:
+def w8a16_matmul_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: f32 product of the int8 weights, times the f32
-    scale on the accumulator, cast to x.dtype."""
+    scale on the accumulator, cast to ``out_dtype`` (default x.dtype)."""
     acc = torch.matmul(x.float(), q.float())
-    return (acc * s.float()).to(x.dtype)
+    return (acc * s.float()).to(out_dtype or x.dtype)
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
@@ -92,13 +96,21 @@ def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
 
 
 def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                 variant: Optional[str] = None) -> torch.Tensor:
+                 variant: Optional[str] = None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``(x @ q) * s`` in x.dtype; leading dims of x flatten to M.
     ``variant`` names the CUDA kernel to launch instead of the one
-    :func:`kernel_variant` picks (for timing one against the other)."""
+    :func:`kernel_variant` picks (for timing one against the other).
+    ``out_dtype=torch.float32`` keeps the scaled f32 accumulator
+    unrounded (a row-parallel partial product, summed across ranks
+    before it is cast): the tensor-core kernel's f32 epilogue for bf16
+    activations, the f32 kernel's own output for f32 ones."""
     _check(x, q, s)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"w8a16_matmul writes x.dtype or float32, not {out_dtype}")
     if not route("w8a16_matmul", x, q, s):
-        return w8a16_matmul_reference(x, q, s)
+        return w8a16_matmul_reference(x, q, s, out_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, s)):
         raise RuntimeError(
             "w8a16_matmul has no gradient on the card: int8 weights serve, they "
@@ -113,13 +125,16 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"unknown w8a16_matmul variant {name!r}")
     if name == SM90_VARIANT and x.dtype != torch.bfloat16:
         raise TypeError(f"{SM90_VARIANT} takes bfloat16, got {x.dtype}")
+    if name == F32_VARIANT and out_dtype != x.dtype:
+        raise TypeError(f"{F32_VARIANT} writes x.dtype ({x.dtype}), not {out_dtype}")
     k, n = q.shape
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m and name == SM90_VARIANT:
+        f32 = SM90_OUT_F32 if out_dtype == torch.float32 else 0
         KERNELS[name].launch(dev, x2, q, s, out, m, n, k, *sm90_tile(m, n),
-                             sm90_load_mode(k, n, x2.data_ptr(), q.data_ptr()))
+                             sm90_load_mode(k, n, x2.data_ptr(), q.data_ptr()) | f32)
     elif m:
         KERNELS[name].launch(dev, dtype_code(x), x2, q, s, out, m, n, k)
     return out.reshape(*x.shape[:-1], n)

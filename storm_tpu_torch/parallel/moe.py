@@ -20,8 +20,22 @@ expert on a tie, as ``jnp.argmax`` does.
 ``moe_layer`` also returns the Switch load-balancing loss, as storm_tpu's
 does; a serving forward passes ``aux_loss_weight=None`` and skips it
 (storm_tpu's compiled forward drops the unused value too), so a CUDA graph
-holds the layer's kernels alone. Sharding the experts over devices
-(``shard_moe_params``, the ``expert`` mesh axis) is not ported.
+holds the layer's kernels alone.
+
+Expert parallelism (``storm_tpu/parallel/moe.py:46-63``, serving): the
+expert tensors are split on their leading axis over the ``expert`` mesh
+axis (:func:`moe_param_specs`, :func:`shard_moe_params`), each rank
+holding a contiguous block of E / ep experts, the gate whole. Given an
+:class:`ExpertShard`, the layer routes as the one-shard layer does, over
+every token of the batch: the gate on this rank's tokens, the capacity
+from the whole batch's token count, and each token's place in its
+expert's queue counted in the batch's order, which on a (data, expert)
+mesh adds the tokens the data ranks before this one sent to each expert
+(one all-gather of E counts over the data axis; storm_tpu's GSPMD program
+sees the whole batch). Its local experts then run their queues, and the
+partial combine (each token's row is its own expert's output times its
+gate, or 0) is summed over the expert axis with one all-reduce: exactly
+the one-shard combine, each row a single nonzero term.
 """
 
 from __future__ import annotations
@@ -45,26 +59,82 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+MOE_KEYS = ("gate", "w_in", "b_in", "w_out", "b_out")
+
+
+def moe_param_specs(expert_axis: str = "expert") -> dict:
+    """Specs matching ``moe_init`` (``parallel/sharding.py``'s tuples):
+    the experts split on their leading axis, the gate whole."""
+    return {"gate": (), "w_in": (expert_axis,), "b_in": (expert_axis,),
+            "w_out": (expert_axis,), "b_out": (expert_axis,)}
+
+
+def shard_moe_params(mesh, params: dict, expert_axis: str = "expert") -> dict:
+    """This rank's shard of one MoE layer's parameters."""
+    from storm_tpu_torch.parallel.sharding import shard_array
+
+    specs = moe_param_specs(expert_axis)
+    return {k: shard_array(mesh, v, specs[k]) for k, v in params.items()}
+
+
+class ExpertShard:
+    """Where a rank's experts sit on a (data, expert) mesh: the expert
+    axis's ranks hold the experts in contiguous blocks, the data axis's
+    split the batch's rows. :meth:`prior_counts` and :meth:`combine` are
+    the layer's two collectives."""
+
+    def __init__(self, mesh, expert_axis: str = "expert", data_axis: str = "data") -> None:
+        self.mesh = mesh
+        self.expert_axis = expert_axis
+        self.data_axis = data_axis
+        self.dp = mesh.shape[data_axis]
+
+    def first_expert(self, local_experts: int) -> int:
+        return self.mesh.coord(self.expert_axis) * local_experts
+
+    def prior_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """(E,) tokens the data ranks before this one routed to each
+        expert (0 with one data rank)."""
+        from storm_tpu_torch.parallel.collectives import all_gather
+
+        if self.dp == 1:
+            return torch.zeros_like(counts)
+        every = all_gather(counts[None], self.mesh, self.data_axis)  # (dp, E)
+        return every[:self.mesh.coord(self.data_axis)].sum(dim=0)
+
+    def combine(self, y: torch.Tensor) -> torch.Tensor:
+        from storm_tpu_torch.parallel.collectives import all_reduce
+
+        return all_reduce(y, self.mesh, self.expert_axis)
+
+
 def moe_routing(gate: torch.Tensor, tokens: torch.Tensor, n_experts: int,
-                capacity_factor: float = 1.25) -> Tuple[torch.Tensor, ...]:
+                capacity_factor: float = 1.25, shard: Optional[ExpertShard] = None
+                ) -> Tuple[torch.Tensor, ...]:
     """Top-1 routing of ``tokens`` (N, dim): ``(probs (N, E) f32, expert
     (N,) int64, keep (N, E) f32, pos (N, E) f32, cap)`` — each token's
     chosen expert, whether it fits that expert's capacity (``keep`` one-hot
-    or all zero), and its place in the expert's queue."""
+    or all zero), and its place in the expert's queue. With ``shard`` the
+    tokens are this data rank's, the capacity the whole batch's and the
+    places counted after the earlier data ranks' tokens."""
     n = tokens.shape[0]
-    cap = max(1, math.ceil(n / n_experts * capacity_factor))
+    dp = shard.dp if shard is not None else 1
+    cap = max(1, math.ceil(n * dp / n_experts * capacity_factor))
     logits = _matmul(tokens, gate).float()
     probs = torch.softmax(logits, dim=-1)
     expert = torch.argmax(probs, dim=-1)
     experts = torch.arange(n_experts, device=tokens.device)
     onehot = (expert[:, None] == experts).float()
-    pos = (torch.cumsum(onehot, dim=0) - 1.0) * onehot
+    queue = torch.cumsum(onehot, dim=0)
+    if shard is not None:
+        queue = queue + shard.prior_counts(onehot.sum(dim=0))
+    pos = (queue - 1.0) * onehot
     keep = onehot * (pos < cap).float()
     return probs, expert, keep, pos, cap
 
 
 def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
-              aux_loss_weight: Optional[float] = 1e-2
+              aux_loss_weight: Optional[float] = 1e-2, shard: Optional[ExpertShard] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-1 MoE MLP over the tokens of ``x`` (..., dim): ``p`` holds
     ``gate`` (dim, E), ``w_in`` (E, dim, mlp), ``b_in`` (E, mlp),
@@ -72,28 +142,42 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     of x's shape and dtype, an overflowed token's row 0; ``aux`` the
     Switch load-balancing loss (E times the sum over experts of the
     fraction of tokens routed there times the mean gate probability),
-    times ``aux_loss_weight``, in f32; None when the weight is None."""
+    times ``aux_loss_weight``, in f32; None when the weight is None.
+
+    With ``shard`` (serving under expert parallelism) ``p`` holds this
+    rank's block of experts and ``x`` this data rank's tokens; the result
+    is the one-shard layer's on those tokens."""
     shape = x.shape
     dim = shape[-1]
     tokens = x.reshape(-1, dim)
     n = tokens.shape[0]
-    e = p["w_in"].shape[0]
-    probs, expert, keep, pos, cap = moe_routing(p["gate"], tokens, e, capacity_factor)
+    e = p["gate"].shape[-1]
+    if shard is not None and aux_loss_weight is not None:
+        raise NotImplementedError("the load-balancing loss under expert parallelism "
+                                  "(sharded training) is not ported")
+    probs, expert, keep, pos, cap = moe_routing(p["gate"], tokens, e, capacity_factor,
+                                                shard)
+    # This rank's experts (all of them at one shard).
+    el = p["w_in"].shape[0]
+    lo = shard.first_expert(el) if shard is not None else 0
+    keep_l = keep[:, lo:lo + el]
     # A token's slot in its expert's queue, one-hot over the capacity; an
     # overflowed token's slot (>= cap) matches no column.
     slot = pos.sum(dim=-1)
     pos_cap = (slot[:, None] == torch.arange(cap, device=x.device)).float()  # (N, C)
-    dispatch = keep[:, :, None] * pos_cap[:, None, :]  # (N, E, C)
+    dispatch = keep_l[:, :, None] * pos_cap[:, None, :]  # (N, E, C)
     gate_val = (probs * keep).sum(dim=-1)  # (N,)
     combine = dispatch * gate_val[:, None, None]  # (N, E, C)
 
     # "nec,nd->ecd": every expert's queue of tokens, in f32, then cast.
-    xe = (dispatch.reshape(n, e * cap).t() @ tokens.float()).reshape(e, cap, dim)
+    xe = (dispatch.reshape(n, el * cap).t() @ tokens.float()).reshape(el, cap, dim)
     xe = xe.to(tokens.dtype)
     h = L.gelu(_matmul(xe, p["w_in"]) + p["b_in"].to(xe.dtype)[:, None, :])
     ye = _matmul(h, p["w_out"]) + p["b_out"].to(h.dtype)[:, None, :]  # (E, C, dim)
     # "nec,ecd->nd": each token's expert output, weighted by its gate.
-    y = combine.reshape(n, e * cap) @ ye.float().reshape(e * cap, dim)
+    y = combine.reshape(n, el * cap) @ ye.float().reshape(el * cap, dim)
+    if shard is not None:
+        y = shard.combine(y)
     aux = None
     if aux_loss_weight is not None:
         onehot = (expert[:, None] == torch.arange(e, device=x.device)).float()
@@ -102,11 +186,12 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
 
 
 def moe_block(p: dict, x: torch.Tensor, num_heads: int, capacity_factor: float = 1.25,
-              aux_loss_weight: Optional[float] = 1e-2
+              aux_loss_weight: Optional[float] = 1e-2, shard: Optional[ExpertShard] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A pre-LN transformer block whose MLP is the MoE layer, (B, S, D) ->
     ((B, S, D), aux): ``x + MHA(LN1(x))``, then ``+ MoE(LN2(.))``. Both
     norms are plain LayerNorms, as in storm_tpu (no fused residual norm)."""
     x = x + multi_head_attention(p["attn"], L.layernorm(p["ln1"], x), num_heads)
-    h, aux = moe_layer(p["moe"], L.layernorm(p["ln2"], x), capacity_factor, aux_loss_weight)
+    h, aux = moe_layer(p["moe"], L.layernorm(p["ln2"], x), capacity_factor, aux_loss_weight,
+                       shard)
     return x + h, aux

@@ -134,7 +134,8 @@ def test_reattach_without_a_rebuild_then_a_rolling_restart(tmp_path, abstract_in
         cluster.start_monitor(interval_s=0.3, misses=2)
         base = _log_ends(stub, "output")
         feeder = threading.Thread(
-            target=lambda: [produce(xs[i:i + 1]) or time.sleep(0.2) for i in range(24, 36)])
+            target=lambda: [produce(xs[i:i + 1]) or time.sleep(0.2) for i in range(24, 36)],
+            daemon=True)
         feeder.start()
         rows = cluster.rolling_restart(drain_timeout_s=20.0, settle_s=0.5)
         feeder.join(timeout=30)

@@ -126,8 +126,8 @@ def test_shared_engine_concurrent_requests_build_once(impl, monkeypatch):
     results = []
     bc = impl.config.BatchConfig(max_batch=4, buckets=(4,))
     threads = [threading.Thread(
-        target=lambda: results.append(_shared(impl, _model(impl, seed=201), bc)))
-        for _ in range(4)]
+        target=lambda: results.append(_shared(impl, _model(impl, seed=201), bc)),
+        daemon=True) for _ in range(4)]
     for t in threads:
         t.start()
     for t in threads:

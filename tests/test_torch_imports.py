@@ -7,7 +7,10 @@ exactly-once sink, the decode tier, the ring, DRPC, windows, joins, event
 time, shell components, the multilang child side, flux, training, and
 the dist runtime with its Kafka wire client, stub broker, resilience
 primitives, controller journal and the worker's ``state_report``,
-``decode_sessions`` and ``profile`` ops included), and neither chip_smoke.py nor kernel_sweep.py,
+``decode_sessions`` and ``profile`` ops included, and the parallel
+serving paths: the mesh, collectives, sharding, ring attention, sequence
+parallelism, expert-parallel MoE, the rank launcher and the sharded
+engine), and neither chip_smoke.py nor kernel_sweep.py,
 imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
 package storm_tpu (the machine with the card has none of them; the
 port's dist RPCs run over the standard library's sockets)."""
@@ -158,6 +161,23 @@ def test_importing_the_port_loads_no_jax():
               GroupMembership.PROTOCOL)
         import shutil
         shutil.rmtree(d)
+        from storm_tpu_torch.config import ShardingConfig
+        from storm_tpu_torch.infer.engine import InferenceEngine
+        from storm_tpu_torch.parallel.mesh import Mesh, make_mesh
+        from storm_tpu_torch.parallel.sharding import shard_params_tp, tp_param_specs
+        from storm_tpu_torch.parallel.collectives import GLOO_CUDA, all_gather
+        from storm_tpu_torch.parallel.launch import spawn_ranks
+        from storm_tpu_torch.parallel.moe import ExpertShard, shard_moe_params
+        from storm_tpu_torch.parallel.ring_attention import ring_attention
+        from storm_tpu_torch.parallel.sequence import seq_parallel_encoder
+        cfg = Config.from_dict({{"sharding": {{"data_parallel": 1}}}})
+        cfg.model = ModelConfig(name="longseq_tiny", input_shape=(64, 16))
+        build_standard_topology(cfg, broker, device="cpu")
+        eng = InferenceEngine(cfg.model, BatchConfig(max_batch=8, buckets=(8,)), device="cpu",
+                              sharding_cfg=ShardingConfig(), mesh=make_mesh(device="cpu"))
+        import torch.distributed as tdist
+        print("PARALLEL", dict(eng.mesh.shape), eng.pipeline_depth, tdist.is_initialized(),
+              sorted(GLOO_CUDA), ring_attention.__name__)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu", "pyarrow", "grpc"))
@@ -172,6 +192,8 @@ def test_importing_the_port_loads_no_jax():
     assert "TENSOR (1, 2, 3) True True" in out.stdout, out.stdout
     assert "EOS TransactionalBrokerSink ChaosMonkey True True" in out.stdout, out.stdout
     assert "CONTROL {0: '127.0.0.1:1'} 0 0 True True -3 range" in out.stdout, out.stdout
+    assert ("PARALLEL {'data': 1, 'model': 1} 2 False ['all_gather', 'all_reduce'] "
+            "ring_attention") in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer
     # and the new model families are among those imported
     for name in ("storm_tpu_torch.infer.engine", "storm_tpu_torch.infer.graphs",
@@ -210,7 +232,10 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.connectors.kafka_protocol",
                  "storm_tpu_torch.connectors.kafka_stub", "storm_tpu_torch.connectors.lz4",
                  "storm_tpu_torch.connectors.snappy", "storm_tpu_torch.resilience.retry",
-                 "storm_tpu_torch.resilience.circuit", "storm_tpu_torch.resilience.tokens"):
+                 "storm_tpu_torch.resilience.circuit", "storm_tpu_torch.resilience.tokens",
+                 "storm_tpu_torch.parallel.mesh", "storm_tpu_torch.parallel.collectives",
+                 "storm_tpu_torch.parallel.sharding", "storm_tpu_torch.parallel.ring_attention",
+                 "storm_tpu_torch.parallel.sequence", "storm_tpu_torch.parallel.launch"):
         assert repr(name) in out.stdout, name
 
 

@@ -135,7 +135,7 @@ def test_dispatch_overlaps_next_batch_with_compute(impl):
     assert len(launches) == 2, "the second launch must not wait for a fetch"
     assert not h0.future.done() and not h1.future.done()
     box = []
-    t = threading.Thread(target=lambda: box.append(eng.dispatch((x,))))
+    t = threading.Thread(target=lambda: box.append(eng.dispatch((x,))), daemon=True)
     t.start()
     time.sleep(0.2)
     assert len(launches) == 2, "the ring must bound in-flight batches at its depth"
@@ -194,7 +194,8 @@ def test_staging_pool_counts_as_storm_tpus():
         b = pool.acquire((4, 2), f32)
         steps[name].append(pool.stats())
         got = []
-        t = threading.Thread(target=lambda: got.append(pool.acquire((4, 2), f32)))
+        t = threading.Thread(target=lambda: got.append(pool.acquire((4, 2), f32)),
+                             daemon=True)
         t.start()
         time.sleep(0.1)
         assert not got, "a third acquire must block at the pool's limit"
@@ -575,7 +576,7 @@ def test_depth2_results_equal_serial_per_batch(transfer):
         for i in range(first, len(xs), 2):
             results[i] = engines[0].dispatch((xs[i],))
 
-    threads = [threading.Thread(target=feed, args=(k,)) for k in range(2)]
+    threads = [threading.Thread(target=feed, args=(k,), daemon=True) for k in range(2)]
     for t in threads:
         t.start()
     _join(threads, 30)

@@ -329,7 +329,7 @@ def test_quarantine_follows_the_swapped_in_engine(run, monkeypatch, continuous):
     old, new, replacement = (_Tagged(impl, v) for v in (0.25, 0.75, 0.5))
     built = []
 
-    def fake_shared_engine(model_cfg, batch_cfg=None, device=None):
+    def fake_shared_engine(model_cfg, batch_cfg=None, device=None, sharding_cfg=None):
         built.append(model_cfg)
         return new if len(built) == 1 else replacement
 
