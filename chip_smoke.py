@@ -347,7 +347,27 @@ no result):
    epilogue (tp's row-parallel partials) and its bf16 kernel at the tp2
    and tp4 shards, at one data rank's rows and at longseq's S / sp rows,
    flash at H / tp heads and the fused norm at a data rank's rows;
-19. the ``{"kernels": [...]}`` line, then the card line, then the last line
+20. sharded training: the one-rank ViT-B/16 float32 step (``make_train_step``)
+   from a seeded tree on 3 seeded batches of 8, its step 1's gradients
+   written for the ranks; four rank processes on ``cuda:0`` over gloo
+   (``spawn_ranks``) take the same 3 AdamW steps at dp4, dp2 x tp2 and tp4
+   (``init_sharded_training``, ``train_one_step``) and pp4 and dp2 x pp2
+   (``init_pp_training``, GPipe over a stage axis): every rank's losses
+   equal and within ``P20_LOSS_TOL`` of the one-rank step's, step 1's
+   gradients within ``P20_GRAD_TOL`` of the one-rank step's leaf by leaf
+   (the TP shards summed, the stages block by block), every replica
+   byte-identical after step 3, each step's launches exactly 12 fused
+   norms and 12 f32 flash forwards and nothing else, each launch signature
+   one phase 3 held; three planted faults (dp2 x tp2 with block 0's f
+   passing the gradient unsummed, dp4 with one leaf's data-axis all-reduce
+   skipped, pp4 with stage 2 sending zeros back) each beyond its bound;
+   resnet20 at dp4 on the digits: one step's loss and BatchNorm state
+   against the one-rank step's (and BatchNorm over each rank's rows, a
+   planted fault, beyond them), and ``train_to_convergence(mesh=)`` over
+   ``P20_EPOCHS`` epochs against the one-rank run's loss curve and state;
+   information: each mode's step ms per rank, its collectives a step and
+   their share;
+21. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
@@ -697,6 +717,24 @@ def parity_cases(torch, rows: list) -> dict:
         norm_case(f"{case} {rows_n}x{DIM} bf16_bf16_g_b", randn(rows_n, DIM, dtype=bf16),
                   randn(rows_n, DIM, dtype=bf16), randn(DIM, dtype=bf16),
                   randn(DIM, dtype=bf16), 1e-2, 1e-2, "rel")
+
+    # Phase 20's training shapes in float32 (the trainable leaves): the f32
+    # flash kernel at a rank's (rows, heads) of 197 x 64 (dp4 and a pipeline
+    # microbatch (2, 12), dp2 x tp2 (4, 6), tp4 (8, 3), the one-rank step
+    # (8, 12)), and the fused norm with f32 g and b at a rank's rows (dp4 and
+    # a microbatch 394, dp2 x tp2 788, tp4 and the one-rank step 1576).
+    for case, shape in [("dp4 and a microbatch", (2, HEADS, SEQ, HDIM)),
+                        ("dp2xtp2", (4, HEADS // 2, SEQ, HDIM)),
+                        ("tp4", (B, HEADS // 4, SEQ, HDIM)),
+                        ("one rank", (B, HEADS, SEQ, HDIM))]:
+        q, k, v = (randn(*shape) for _ in range(3))
+        got = launched(lambda: flash_attention(q, k, v), "flash_attention")
+        check(rows, "flash_attention", f"vit_b16 train {case} {'x'.join(map(str, shape))} f32",
+              rel_err(got, flash_attention_reference(q, k, v)), 1e-5, "rel")
+    for case, rows_n in [("dp4 and a microbatch", 2 * SEQ), ("dp2xtp2", 4 * SEQ),
+                         ("tp4 and one rank", M)]:
+        norm_case(f"vit_b16 train {case} {rows_n}x{DIM} f32", randn(rows_n, DIM),
+                  randn(rows_n, DIM), randn(DIM), randn(DIM), 1e-5, 1e-4, "abs")
 
     # The mixer's token MLP reads a transposed, non-contiguous activation:
     # the wrapper copies it once, then launches.
@@ -6969,6 +7007,603 @@ def parallel_serving(torch, card: str, device: str = "cuda") -> dict:
     return res
 
 
+# ---- phase 20: sharded training, four ranks on one card ---------------------
+
+P20_WORLD = 4
+P20_SEED = 20
+P20_STEPS = 3
+# (label, kind, dp, axis2 size, n_micro): ViT-B/16 float32, every mode in
+# one world, in this order; tp modes take the (data, model) mesh of
+# init_sharded_training, pp modes the (data, stage) mesh of
+# init_pp_training (3 blocks a stage at pp4, 6 at dp2 x pp2).
+P20_MODES = [("dp4", "tp", 4, 1, None), ("dp2xtp2", "tp", 2, 2, None), ("tp4", "tp", 1, 4, None),
+             ("pp4", "pp", 1, 4, 4), ("dp2xpp2", "pp", 2, 2, 2)]
+# Each mode's losses against the one-rank step's, relative (storm_tpu's own
+# bound on its sharded step, tests/test_parallel.py:65).
+P20_LOSS_TOL = 1e-4
+# Step 1's gradients, per leaf: |g - g_one| / |g_one| over the leaf (the
+# key biases, zero in exact arithmetic, over the whole gradient's norm).
+# Set from the first run on the card: every mode read 1.7e-5 to 2.4e-5 at
+# its worst leaf (median 8e-7), the planted faults 0.70, 1.5 and 1.0.
+P20_GRAD_TOL = 1e-4
+# Launches per rank per step: 12 fused norms and 12 f32 flash forwards (a
+# pipeline stage: its blocks times the microbatches), nothing else.
+P20_LAUNCHES = {"residual_layernorm_sm90": 12, "flash_attention": 12}
+# Planted faults, one step each after the mode's run; each must fail its
+# bound: dp2 x tp2 with block 0's f (both: the attention's input and n2)
+# passing the gradient through unsummed; dp4 with the data-axis gradient
+# all-reduce skipped on leaf 0 (the patch embedding's kernel); pp4 with
+# stage 2 sending zeros back in place of its input's gradient.
+P20_FAULTS = ("dp2xtp2", "dp4", "pp4")
+# resnet20 at 32x32x3 on the digits through train_to_convergence(mesh=dp4),
+# accuracy_harness.py's batch size and learning rate, P20_EPOCHS epochs,
+# from storm_tpu's init (checkpoints_torch/resnet20_init.npz), against the
+# one-rank run; and one dp4 step against the one-rank step, with the
+# planted fault of BatchNorm over each rank's rows alone.
+P20_EPOCHS = 3
+P20_RESNET_ARGS = {"batch_size": 128, "max_epochs": P20_EPOCHS, "learning_rate": 1e-3,
+                   "patience": 8, "seed": 0}
+# One dp4 step of resnet20 against the one-rank step: the loss (relative)
+# and the BatchNorm running statistics after it (absolute).
+P20_BN_LOSS_TOL = 1e-4
+P20_BN_STATE_TOL = 1e-4
+# The convergence run against the one-rank run: each epoch's mean loss
+# (relative) and the final BatchNorm state (its largest difference over
+# the state's largest magnitude). AdamW at optax's eps 1e-8 steps an
+# element whose gradient is near rounding level by up to the learning rate
+# in a direction rounding sets, so the two runs part as they go: over 30
+# steps the first run on the card read 5.3e-3 on the curve; on the CPU the
+# curve read 1.3e-3 and the state 0.10, and BatchNorm over each rank's rows
+# 8.5e-2 and 0.16, while at eps 1.0 ten steps stayed within 2.7e-6 and
+# 1.6e-5. So the state after the run is held loosely; the one-step check
+# above holds BatchNorm's arithmetic.
+P20_CURVE_TOL = 2e-2
+P20_CURVE_STATE_TOL = 0.25
+
+
+def p20_batches(md) -> list:
+    rng = np.random.RandomState(P20_SEED)
+    return [(rng.rand(B, *md.input_shape).astype(np.float32),
+             rng.randint(0, md.num_classes, B).astype(np.int32)) for _ in range(P20_STEPS)]
+
+
+def p20_key(path) -> str:
+    return ".".join(map(str, path))
+
+
+def p20_grad_entries(torch, grads, ref, offsets: dict, spec_of, stage=None) -> dict:
+    """``{leaf key: (sum (g - g_one)^2, sum g_one^2, whole)}`` of this rank's
+    gradient tree against the one-rank step's (``ref``, one flat f32 array
+    at ``offsets``): a TP shard against the same shard of the reference
+    (``spec_of(path)`` its spec; ``whole`` False, the parent sums a leaf's
+    shards), a pipeline stage's leaves block by block (``stage``: (index,
+    blocks a stage))."""
+    from storm_tpu_torch.models.convert import _map
+
+    out = {}
+
+    def add(key, g, want, whole: bool):
+        want = torch.from_numpy(np.ascontiguousarray(want, np.float32)).to(g.device)
+        d = (g.detach().double() - want.double()).square().sum().item()
+        out[key] = (d, want.double().square().sum().item(), whole)
+
+    def leaf(path):
+        off, shape = offsets[p20_key(path)]
+        return ref[off:off + int(np.prod(shape))].reshape(shape)
+
+    def visit(g, path):
+        if stage is not None and path[0] == 1:  # (rest, stages)
+            s, bps = stage
+            for i in range(bps):
+                sub = ("blocks", s * bps + i) + path[1:]
+                add(p20_key(sub), g[0, i], leaf(sub), True)
+            return
+        path = path[1:] if stage is not None else path
+        spec = spec_of(path)
+        want = leaf(path)
+        if any(spec):
+            want = want[tuple(slice(None) if a is None else
+                              slice(c * (want.shape[d] // n), (c + 1) * (want.shape[d] // n))
+                              for d, (a, c, n) in enumerate(spec))]
+        add(p20_key(path), g, want, not any(spec))
+
+    _map(visit, grads)
+    return out
+
+
+def p20_hashes(params) -> dict:
+    import hashlib
+
+    from storm_tpu_torch.models.convert import _map
+
+    out = {}
+    _map(lambda t, path: out.__setitem__(p20_key(path), hashlib.sha256(
+        t.detach().cpu().numpy().tobytes()).hexdigest()), params)
+    return out
+
+
+@contextlib.contextmanager
+def p20_fault(label: str, mesh):
+    """The planted fault of mode ``label`` (``P20_FAULTS``), patched in for
+    one step."""
+    from storm_tpu_torch.parallel import collectives, sharding
+
+    with contextlib.ExitStack() as st:
+        if label == "dp2xtp2":
+            attach = sharding.attach_tp
+
+            def attach_without_f0(module, *a, **k):
+                attach(module, *a, **k)
+                module.blocks[0].copy = module.blocks[0].attn.copy = None
+                return module
+
+            st.enter_context(mock.patch.object(sharding, "attach_tp", attach_without_f0))
+        elif label == "dp4":
+            reduce = collectives.all_reduce_grads
+
+            def all_but_leaf0(tensors, m, axis, mean=True):
+                if axis == "data":
+                    tensors = [None] + list(tensors[1:])
+                return reduce(tensors, m, axis, mean)
+
+            st.enter_context(mock.patch.object(collectives, "all_reduce_grads", all_but_leaf0))
+        elif label == "pp4":
+            import torch
+
+            permute = collectives.ppermute
+
+            def stage2_sends_zeros(t, m, axis, shift=1):
+                if shift == -1 and m.coord(axis) == 2:
+                    t = torch.zeros_like(t)
+                return permute(t, m, axis, shift)
+
+            st.enter_context(mock.patch.object(collectives, "ppermute", stage2_sends_zeros))
+        elif label == "resnet20 dp4":
+            st.enter_context(mock.patch.object(collectives, "sum_over_axis",
+                                               lambda t, mesh, axis: t))
+        else:
+            raise ValueError(label)
+        yield
+
+
+def p20_mode(torch, md, params0, batches, ref, offsets, label, kind, dp, n2, n_micro,
+             fault: bool, device: str) -> dict:
+    """One mode on this rank: a fresh start from ``params0``, its steps
+    (``P20_STEPS``, or one under the mode's planted fault) with each step's
+    loss, wall ms, launches and collectives; step 1's gradient entries;
+    the leaves' hashes after the last step; the launch signatures."""
+    from storm_tpu_torch.models.convert import _map
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.parallel import collectives
+    from storm_tpu_torch.parallel.mesh import make_mesh
+    from storm_tpu_torch.parallel.pipeline import init_pp_training
+    from storm_tpu_torch.parallel.sharding import tp_param_specs
+    from storm_tpu_torch.parallel.train import init_sharded_training, train_one_step
+
+    axes = ("data", "model") if kind == "tp" else ("data", "stage")
+    mesh = make_mesh(dp, n2, axes, device=device)
+    if kind == "tp":
+        step, params, opt_state, state = init_sharded_training(md, mesh, device=device,
+                                                               init=(params0, {}))
+        specs = tp_param_specs(params0)
+
+        def spec_of(path):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            return tuple((a, mesh.coord(a), mesh.shape[a]) if a else (None, 0, 1)
+                         for a in spec) if any(spec) else ()
+
+        stage = None
+    else:
+        step, params, opt_state = init_pp_training(md, mesh, n_micro=n_micro, device=device,
+                                                   init=(params0, {}))
+        spec_of = lambda path: ()  # noqa: E731
+        stage = (mesh.coord("stage"), md.hyper["depth"] // n2)
+    out = {"losses": [], "ms": [], "launches": [], "collectives": [], "mesh": dict(mesh.shape)}
+    sigs: set = set()
+    steps = batches[:1] if fault else batches
+    with launch_signatures(sigs), p20_fault(label, mesh) if fault else contextlib.nullcontext():
+        for i, (x, y) in enumerate(steps):
+            p20_sync(torch, device)
+            _build.reset_launch_counts()
+            collectives.reset_collective_stats()
+            t = time.perf_counter()
+            if kind == "tp":
+                params, opt_state, state, loss = train_one_step(step, mesh, params, opt_state,
+                                                                state, x, y)
+            else:
+                params, opt_state, loss = step(params, opt_state, x, y)
+            out["losses"].append(float(loss))  # waits for the optimizer's kernels
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            out["launches"].append({k: v for k, v in _build.launch_counts().items() if v})
+            out["collectives"].append(collectives.collective_stats())
+            if i == 0:
+                grads = _map(lambda p, _path: p.grad, params)
+                out["grads"] = p20_grad_entries(torch, grads, ref, offsets, spec_of, stage)
+    out["hashes"] = p20_hashes(params)
+    out["sigs"] = sigs
+    out["coord"] = {a: mesh.coord(a) for a in axes}
+    del params, opt_state, step
+    return out
+
+
+def p20_resnet(torch, fault: bool, init, device: str) -> dict:
+    """One resnet20 dp4 step (BatchNorm over the global batch, or with the
+    planted fault over each rank's rows): its loss and the state after it."""
+    from storm_tpu_torch.models.convert import host_tree
+    from storm_tpu_torch.models.registry import model_def
+    from storm_tpu_torch.parallel.mesh import make_mesh
+    from storm_tpu_torch.parallel.train import init_sharded_training, train_one_step
+
+    md = model_def("resnet20", input_shape=(32, 32, 3))
+    mesh = make_mesh(4, 1, device=device)
+    step, params, opt_state, state = init_sharded_training(md, mesh, device=device, init=init)
+    x, y = p20_resnet_batch()
+    with p20_fault("resnet20 dp4", mesh) if fault else contextlib.nullcontext():
+        _p, _o, state, loss = train_one_step(step, mesh, params, opt_state, state, x, y)
+    return {"loss": float(loss), "state": host_tree(state)}
+
+
+def p20_resnet_batch() -> tuple:
+    from storm_tpu_torch.data import load_digits_nhwc
+
+    x_tr, y_tr = load_digits_nhwc((32, 32, 3), seed=0)[:2]
+    return x_tr[:P20_RESNET_ARGS["batch_size"]], y_tr[:P20_RESNET_ARGS["batch_size"]]
+
+
+def p20_resnet_init() -> tuple:
+    from storm_tpu_torch.models.registry import CHECKPOINTS, load_checkpoint
+
+    params, state, _meta = load_checkpoint(str(CHECKPOINTS / "resnet20_init.npz"))
+    return params, state
+
+
+def train_rank(rank: int, world: int, ref_dir: str, device: str = "cuda",
+               name: str = "vit_b16", modes=P20_MODES, faults=P20_FAULTS,
+               resnet_epochs: int = P20_EPOCHS) -> dict:
+    """One rank of phase 20's world (``parallel.launch.spawn_ranks``): every
+    ViT-B/16 float32 mode in one order, each followed by its planted fault;
+    then resnet20's dp4 step, its fault, and train_to_convergence over the
+    dp4 mesh. ``device``, ``name``, ``modes``, ``faults`` and
+    ``resnet_epochs``: a smaller rehearsal on the CPU."""
+    import gc
+
+    import torch
+
+    from storm_tpu_torch.data import load_digits_nhwc, train_to_convergence
+    from storm_tpu_torch.models.convert import init_params
+    from storm_tpu_torch.models.registry import model_def
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.parallel import collectives
+    from storm_tpu_torch.parallel.mesh import make_mesh
+
+    collectives.set_sync_timing(True)
+    md = model_def(name)
+    params0, _ = init_params(md, P20_SEED)
+    batches = p20_batches(md)
+    with open(os.path.join(ref_dir, "offsets.json")) as f:
+        offsets = json.load(f)
+    ref = np.load(os.path.join(ref_dir, "grads.npy"), mmap_mode="r")
+    out = {"modes": {}, "faults": {}}
+    for label, kind, dp, n2, n_micro in modes:
+        for fault in (False, True) if label in faults else (False,):
+            out["faults" if fault else "modes"][label] = p20_mode(
+                torch, md, params0, batches, ref, offsets, label, kind, dp, n2, n_micro, fault,
+                device)
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+    del params0, ref
+    init = p20_resnet_init()
+    out["resnet_step"] = p20_resnet(torch, False, init, device)
+    out["resnet_fault"] = p20_resnet(torch, True, init, device)
+    x_tr, y_tr, x_te, y_te = load_digits_nhwc((32, 32, 3), seed=0)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    _params, state, hist = train_to_convergence(
+        model_def("resnet20", input_shape=(32, 32, 3)), x_tr, y_tr, x_te, y_te, device=device,
+        init=init, mesh=make_mesh(4, 1, device=device),
+        **dict(P20_RESNET_ARGS, max_epochs=resnet_epochs))
+    out["resnet_converge"] = {"history": hist, "state": state, "wall_s": time.perf_counter() - t,
+                              "launches": _build.launch_counts()}
+    return out
+
+
+def p20_sync(torch, device: str) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def p20_one_rank(torch, tmp: str, device: str, name: str) -> dict:
+    """The one-rank step on the card (``make_train_step``, PR 13's), from the
+    same seeded tree on the same batches: its losses and step ms; step 1's
+    gradients written to ``tmp`` (one flat float32 array in tree order and
+    each leaf's offset and shape) for the ranks to read."""
+    from storm_tpu_torch.models.convert import _map, init_params, trainable_params
+    from storm_tpu_torch.models.registry import model_def
+    from storm_tpu_torch.parallel.train import make_train_step
+
+    md = model_def(name)
+    params0, _ = init_params(md, P20_SEED)
+    params = trainable_params(params0, device)
+    step, opt = make_train_step(md, device=device)
+    opt_state = opt(params)
+    out = {"losses": [], "ms": []}
+    for i, (x, y) in enumerate(p20_batches(md)):
+        p20_sync(torch, device)
+        t = time.perf_counter()
+        params, opt_state, _s, loss = step(params, opt_state, {}, x, y)
+        out["losses"].append(float(loss))
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            offsets, flat, n = {}, [], 0
+
+            def take(p, path):
+                nonlocal n
+                g = p.grad.detach().float().cpu().numpy().reshape(-1)
+                offsets[p20_key(path)] = (n, list(p.shape))
+                flat.append(g)
+                n += g.size
+
+            _map(take, params)
+            flat = np.concatenate(flat)
+            np.save(os.path.join(tmp, "grads.npy"), flat)
+            with open(os.path.join(tmp, "offsets.json"), "w") as f:
+                json.dump(offsets, f)
+            key_bias = [k for k in offsets if k.endswith("k.b")]
+            out["grad_norm"] = float(np.sqrt(np.square(flat.astype(np.float64)).sum()))
+            out["key_biases"] = key_bias
+    return out
+
+
+def p20_grad_reading(ranks: list, label: str, key: str, one: dict) -> dict:
+    """Step 1's per-leaf gradient error of a mode (``ranks[r][key][label]``):
+    the ranks at data index 0 hold every shard and stage; a whole leaf is
+    read from the first that holds it, a TP shard's sums added over the
+    shards."""
+    total: dict = {}
+    for r in ranks:
+        res = r[key].get(label)
+        if res is None or res["coord"]["data"] != 0:
+            continue
+        for k, (d, w, whole) in res["grads"].items():
+            if whole:
+                total.setdefault(k, (d, w))
+            else:
+                a, b = total.get(k, (0.0, 0.0))
+                total[k] = (a + d, b + w)
+    errs = {k: math.sqrt(d) / (one["grad_norm"] if k in one["key_biases"] else math.sqrt(w))
+            for k, (d, w) in total.items()}
+    worst = max(errs, key=errs.get)
+    return {"leaves": len(errs), "max_rel_err": errs[worst], "worst_leaf": worst,
+            "key_bias_max": max(errs[k] for k in one["key_biases"]),
+            "median_rel_err": float(np.median(list(errs.values())))}
+
+
+def p20_replicas(ranks: list, label: str, key: str, kind: str, dp: int, n2: int) -> int:
+    """How many (rank, leaf) pairs differ from the rank that should hold
+    the same bytes: the same shard on every rank of a data line; the
+    replicated leaves (a TP spec of (), a pipeline's ``rest``) on every
+    rank of a model or stage line."""
+    grid = np.arange(P20_WORLD).reshape(dp, n2)
+    differ = 0
+    res = [r[key][label] for r in ranks]
+    for line in grid.T:  # the data lines: one shard
+        for r in line[1:]:
+            differ += sum(res[r]["hashes"][k] != h for k, h in res[line[0]]["hashes"].items())
+    for line in grid:  # the model or stage lines: the replicated leaves
+        first = res[line[0]]["hashes"]
+        if kind == "tp":
+            whole = [k for k in first if k in res[line[-1]]["hashes"]
+                     and p20_replicated_tp(k)]
+        else:
+            whole = [k for k in first if k.startswith("0.")]
+        for r in line[1:]:
+            differ += sum(res[r]["hashes"][k] != first[k] for k in whole)
+    return differ
+
+
+def p20_replicated_tp(key: str) -> bool:
+    parts = key.split(".")
+    col = any(p in ("q", "k", "v", "mlp_in") for p in parts)
+    row = any(p in ("o", "mlp_out") for p in parts)
+    return not (col or (row and parts[-1] == "w"))
+
+
+def p20_resnet_one_rank(torch, device: str, epochs: int) -> dict:
+    """resnet20 on one rank on the card: the first step (its loss and the
+    state after it) and the convergence run, as the ranks run them."""
+    from storm_tpu_torch.data import load_digits_nhwc, train_to_convergence
+    from storm_tpu_torch.models.convert import host_tree, state_tensors, trainable_params
+    from storm_tpu_torch.models.registry import model_def
+    from storm_tpu_torch.parallel.train import make_train_step
+
+    md = model_def("resnet20", input_shape=(32, 32, 3))
+    init = p20_resnet_init()
+    step, opt = make_train_step(md, device=device)
+    params = trainable_params(init[0], device)
+    x, y = p20_resnet_batch()
+    _p, _o, state, loss = step(params, opt(params), state_tensors(init[1], device), x, y)
+    out = {"loss": float(loss), "state": host_tree(state)}
+    x_tr, y_tr, x_te, y_te = load_digits_nhwc((32, 32, 3), seed=0)
+    t = time.perf_counter()
+    _params, state, hist = train_to_convergence(md, x_tr, y_tr, x_te, y_te, device=device,
+                                                init=init,
+                                                **dict(P20_RESNET_ARGS, max_epochs=epochs))
+    out["converge"] = {"history": hist, "state": state, "wall_s": time.perf_counter() - t}
+    return out
+
+
+def p20_state_diff(a, b, relative: bool = False) -> float:
+    """The largest |a - b| over two state trees' leaves; with ``relative``,
+    over b's largest magnitude."""
+    from storm_tpu_torch.models.convert import tree_leaves
+
+    diff = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    return diff / max(float(np.abs(np.asarray(y)).max()) for y in tree_leaves(b)) \
+        if relative else diff
+
+
+def sharded_training(torch, card: str, device: str = "cuda", name: str = "vit_b16",
+                     modes=P20_MODES, faults=P20_FAULTS, epochs: int = P20_EPOCHS) -> dict:
+    """Phase 20: the one-rank ViT-B/16 float32 step on the card, then four
+    rank processes on ``cuda:0`` over gloo (``spawn_ranks``, as phase 18)
+    running every mode of ``P20_MODES`` and its planted fault, and
+    resnet20 at dp4, while this process runs resnet20 on one rank. Each
+    mode: every rank's losses equal and within ``P20_LOSS_TOL`` of the
+    one-rank step's, step 1's gradients within ``P20_GRAD_TOL`` leaf by
+    leaf, every replica byte-identical after the last step, each step's
+    launches exactly ``P20_LAUNCHES``, each launch signature one phase 3
+    held; each planted fault beyond its bound. resnet20: one dp4 step's
+    loss and BatchNorm state against the one-rank step's, the fault of
+    local statistics beyond them, and the convergence run's loss curve
+    and final state against the one-rank run's. ``device``, ``name``,
+    ``modes``, ``faults`` and ``epochs``: a smaller rehearsal on the CPU
+    (where no kernel launches)."""
+    import gc
+    import tempfile
+    import threading
+
+    from storm_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    box: dict = {}
+    with tempfile.TemporaryDirectory(prefix="storm-p20-") as tmp:
+        one = p20_one_rank(torch, tmp, device, name)
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        log(f"  one rank, {name} float32 B={B}: losses {one['losses']}, step ms "
+            f"{[round(m, 3) for m in one['ms']]} ({card})")
+
+        def world():
+            try:
+                box["ranks"] = spawn_ranks(
+                    "chip_smoke:train_rank", P20_WORLD,
+                    {"ref_dir": tmp, "device": device, "name": name, "modes": modes,
+                     "faults": faults, "resnet_epochs": epochs},
+                    timeout_s=400, collective_timeout_s=180, env={"OMP_NUM_THREADS": "2"})
+            except BaseException as e:  # noqa: BLE001 - raised below
+                box["error"] = e
+
+        th = threading.Thread(target=world, daemon=True)
+        th.start()
+        res_one = p20_resnet_one_rank(torch, device, epochs)
+        th.join(timeout=450)
+    if "error" in box:
+        raise box["error"]
+    if "ranks" not in box:
+        raise AssertionError("phase 20's rank processes did not finish")
+    ranks = box["ranks"]
+    out = {"one_rank": {k: one[k] for k in ("losses", "ms")}, "modes": {}, "faults": {},
+           "launches": {}}
+    sigs: set = set()
+    for label, kind, dp, n2, _nm in modes:
+        per = [r["modes"][label] for r in ranks]
+        losses = per[0]["losses"]
+        if any(p["losses"] != losses for p in per):
+            raise AssertionError(f"phase 20 {label}: the ranks' losses differ "
+                                 f"{[p['losses'] for p in per]}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+        grad = p20_grad_reading(ranks, label, "modes", one)
+        differ = p20_replicas(ranks, label, "modes", kind, dp, n2)
+        want = {n: P20_LAUNCHES.get(n, 0) if device != "cpu" else 0 for n in KERNEL_FUNCS}
+        for i, p in enumerate(per):
+            for j, c in enumerate(p["launches"]):
+                if {n: c.get(n, 0) for n in KERNEL_FUNCS} != want:
+                    raise AssertionError(f"phase 20 {label} rank {i} step {j + 1}: launches "
+                                         f"{c}, want {want}")
+        for p in per:
+            sigs.update(p["sigs"])
+        calls = [c["calls"] for c in per[0]["collectives"]]
+        share = [max(p["collectives"][j]["seconds"] * 1e3 / p["ms"][j] for p in per)
+                 for j in range(P20_STEPS)]
+        row = {"mesh": per[0]["mesh"], "losses": losses, "loss_err": loss_err, "grad": grad,
+               "replicas_differ": differ, "launches_per_step": per[0]["launches"][0],
+               "ms": [p["ms"] for p in per], "collective_calls": calls,
+               "collective_share": share,
+               "staged": [c["staged"] for c in per[0]["collectives"]]}
+        out["modes"][label] = row
+        out["launches"][label] = {n: per[0]["launches"][0].get(n, 0) for n in KERNEL_FUNCS}
+        log(f"  {label} {row['mesh']}: losses {losses} against one rank's, max rel "
+            f"{loss_err:.3e} (<= {P20_LOSS_TOL:g}); step 1's gradients over "
+            f"{grad['leaves']} leaves: max rel {grad['max_rel_err']:.3e} at {grad['worst_leaf']}"
+            f", median {grad['median_rel_err']:.3e}, key biases {grad['key_bias_max']:.3e} "
+            f"(<= {P20_GRAD_TOL:g}); {differ} replica leaves differ; launches a step "
+            f"{row['launches_per_step']}")
+        log(f"    step ms per rank {[[round(m, 1) for m in ms] for ms in row['ms']]} (wall, "
+            f"collectives synchronized), one rank {[round(m, 1) for m in one['ms']]}; "
+            f"collectives {calls} a step ({row['staged']} staged), at most "
+            f"{[round(100 * s, 1) for s in share]} % of a rank's step; {card}")
+        if loss_err > P20_LOSS_TOL or grad["max_rel_err"] > P20_GRAD_TOL or differ:
+            raise AssertionError(f"phase 20 {label}: against one rank {row}")
+    for label in faults:
+        kind, dp, n2 = next((k, d, n) for lab, k, d, n, _ in modes if lab == label)
+        grad = p20_grad_reading(ranks, label, "faults", one)
+        differ = p20_replicas(ranks, label, "faults", kind, dp, n2)
+        losses = [r["faults"][label]["losses"][0] for r in ranks]
+        loss_err = abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
+        out["faults"][label] = {"grad": grad, "replicas_differ": differ, "loss_err": loss_err}
+        log(f"  planted fault {label}: step 1's gradients max rel {grad['max_rel_err']:.3e} "
+            f"at {grad['worst_leaf']} (bound {P20_GRAD_TOL:g}), {differ} replica leaves "
+            f"differ after it, loss rel {loss_err:.3e}")
+        if grad["max_rel_err"] <= P20_GRAD_TOL and not differ:
+            raise AssertionError(f"phase 20: the bounds let the planted fault {label} pass")
+    unchecked = sorted(sigs - PARITY_LAUNCHES)
+    if unchecked:
+        raise AssertionError(f"phase 20: the ranks launched {len(unchecked)} kernel signatures "
+                             f"that phase 3 did not hold against the plain version: {unchecked}")
+    log(f"  the ranks' {len(sigs)} kernel launch signatures are each among the "
+        f"{len(PARITY_LAUNCHES)} that phase 3 held against the plain version")
+    # resnet20: one dp4 step, its fault, and the convergence run.
+    for key in ("resnet_step", "resnet_fault"):
+        per = [r[key] for r in ranks]
+        if key == "resnet_step" and any(
+                p["loss"] != per[0]["loss"] or p20_state_diff(p["state"], per[0]["state"])
+                for p in per):
+            raise AssertionError(f"phase 20 {key}: the ranks differ")
+        loss_err = abs(per[0]["loss"] - res_one["loss"]) / abs(res_one["loss"])
+        state_err = p20_state_diff(per[0]["state"], res_one["state"])
+        out[key] = {"loss_err": loss_err, "state_err": state_err}
+        holds = loss_err <= P20_BN_LOSS_TOL and state_err <= P20_BN_STATE_TOL
+        what = ", BatchNorm on each rank's rows (planted fault)" if "fault" in key else ""
+        log(f"  resnet20 dp4 one step{what}: loss rel {loss_err:.3e} (<= {P20_BN_LOSS_TOL:g}), "
+            f"BatchNorm state max abs {state_err:.3e} (<= {P20_BN_STATE_TOL:g}) against one "
+            f"rank")
+        if holds != (key == "resnet_step"):
+            raise AssertionError(f"phase 20 {key}: {out[key]}")
+    conv = [r["resnet_converge"] for r in ranks]
+    if any(c["history"] != conv[0]["history"] for c in conv):
+        raise AssertionError("phase 20 resnet20 convergence: the ranks' histories differ")
+    mine, theirs = conv[0]["history"], res_one["converge"]["history"]
+    if len(mine) != len(theirs):
+        raise AssertionError(f"phase 20 resnet20 convergence: {len(mine)} epochs against "
+                             f"{len(theirs)}")
+    curve = max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(mine, theirs))
+    state_err = p20_state_diff(conv[0]["state"], res_one["converge"]["state"], relative=True)
+    out["resnet_converge"] = {
+        "history": mine, "one_rank_history": theirs, "curve_err": curve, "state_err": state_err,
+        "wall_s": conv[0]["wall_s"], "one_rank_wall_s": res_one["converge"]["wall_s"],
+        "launches": {n: conv[0]["launches"].get(n, 0) for n in KERNEL_FUNCS}}
+    log(f"  resnet20 train_to_convergence(mesh=dp4), {epochs} epochs at batch "
+        f"{P20_RESNET_ARGS['batch_size']}: losses {[round(h['loss'], 5) for h in mine]} val acc "
+        f"{[h['val_acc'] for h in mine]}; one rank {[round(h['loss'], 5) for h in theirs]} "
+        f"{[h['val_acc'] for h in theirs]}; max rel {curve:.3e} (<= {P20_CURVE_TOL:g}), final "
+        f"BatchNorm state max rel {state_err:.3e} (<= {P20_CURVE_STATE_TOL:g}); "
+        f"{conv[0]['wall_s']:.1f} s on 4 ranks, {res_one['converge']['wall_s']:.1f} s on one; "
+        f"{card}")
+    if curve > P20_CURVE_TOL or state_err > P20_CURVE_STATE_TOL:
+        raise AssertionError(f"phase 20 resnet20 convergence: {out['resnet_converge']}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 20: {out['wall_s']:.1f} s")
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -7098,7 +7733,14 @@ def run() -> int:
     log(json.dumps({"parallel_serving": {k: v for k, v in phase18.items() if k != "launches"},
                     "card": card}, default=float))
 
-    phase("[19] the kernels")
+    phase("[20] sharded training: four ranks on cuda:0 over gloo, ViT-B/16 float32 at dp4, "
+          "dp2xtp2, tp4, pp4, dp2xpp2 against the one-rank step, the planted faults; resnet20 "
+          "train_to_convergence over dp4")
+    phase20 = sharded_training(torch, card)
+    log(json.dumps({"sharded_training": {k: v for k, v in phase20.items() if k != "launches"},
+                    "card": card}, default=float))
+
+    phase("[21] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -7166,6 +7808,10 @@ def run() -> int:
                       for label, c in phase18["launches"].items()})
         paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]
                       for m, r in phase15["b"].items()})
+        paths.update({f"vit_b16 float32 train step {label}, rank 0 of 4, a step (phase 20)":
+                      c[name] for label, c in phase20["launches"].items()})
+        paths["resnet20 train to convergence over dp4, rank 0 of 4 (phase 20)"] = \
+            phase20["resnet_converge"]["launches"][name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

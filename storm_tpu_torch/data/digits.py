@@ -9,8 +9,9 @@ scans, values 0..16). The port reads the same images from
 exactly as the JAX package does, so both give the same arrays bit for bit.
 
 The trainer is storm_tpu's loop over the port's
-:func:`storm_tpu_torch.parallel.train.make_train_step`, on the card unless
-the caller passes ``device="cpu"``.
+:func:`storm_tpu_torch.parallel.train.make_train_step`, or, given a mesh of
+ranks, its ``init_sharded_training``, on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import torch
 from storm_tpu_torch.models.convert import (
     host_tree, init_params, state_tensors, trainable_params)
 from storm_tpu_torch.models.registry import CHECKPOINTS, ModelDef
-from storm_tpu_torch.parallel.train import make_train_step, train_one_step
+from storm_tpu_torch.parallel.mesh import make_mesh
+from storm_tpu_torch.parallel.sharding import gather_params_tp
+from storm_tpu_torch.parallel.train import (
+    init_sharded_training, make_train_step, train_one_step)
 
 log = logging.getLogger("storm_tpu_torch.data")
 # Rows of one evaluation forward, as storm_tpu evaluates.
@@ -73,6 +77,7 @@ def train_to_convergence(
     seed: int = 0,
     device=None,
     init: Optional[tuple] = None,
+    mesh=None,
 ):
     """Train ``model`` until the held-out accuracy stops improving;
     returns ``(params, state, history)`` with numpy trees in the JAX layout
@@ -87,25 +92,42 @@ def train_to_convergence(
     state only what ``model.init`` declares (no ``moe_aux_loss``).
     ``init`` is the starting ``(params, state)`` (numpy trees), by default
     the port's seeded ``init_params(model, seed)``; ``device`` defaults to
-    ``cuda`` (pass ``"cpu"`` for the CPU)."""
-    train_step, opt = make_train_step(model, learning_rate=learning_rate, device=device)
-    dev = train_step.device
+    ``cuda`` (pass ``"cpu"`` for the CPU).
+
+    ``mesh``: None trains on the one device; a (data, model) mesh of ranks
+    trains this rank's part of the dp x tp step
+    (:func:`storm_tpu_torch.parallel.train.init_sharded_training`, every
+    rank of the mesh calling this function alike, with the same rows).
+    Every rank evaluates the whole held-out set through the sharded
+    forward, and the snapshot is the whole tree on every rank (the TP
+    shards gathered, ``sharding.gather_params_tp``)."""
     params0, state0 = init if init is not None else init_params(model, seed)
-    params = trainable_params(params0, dev)
-    state = state_tensors(state0, dev)
-    opt_state = opt(params)
+    if mesh is None:
+        train_step, opt = make_train_step(model, learning_rate=learning_rate, device=device)
+        params = trainable_params(params0, train_step.device)
+        opt_state = opt(params)
+        state = state_tensors(state0, train_step.device)
+        mesh = make_mesh(1, 1, device=train_step.device)
+    else:
+        train_step, params, opt_state, state = init_sharded_training(
+            model, mesh, seed=seed, learning_rate=learning_rate, device=device,
+            init=(params0, state0))
+    dev = train_step.device
 
     def accuracy(params, state, x, y) -> float:
         preds = []
         with torch.no_grad():
             for i in range(0, len(x), EVAL_SLICE):
-                xb = torch.as_tensor(np.asarray(x[i:i + EVAL_SLICE], np.float32), device=dev)
-                logits, _ = model.apply(params, state, xb, train=False)
+                logits, _ = train_step.apply(params, state,
+                                             np.asarray(x[i:i + EVAL_SLICE], np.float32))
                 preds.append(logits.argmax(-1).cpu().numpy())
         return float((np.concatenate(preds) == y).mean())
 
     def persistable(st):
         return {k: v for k, v in st.items() if k in state0}
+
+    def whole(params):
+        return gather_params_tp(mesh, params, mesh.axis_names[1])
 
     rng = np.random.default_rng(seed)
     history = []
@@ -117,7 +139,7 @@ def train_to_convergence(
         for i in range(0, n - batch_size + 1, batch_size):
             idx = order[i:i + batch_size]
             params, opt_state, state, loss = train_one_step(
-                train_step, params, opt_state, state, x_train[idx], y_train[idx])
+                train_step, mesh, params, opt_state, state, x_train[idx], y_train[idx])
             losses.append(float(loss))
         val_acc = (accuracy(params, state, x_val, y_val)
                    if x_val is not None else float("nan"))
@@ -127,11 +149,11 @@ def train_to_convergence(
             continue
         if val_acc > best_acc + 1e-4:
             best_acc, stale = val_acc, 0
-            best_snapshot = (host_tree(params), host_tree(persistable(state)))
+            best_snapshot = (host_tree(whole(params)), host_tree(persistable(state)))
         else:
             stale += 1
             if stale >= patience:
                 break
     if best_snapshot is not None:
         return best_snapshot[0], best_snapshot[1], history
-    return host_tree(params), host_tree(persistable(state)), history
+    return host_tree(whole(params)), host_tree(persistable(state)), history

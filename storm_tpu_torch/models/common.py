@@ -28,8 +28,9 @@ class Dense(nn.Module):
 
     ``reduce``: None, or, for a row-parallel layer under tensor
     parallelism (``parallel/sharding.py:attach_tp``), the sum of its
-    partial products over the model axis; :meth:`params` then carries it
-    to ``ops.layers.dense``."""
+    partial products over the model axis (Megatron's *g*,
+    ``collectives.reduce_from_axis``: the gradient passes through it as it
+    is); :meth:`params` then carries it to ``ops.layers.dense``."""
 
     def __init__(self, p: dict) -> None:
         super().__init__()
@@ -95,7 +96,10 @@ class ConvBN(nn.Module):
     statistics a forward computes are kept in ``new_state`` (``{"mean",
     "var"}``); every family names a ConvBN by the path of its state above
     ``"bn"`` (``stages.0.1.a`` holds ``state["stages"][0][1]["a"]``), which
-    is how ``convert.apply`` gathers the new state tree."""
+    is how ``convert.apply`` gathers the new state tree. ``batch_sum``:
+    None, or under data parallelism the sum over the data axis that makes
+    train mode's statistics the global batch's (``ops.layers.batchnorm``;
+    ``parallel/train.py`` sets it)."""
 
     def __init__(self, p: dict, s: dict, stride: int = 1, act=F.relu,
                  conv: str = "conv", depthwise: bool = False) -> None:
@@ -107,11 +111,12 @@ class ConvBN(nn.Module):
         for name in ("mean", "var"):
             self.register_buffer(name, s["bn"][name])
         self.new_state = None
+        self.batch_sum = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, new_state = L.batchnorm({"scale": self.scale, "bias": self.bias},
                                    {"mean": self.mean, "var": self.var}, self.conv(x),
-                                   train=self.training)
+                                   train=self.training, batch_sum=self.batch_sum)
         if self.training:
             self.new_state = new_state
         return x if self.act is None else self.act(x)

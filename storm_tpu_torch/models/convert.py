@@ -15,7 +15,7 @@ in every mode.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -181,7 +181,8 @@ def host_tree(tree):
     return _map(lambda t, _p: t.detach().cpu().numpy().copy(), tree)
 
 
-def apply(model: ModelDef, params, state, x: torch.Tensor, train: bool = False):
+def apply(model: ModelDef, params, state, x: torch.Tensor, train: bool = False,
+          attach: Optional[Callable[[nn.Module], Any]] = None):
     """``(logits, new_state)`` of ``model`` on ``x``: the counterpart of
     storm_tpu's ``ModelDef.apply(params, state, x, train)``. ``params``
     and ``state`` are tensor trees in the JAX layout (e.g. from
@@ -190,8 +191,12 @@ def apply(model: ModelDef, params, state, x: torch.Tensor, train: bool = False):
     BatchNorm normalizes with the batch's statistics and ``new_state`` holds
     the updated running ones, and a MoE-ViT adds its load-balancing loss
     under ``"moe_aux_loss"`` (storm_tpu's training surface); otherwise
-    ``state`` is returned as it is."""
+    ``state`` is returned as it is. ``attach(module)``, if given, runs on
+    the module before the forward (a sharded step's collectives:
+    ``parallel/train.py``)."""
     module = model.make(params, state or {})
+    if attach is not None:
+        attach(module)
     module.train(train)
     logits = module(x)
     if not train:

@@ -48,7 +48,7 @@ class MoEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = {"ln1": self.ln1.params(), "ln2": self.ln2.params(),
-             "attn": {n: getattr(self.attn, n).params() for n in "qkvo"},
+             "attn": self.attn.params(),
              "moe": {k: getattr(self, k) for k in MOE_KEYS}}
         x, aux = moe_block(p, x, self.num_heads, self.capacity_factor,
                            AUX_LOSS_WEIGHT if self.training else None, self.shard)

@@ -58,11 +58,11 @@ class ModelDef:
     # ``forward_sp(x, mesh, seq_axis)``.
     apply_sp: Optional[Callable] = None
 
-    def apply(self, params, state, x: torch.Tensor, train: bool = False):
+    def apply(self, params, state, x: torch.Tensor, train: bool = False, attach=None):
         """``(logits, new_state)``: :func:`storm_tpu_torch.models.convert.apply`."""
         from storm_tpu_torch.models.convert import apply
 
-        return apply(self, params, state, x, train)
+        return apply(self, params, state, x, train, attach)
 
 
 _BUILDERS: Dict[str, Callable[..., ModelDef]] = {}

@@ -13,7 +13,9 @@ block holds the column-parallel q, k, v and mlp_in shards and the
 row-parallel o and mlp_out ones: its attention runs H / tp heads through
 the flash kernel, and the row-parallel outputs are summed over the model
 axis before the residual (``ops/layers.py:dense``), the bias added once
-after the sum.
+after the sum. For training, Megatron's *f* (``collectives.copy_to_axis``)
+enters each column-parallel region once: on LN1's output, which feeds q, k
+and v, and on ``n2``, which feeds mlp_in; the row-parallel sums are *g*.
 """
 
 from __future__ import annotations
@@ -31,19 +33,32 @@ from storm_tpu_torch.ops.fused_norm import residual_layernorm
 
 
 class MultiHeadAttention(nn.Module):
+    """``copy``: None, or under tensor parallelism Megatron's *f* over the
+    model axis (``parallel/sharding.py:attach_tp``), applied once to the
+    input that feeds q, k and v."""
+
     def __init__(self, p: dict, num_heads: int) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.q, self.k, self.v, self.o = (Dense(p[n]) for n in "qkvo")
+        self.copy = None
+
+    def params(self) -> dict:
+        p = {n: getattr(self, n).params() for n in "qkvo"}
+        if self.copy is not None:
+            p["copy"] = self.copy
+        return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = {n: getattr(self, n).params() for n in "qkvo"}
-        return multi_head_attention(p, x, self.num_heads)
+        return multi_head_attention(self.params(), x, self.num_heads)
 
 
 class Block(nn.Module):
     """Pre-LN encoder block: ``attn = MHA(LN1(x))``; ``y, n2 =
-    residual_layernorm(ln2, attn, x)``; ``y + mlp_out(gelu(mlp_in(n2)))``."""
+    residual_layernorm(ln2, attn, x)``; ``y + mlp_out(gelu(mlp_in(n2)))``.
+    ``copy``: None, or under tensor parallelism the *f* applied to ``n2``,
+    the input of the column-parallel mlp_in (the attention's own is
+    ``attn.copy``)."""
 
     def __init__(self, p: dict, num_heads: int) -> None:
         super().__init__()
@@ -52,6 +67,7 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(p["ln2"])
         self.mlp_in = Dense(p["mlp_in"])
         self.mlp_out = Dense(p["mlp_out"])
+        self.copy = None
 
     def params(self) -> dict:
         """The block's parameter dict (storm_tpu's block layout)."""
@@ -65,6 +81,8 @@ class Block(nn.Module):
         # the fused norm runs at full width on every rank.
         attn = self.attn(self.ln1(x))
         y, n2 = residual_layernorm(self.ln2.params(), attn, x)
+        if self.copy is not None:
+            n2 = self.copy(n2)
         return y + self.mlp_out(L.gelu(self.mlp_in(n2)))
 
 

@@ -40,9 +40,13 @@ def multi_head_attention(p: dict, x: torch.Tensor, num_heads: int) -> torch.Tens
     Under tensor parallelism q, k and v are column-parallel: this rank's
     projections hold ``h = num_heads / tp`` of the heads (their width
     says how many), which run through the kernel alone, and o, row-
-    parallel, sums its partial products over the model axis."""
+    parallel, sums its partial products over the model axis. ``p["copy"]``,
+    when present, is applied once to ``x`` before the three projections
+    (Megatron's *f*, for the gradient of a tensor-parallel step)."""
     b, s, c = x.shape
     d = c // num_heads
+    if "copy" in p:
+        x = p["copy"](x)
     q = dense(p["q"], x)
     h = q.shape[-1] // d
 

@@ -12,7 +12,7 @@ instead.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +27,9 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     A row-parallel layer under tensor parallelism carries ``p["reduce"]``
     (``models/common.py:Dense``): this rank holds a slice of w's rows and
     x's matching columns, so its product is a partial sum, kept in f32
-    (:func:`dense_partial`), summed over the model axis by ``reduce``,
-    then cast, and the bias, which every rank holds whole, added once.
+    (:func:`dense_partial`), summed over the model axis by ``reduce``
+    (Megatron's *g*, whose backward passes the gradient through), then
+    cast, and the bias, which every rank holds whole, added once.
     The one-rank layer rounds the same f32 sum; only its order differs.
 
     On a CUDA tensor that is one GEMM in x.dtype, which cuBLAS accumulates
@@ -113,7 +114,9 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 def batchnorm(p: dict, s: dict, x: torch.Tensor, train: bool = False,
-              momentum: float = 0.9, eps: float = 1e-5) -> Tuple[torch.Tensor, dict]:
+              momentum: float = 0.9, eps: float = 1e-5,
+              batch_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """BatchNorm over the channel (last) axis, ``storm_tpu/ops/layers.py``'s
     ``batchnorm``: returns ``(y, new_state)``. Inference normalizes with
     the running statistics ``s`` (f32 ``mean``, ``var``) and returns ``s``;
@@ -122,12 +125,27 @@ def batchnorm(p: dict, s: dict, x: torch.Tensor, train: bool = False,
     momentum) * batch`` for both statistics (detached: running statistics
     carry no gradient). ``F.batch_norm`` differs on both counts (an
     unbiased running variance, momentum on the new value). Computed in
-    f32 with ``p``'s ``scale`` and ``bias``, cast to x.dtype."""
+    f32 with ``p``'s ``scale`` and ``bias``, cast to x.dtype.
+
+    ``batch_sum``: None, or, when the batch is split over the ranks of a
+    data axis, the sum over that axis (``collectives.sum_over_axis``, whose
+    backward sums the gradient too): the statistics are then the whole
+    batch's, as storm_tpu's are under GSPMD, in two passes as here (the
+    rows' count and per-channel sum reduced, then the sum of squared
+    deviations from the global mean), and the running ones update from
+    them."""
     if train:
         axes = tuple(range(x.dim() - 1))
         xf = x.float()
-        mean = xf.mean(dim=axes)
-        var = (xf - mean).square().mean(dim=axes)
+        if batch_sum is None:
+            mean = xf.mean(dim=axes)
+            var = (xf - mean).square().mean(dim=axes)
+        else:
+            rows = float(x.numel() // x.shape[-1])
+            total = batch_sum(torch.cat([xf.sum(dim=axes), xf.new_full((1,), rows)]))
+            count = total[-1]
+            mean = total[:-1] / count
+            var = batch_sum((xf - mean).square().sum(dim=axes)) / count
         new_s = {"mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
                  "var": momentum * s["var"] + (1 - momentum) * var.detach()}
     else:

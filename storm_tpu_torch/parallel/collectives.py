@@ -19,13 +19,40 @@ run there, copied back. Under NCCL, or on CPU tensors, nothing is staged.
 :func:`collective_stats` counts the calls and their wall seconds (the
 share of a forward spent in collectives); with :func:`set_sync_timing`
 on, each call first waits for the card, so a call's time is its own.
+
+Training differentiates through the collectives (``torch.autograd.Function``
+each; a backward's collective counts in :func:`collective_stats` like any
+other). Two conventions of the gradient, by what the loss is on an axis:
+
+- *replicated*: every rank of the axis computes the same loss (the model
+  axis of Megatron tensor parallelism, a pipeline's stage axis, the
+  expert axis). :func:`copy_to_axis` (Megatron's *f*: identity forward,
+  the gradient summed over the axis in backward) enters a region whose
+  ranks each compute part of a result; :func:`reduce_from_axis` (*g*:
+  sum forward, identity backward) leaves it; :func:`gather_from_axis`
+  concatenates the ranks' parts, its backward this rank's slice;
+- *partitioned*: each rank's loss is a part of the total (the data axis,
+  and a sequence axis whose shards each sum their own part).
+  :func:`sum_over_axis` (sum forward, the gradient summed in backward: a
+  global statistic such as BatchNorm's over the data axis),
+  :func:`ring_shift` (``ppermute`` with ``ppermute(-shift)`` of the gradient
+  as its backward), and :func:`all_reduce_grads` (the parameters'
+  gradients summed, or averaged, over the axis in one flattened buffer,
+  after the backward). :func:`replicate_grads` gives every rank of a
+  replicated-loss axis one rank's gradients of its replicated leaves.
+
+Every rank of an axis must call its collectives in one order; a backward
+runs its collectives in autograd's order, which is the same on ranks that
+built the same graph. The in-place :func:`all_reduce`, :func:`all_gather`
+and :func:`ppermute` are not differentiable; serving calls them where it
+needs no gradient.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
@@ -141,6 +168,148 @@ def ppermute(t: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
         if stage:
             out = out.to(t.device)
     return out
+
+
+# ---- differentiable collectives -------------------------------------------------
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce(t.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(t.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.size = mesh, axis, dim, t.shape[dim]
+        return all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.coord(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return ppermute(t, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute(g.contiguous(), ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+
+
+def _one(mesh, axis: str) -> bool:
+    """Whether ``axis`` has one rank (or is not in the mesh): its
+    collectives are the identity."""
+    return mesh is not None and mesh.shape.get(axis, 1) == 1
+
+
+def copy_to_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's *f*: ``t`` as it is, its gradient summed over ``axis``
+    in backward (the entry of a region whose ranks each use part of the
+    parameters on the same ``t``). The identity over an axis of one."""
+    return t if _one(mesh, axis) else _CopyToAxis.apply(t, mesh, axis)
+
+
+def reduce_from_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's *g*: the sum of the ranks' ``t`` over ``axis`` (a new
+    tensor), the gradient passed through as it is in backward (every
+    rank's loss is the same, so each partial sum gets all of it)."""
+    return t if _one(mesh, axis) else _ReduceFromAxis.apply(t, mesh, axis)
+
+
+def sum_over_axis(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of the ranks' ``t`` over an axis whose ranks' losses add up
+    to the total (the data axis): the gradient is summed over ``axis`` in
+    backward, so each rank's ``t`` gets what every rank's loss owes it."""
+    return t if _one(mesh, axis) else _SumOverAxis.apply(t, mesh, axis)
+
+
+def gather_from_axis(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` with a gradient: the ranks' ``t`` concatenated
+    along ``dim``; backward keeps this rank's slice of the gradient (every
+    rank computes the same loss from the gathered whole)."""
+    return t if _one(mesh, axis) else _GatherFromAxis.apply(t, mesh, axis, dim)
+
+
+def ring_shift(t: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """:func:`ppermute` with a gradient: the gradient of what this rank
+    received goes back to the rank that sent it (``ppermute(-shift)``)."""
+    return t if _one(mesh, axis) else _Shift.apply(t, mesh, axis, shift)
+
+
+def all_reduce_grads(tensors: List[Optional[torch.Tensor]], mesh, axis: str,
+                     mean: bool = True) -> List[Optional[torch.Tensor]]:
+    """Sum ``tensors`` (gradients; None is skipped) over ``axis`` in place,
+    through one flattened buffer per dtype and device (one collective,
+    not one a leaf), and divide by the axis's size with ``mean``. Every
+    rank of the axis passes tensors of the same shapes in the same order.
+    Returns ``tensors``."""
+    group = None if _one(mesh, axis) else mesh.group(axis)
+    if group is None:
+        return tensors
+    n = mesh.shape[axis]
+    buckets: dict = {}
+    for t in tensors:
+        if t is not None:
+            buckets.setdefault((t.dtype, t.device), []).append(t)
+    for ts in buckets.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        all_reduce(flat, mesh, axis)
+        if mean:
+            flat.div_(n)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return tensors
+
+
+def replicate_grads(tensors: List[Optional[torch.Tensor]], mesh, axis: str,
+                    src: int = 0) -> List[Optional[torch.Tensor]]:
+    """Make every rank's ``tensors`` (the gradients of leaves replicated
+    over ``axis``, which every rank of it computed alike) those of the
+    rank at index ``src`` of the axis, bit for bit: the other ranks
+    contribute zeros to one :func:`all_reduce_grads` sum. A guard against
+    replicas drifting apart through kernels whose summation order is not
+    fixed. Returns ``tensors``."""
+    if _one(mesh, axis):
+        return tensors
+    if mesh.coord(axis) != src:
+        for t in tensors:
+            if t is not None:
+                t.zero_()
+    return all_reduce_grads(tensors, mesh, axis, mean=False)
 
 
 # ---- the probe: which gloo collectives take CUDA tensors on this card ------------

@@ -102,10 +102,27 @@ class ExpertShard:
         every = all_gather(counts[None], self.mesh, self.data_axis)  # (dp, E)
         return every[:self.mesh.coord(self.data_axis)].sum(dim=0)
 
-    def combine(self, y: torch.Tensor) -> torch.Tensor:
-        from storm_tpu_torch.parallel.collectives import all_reduce
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (the same on every expert rank) as this rank's experts
+        take it: Megatron's *f* over the expert axis, so a backward sums
+        what each rank's experts owe it."""
+        from storm_tpu_torch.parallel.collectives import copy_to_axis
 
-        return all_reduce(y, self.mesh, self.expert_axis)
+        return copy_to_axis(t, self.mesh, self.expert_axis)
+
+    def combine(self, y: torch.Tensor) -> torch.Tensor:
+        """The partial combines summed over the expert axis (*g*: the
+        gradient passes through)."""
+        from storm_tpu_torch.parallel.collectives import reduce_from_axis
+
+        return reduce_from_axis(y, self.mesh, self.expert_axis)
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axis, its gradient summed too (the
+        load-balancing loss's statistics are the whole batch's)."""
+        from storm_tpu_torch.parallel.collectives import sum_over_axis
+
+        return sum_over_axis(t, self.mesh, self.data_axis)
 
 
 def moe_routing(gate: torch.Tensor, tokens: torch.Tensor, n_experts: int,
@@ -144,17 +161,19 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     fraction of tokens routed there times the mean gate probability),
     times ``aux_loss_weight``, in f32; None when the weight is None.
 
-    With ``shard`` (serving under expert parallelism) ``p`` holds this
-    rank's block of experts and ``x`` this data rank's tokens; the result
-    is the one-shard layer's on those tokens."""
+    With ``shard`` (expert parallelism) ``p`` holds this rank's block of
+    experts and ``x`` this data rank's tokens; the result is the one-shard
+    layer's on those tokens, and ``aux`` the whole batch's loss (its
+    token fractions and mean probabilities summed over the data axis).
+    Differentiable: the tokens and gate values enter the rank's experts
+    through *f* and leave through *g* (:class:`ExpertShard`), so every
+    expert rank's gradient of the tokens, the gate and what came before
+    is the whole one."""
     shape = x.shape
     dim = shape[-1]
     tokens = x.reshape(-1, dim)
     n = tokens.shape[0]
     e = p["gate"].shape[-1]
-    if shard is not None and aux_loss_weight is not None:
-        raise NotImplementedError("the load-balancing loss under expert parallelism "
-                                  "(sharded training) is not ported")
     probs, expert, keep, pos, cap = moe_routing(p["gate"], tokens, e, capacity_factor,
                                                 shard)
     # This rank's experts (all of them at one shard).
@@ -167,10 +186,13 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     pos_cap = (slot[:, None] == torch.arange(cap, device=x.device)).float()  # (N, C)
     dispatch = keep_l[:, :, None] * pos_cap[:, None, :]  # (N, E, C)
     gate_val = (probs * keep).sum(dim=-1)  # (N,)
+    expert_in = tokens
+    if shard is not None:
+        gate_val, expert_in = shard.enter(gate_val), shard.enter(tokens)
     combine = dispatch * gate_val[:, None, None]  # (N, E, C)
 
     # "nec,nd->ecd": every expert's queue of tokens, in f32, then cast.
-    xe = (dispatch.reshape(n, el * cap).t() @ tokens.float()).reshape(el, cap, dim)
+    xe = (dispatch.reshape(n, el * cap).t() @ expert_in.float()).reshape(el, cap, dim)
     xe = xe.to(tokens.dtype)
     h = L.gelu(_matmul(xe, p["w_in"]) + p["b_in"].to(xe.dtype)[:, None, :])
     ye = _matmul(h, p["w_out"]) + p["b_out"].to(h.dtype)[:, None, :]  # (E, C, dim)
@@ -181,7 +203,12 @@ def moe_layer(p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     aux = None
     if aux_loss_weight is not None:
         onehot = (expert[:, None] == torch.arange(e, device=x.device)).float()
-        aux = aux_loss_weight * e * (onehot.mean(dim=0) * probs.mean(dim=0)).sum()
+        if shard is None:
+            frac, mean_prob = onehot.mean(dim=0), probs.mean(dim=0)
+        else:
+            total = shard.batch_sum(torch.cat([onehot.sum(dim=0), probs.sum(dim=0)]))
+            frac, mean_prob = total[:e] / (n * shard.dp), total[e:] / (n * shard.dp)
+        aux = aux_loss_weight * e * (frac * mean_prob).sum()
     return y.to(x.dtype).reshape(shape), aux
 
 

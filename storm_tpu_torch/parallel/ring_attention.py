@@ -6,7 +6,7 @@ Each rank holds its shard of the queries, keys and values, (B, H, S / n,
 D). It attends its queries to the KV shard it holds, carrying the online
 softmax's running max ``m``, denominator ``l`` and unnormalized
 accumulator ``acc``; the KV shards then rotate one hop around the ring
-(``collectives.ppermute``, rank i to rank i + 1), n - 1 hops, so every
+(``collectives.ring_shift``, rank i to rank i + 1), n - 1 hops, so every
 query sees every key, and the carry normalizes to the exact softmax.
 storm_tpu's arithmetic: scores in f32, the probabilities cast to v's
 dtype before P·V, ``acc / l`` cast back at the end, and the same order of
@@ -14,7 +14,10 @@ merges. storm_tpu has no kernel here, so the block products are
 ``torch.matmul`` (f32 operands cast back on the CPU, whose bf16 GEMM is
 not shown to accumulate in f32, as ``ops/layers.py:dense``).
 
-Non-causal, as storm_tpu's.
+Non-causal, as storm_tpu's. Differentiable: the gradient of each
+rotated shard goes back around the ring to the rank that holds it
+(``ring_shift``'s backward), so each rank's k and v get what every rank's
+queries owe them, the gradient of the sum of the ranks' losses.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from storm_tpu_torch.parallel.collectives import ppermute
+from storm_tpu_torch.parallel.collectives import ring_shift
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,8 +68,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     acc, m, l = _partial_attention(q, k, v, scale)
     for _ in range(n - 1):
         # Rotate the KV shards one hop around the ring.
-        k = ppermute(k, mesh, seq_axis)
-        v = ppermute(v, mesh, seq_axis)
+        k = ring_shift(k, mesh, seq_axis)
+        v = ring_shift(v, mesh, seq_axis)
         acc_j, m_j, l_j = _partial_attention(q, k, v, scale)
         m, l, acc = _merge(m, l, acc, m_j, l_j, acc_j)
     return (acc / l[..., None]).to(q.dtype)

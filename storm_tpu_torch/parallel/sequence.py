@@ -11,6 +11,12 @@ full (S, D) activation is never gathered on one rank. The block follows
 storm_tpu's ``seq_parallel_block`` exactly: plain LayerNorms (no fused
 residual norm) and the ring (no flash kernel), as storm_tpu's
 ``apply_sp`` calls neither.
+
+Differentiable through the ring: each rank's loss on its shard of the
+output is a part of the whole sequence's, and the gradient of the sum of
+the parts reaches each rank's shard of the input; the blocks' parameters,
+which every rank holds whole, get the whole gradient as the sum of the
+ranks' (``collectives.all_reduce_grads(..., mean=False)`` over the axis).
 """
 
 from __future__ import annotations

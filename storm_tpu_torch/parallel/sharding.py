@@ -5,10 +5,11 @@ storm_tpu annotates where arrays live (``NamedSharding``) and lets XLA
 insert the collectives. The port gives each rank its own shard: a spec is
 a tuple with one entry a dimension, the mesh axis that dimension is split
 over or None (``PartitionSpec``'s meaning; ``()`` is replicated), and
-:func:`shard_array` cuts this rank's block of it, a contiguous copy.
-Everything here works on numpy arrays and torch tensors alike, on the
-parameter trees in the JAX layout (nested dicts and lists), quantized
-leaves ``{"__q", "__s"}`` included.
+:func:`shard_array` cuts this rank's block of it, a contiguous copy (of a
+leaf that requires grad, a new leaf that requires grad). Everything here
+works on numpy arrays and torch tensors alike, on the parameter trees in
+the JAX layout (nested dicts and lists), quantized leaves ``{"__q",
+"__s"}`` included.
 
 Quantize first, then shard, as storm_tpu's engine does
 (``storm_tpu/infer/engine.py:527-553``): the int8 scales are per output
@@ -16,7 +17,11 @@ column over the whole K, so a row-parallel shard keeps every column's
 scale and a column-parallel shard slices the scales with its columns
 (storm_tpu replicates the scales and lets GSPMD broadcast them; a rank
 of the port holds the ones its columns use). :func:`attach_tp` then gives
-a module built from a TP shard its row-parallel reduces.
+a module built from a TP shard its collectives (the row-parallel sums and,
+for a gradient, the column-parallel inputs' *f*); a float tree of
+trainable leaves is sharded as a numpy one is (shard the numpy tree, then
+make the leaves: ``parallel/train.py``), and :func:`gather_params_tp`
+puts the ranks' shards back together.
 """
 
 from __future__ import annotations
@@ -61,7 +66,9 @@ def shard_array(mesh, x, spec: tuple):
         return x
     block = x[tuple(index)]
     if isinstance(block, torch.Tensor):
-        return block.clone(memory_format=torch.contiguous_format)
+        # A trainable leaf's block is a trainable leaf of its own.
+        out = block.detach().clone(memory_format=torch.contiguous_format)
+        return out.requires_grad_(x.requires_grad)
     return np.array(block, copy=True)
 
 
@@ -170,24 +177,57 @@ def row_parallel_paths(params: Any) -> set:
 
 def attach_tp(module: torch.nn.Module, mesh, params: Any,
               model_axis: str = "model") -> torch.nn.Module:
-    """Give each row-parallel ``Dense`` of ``module`` (built from a TP
-    shard of ``params``) its sum over ``model_axis``
-    (``collectives.all_reduce``). The modules
-    are found by the parameters' rule applied to their own paths, and
-    must be exactly the row-parallel layers of ``params``: a family whose
-    modules do not mirror its parameter paths is refused."""
+    """Give a module built from a TP shard of ``params`` its collectives
+    over ``model_axis``: each row-parallel ``Dense`` its sum (Megatron's
+    *g*, ``collectives.reduce_from_axis``), and each module with a
+    ``copy`` slot (the attention, whose input feeds the column-parallel
+    q, k and v, and the ViT block, whose ``n2`` feeds mlp_in) Megatron's
+    *f* (``collectives.copy_to_axis``), so a backward sums the gradient
+    of every column-parallel input over the axis. The row-parallel
+    modules are found by the parameters' rule applied to their own paths,
+    and must be exactly the row-parallel layers of ``params``: a family
+    whose modules do not mirror its parameter paths is refused."""
     from storm_tpu_torch.models.common import Dense
-    from storm_tpu_torch.parallel.collectives import all_reduce
+    from storm_tpu_torch.models.vit import Block, MultiHeadAttention
+    from storm_tpu_torch.parallel.collectives import copy_to_axis, reduce_from_axis
 
-    reduce = functools.partial(all_reduce, mesh=mesh, axis=model_axis)
+    reduce = functools.partial(reduce_from_axis, mesh=mesh, axis=model_axis)
+    copy = functools.partial(copy_to_axis, mesh=mesh, axis=model_axis)
     attached = set()
     for name, m in module.named_modules():
         if isinstance(m, Dense) and any(k in ROW_KEYS for k in name.split(".")):
             m.reduce = reduce
             attached.add(name)
+        elif isinstance(m, (MultiHeadAttention, Block)):
+            m.copy = copy
     want = row_parallel_paths(params)
     if attached != want:
         raise ValueError(f"tensor parallelism: the row-parallel modules {sorted(attached)} "
                          f"are not the row-parallel parameters {sorted(want)}")
     return module
 
+
+def gather_params_tp(mesh, params: Any, model_axis: str = "model") -> Any:
+    """The whole tree from this rank's TP shard of it (parameters or their
+    gradients, tensors): each split leaf all-gathered over ``model_axis``
+    along its split dimension, each replicated leaf as it is. A collective
+    call (every rank of the model axis, in one order); for tests and for
+    checkpoints. With a model axis of one it is ``params`` itself."""
+    from storm_tpu_torch.parallel.collectives import all_gather
+
+    def join(path, leaf):
+        spec = _tp_spec(path, leaf, model_axis)
+        if leaf is None or model_axis not in spec:
+            return leaf
+        return all_gather(leaf.detach().contiguous(), mesh, model_axis,
+                          dim=spec.index(model_axis))
+
+    return _walk(join, params)
+
+
+def replicated_leaves(params: Any, model_axis: str = "model") -> Any:
+    """The tree's leaves that :func:`tp_param_specs` keeps whole (the
+    norms, the embedding, the head, the row-parallel biases), as a tree
+    of booleans."""
+    return _walk(lambda path, leaf: model_axis not in _tp_spec(path, leaf, model_axis),
+                 params)

@@ -331,12 +331,14 @@ def test_decode_and_stream_operators_load_no_jax():
 def test_training_loads_no_jax(tmp_path):
     """The training step imported first in a fresh interpreter, then one
     lenet5 step taken on the CPU, its parameters saved with
-    ``save_checkpoint`` and read back: nothing of JAX or storm_tpu gets
+    ``save_checkpoint`` and read back, then one step of the sharded step
+    and of the pipeline on a mesh of one: nothing of JAX or storm_tpu gets
     loaded."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {ROOT!r})
         import storm_tpu_torch.parallel.train
+        import storm_tpu_torch.parallel.pipeline
         import numpy as np
         from storm_tpu_torch.data import train_to_convergence
         from storm_tpu_torch.models.convert import host_tree, trainable_params
@@ -349,6 +351,17 @@ def test_training_loads_no_jax(tmp_path):
         path = save_checkpoint({str(tmp_path / "lenet5.npz")!r}, host_tree(params), state, md)
         print("TRAINED", float(loss) > 0, load_checkpoint(str(path))[2]["model"],
               train_to_convergence.__name__)
+        from storm_tpu_torch.parallel.mesh import make_mesh
+        from storm_tpu_torch.parallel.train import init_sharded_training, train_one_step
+        mesh = make_mesh(1, 1, device="cpu")
+        step, p, o, st = init_sharded_training(md, mesh, device="cpu")
+        *_, loss = train_one_step(step, mesh, p, o, st, x, np.arange(4))
+        vit = model_def("vit_tiny")
+        pp_step, ps, po = storm_tpu_torch.parallel.pipeline.init_pp_training(
+            vit, make_mesh(1, 1, ("data", "stage"), device="cpu"), n_micro=2, device="cpu")
+        xv = np.random.RandomState(2).rand(2, 32, 32, 3).astype(np.float32)
+        *_, pp_loss = pp_step(ps, po, xv, np.arange(2))
+        print("SHARDED", float(loss) > 0, float(pp_loss) > 0, pp_step.heads)
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu", "pyarrow", "grpc"))
@@ -359,6 +372,7 @@ def test_training_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     assert "TRAINED True lenet5 train_to_convergence" in out.stdout, out.stdout
+    assert "SHARDED True True 4" in out.stdout, out.stdout
 
 
 def test_dist_runtime_loads_no_jax_or_grpc():

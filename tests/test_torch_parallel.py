@@ -214,9 +214,13 @@ def test_expert_parallel_layer_is_the_one_shard_layer(dp, ep, cf):
             y = y + part
         got.append(y)
     np.testing.assert_allclose(torch.cat(got).numpy(), full.numpy(), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        moe_layer({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x), cf,
-                  1e-2, _PlayedShard(_mesh(1, 1, "expert", 0), torch.zeros(8)))
+    # The load-balancing loss at one shard of a one-rank mesh is the
+    # one-shard layer's (its sums over the data axis are the identity).
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    _, aux_full = moe_layer(pt, torch.from_numpy(x), cf, 1e-2)
+    _, aux_one = moe_layer(pt, torch.from_numpy(x), cf, 1e-2,
+                           _PlayedShard(_mesh(1, 1, "expert", 0), torch.zeros(8)))
+    np.testing.assert_allclose(float(aux_one), float(aux_full), rtol=1e-6)
 
 
 def test_row_parallel_partials_sum_to_the_dense_layer():

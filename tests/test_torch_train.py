@@ -61,6 +61,7 @@ from storm_tpu_torch.models.convert import (
     host_tree, state_tensors, trainable_params, tree_leaves)
 from storm_tpu_torch.models.registry import (
     check_checkpoint, load_checkpoint, model_def, save_checkpoint)
+from storm_tpu_torch.parallel.mesh import default_mesh
 from storm_tpu_torch.parallel.train import (
     ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY, Optimizer, adam_moments,
     make_train_step, train_one_step)
@@ -197,7 +198,8 @@ def test_default_optimizer_is_optax_adamw_and_its_steps_match():
     state = {}
     for x, y in _batches(md, 3, seed=1):
         jp, jos, js, jloss = jstep(jp, jos, js, jnp.asarray(x), jnp.asarray(y))
-        params, opt_state, state, loss = train_one_step(step, params, opt_state, state, x, y)
+        params, opt_state, state, loss = train_one_step(step, default_mesh("cpu"), params,
+                                                        opt_state, state, x, y)
         assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
     _close(host_tree(params), jp, 1e-4, "params")
     mu, nu = adam_moments(params, opt_state)
