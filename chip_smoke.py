@@ -347,6 +347,38 @@ no result):
    epilogue (tp's row-parallel partials) and its bf16 kernel at the tp2
    and tp4 shards, at one data rank's rows and at longseq's S / sp rows,
    flash at H / tp heads and the fused norm at a data rank's rows;
+19. the control plane, ViT-B/16 bf16 ``int8_fused`` at full width on the
+   main path's engine: (a) an ``InferenceWorker`` on the card and an
+   ``InferenceClient`` over loopback (the port's frames): ``Info`` with
+   storm_tpu's keys, ``Predict`` of 8 seeded images bit-identical to
+   ``engine.predict``, ``PredictJson`` the native encoding of the same
+   forward, ``INVALID_ARGUMENT`` for a bad shape, a garbage tensor and bad
+   or ragged JSON, ``UNIMPLEMENTED`` for a Dist method; 4 concurrent
+   callers of the ``CrossCallerBatcher`` coalesced into fewer forwards in
+   window and continuous mode; (b) ``RemoteInferenceBolt`` in the 2/4/2
+   topology against that worker, 16 records and the poison, every output
+   byte-identical to the worker engine's direct forward of its batch;
+   (c) ``python -m storm_tpu_torch.main serve`` as a process of its own
+   answering (a)'s ``Info`` and ``Predict`` bit for bit and exiting 0 on
+   SIGTERM; (e) the ``run`` daemon (``main._run_daemon``, config from a
+   TOML file, UI on an ephemeral port, a control token, the Observatory
+   and the plan corrector attached) at inference parallelism 1: a burst
+   under ``--autoscale-target-ms`` scales it up, never past
+   ``ACCEL_MAX_PARALLELISM``, and a calm trickle back down, every record
+   answered once; with the corrector enabled a burst records
+   ``defer_plan`` and scales nothing; ``main plan`` on this phase's curves
+   gives a plan whose overrides land on ``Config``, its predicted e2e p99
+   printed beside the measured one; (d) on that daemon every read route
+   answers storm_tpu's status and keys, a mutating route without the
+   token 401, rebalance 4 -> 2 under a burst answers every record once,
+   drain returns with no tree in flight, DRPC over HTTP reaches ViT-B/16,
+   a ``profile`` capture of live traffic names the kernels, and the ctl
+   subcommands exit as storm_tpu's do; every path's tally exactly
+   forwards x (73, 12, 12) with no eager launch; (f), run inside phase 17
+   on its cluster: the dist UI's status routes, a rebalance on w1 with
+   every record answered once, a ``profile`` routed to w1 naming the
+   kernels, and ``DistMetrics``' Prometheus text carrying the merged
+   count;
 20. sharded training: the one-rank ViT-B/16 float32 step (``make_train_step``)
    from a seeded tree on 3 seeded batches of 8, its step 1's gradients
    written for the ranks; four rank processes on ``cuda:0`` over gloo
@@ -6616,6 +6648,8 @@ def control_plane(torch, card: str, phase16: dict, device: str = "cuda") -> dict
                                             res["b"])
                 res["f"] = p17_profile_and_decode(cluster, producer, bootstrap, payloads,
                                                   card, tmp)
+                # 19 (f): the dist UI, on this cluster before it shuts down
+                res["ui"] = p19_dist_ui(cluster, producer, bootstrap, payloads, ref, card, tmp)
                 res["journal"] = cluster.journal_stats()
             finally:
                 producer.close()
@@ -7604,6 +7638,921 @@ def sharded_training(torch, card: str, device: str = "cuda", name: str = "vit_b1
     return out
 
 
+# ---- phase 19: the control plane and the serving worker ---------------------
+
+P19_SEED = 19
+P19_CALLERS = 4  # (a): concurrent callers of the cross-caller batcher, 2 rows each
+P19_TIMED = 10  # (a): round trips timed, each way
+P19_TOKEN = "chip-smoke-phase19"
+P19_TARGET_MS = 600.0  # (e): --autoscale-target-ms (scale-down below a quarter of it)
+P19_BURSTS = 3  # (e): LIFE_BURST records this many times, produced at once
+P19_TRICKLE_S = 0.25  # (e): one record this often once the burst is answered
+P19_SCALE_S = 0.5  # (e): the autoscaler's interval in this run (the policy's default is 5 s)
+P19_DRAIN = 32  # (d): records produced just before a drain
+P19_DIST_TOPICS = ("p19-input", "p19-output", "p19-dead-letter")
+# storm_tpu's keys of each read route (its runtime/ui.py), for a local
+# runtime with an Observatory and a plan corrector attached; None: the
+# route answers 404 there too (the worker-log tail is dist-only, the
+# scorecard needs the fleet harness, not ported).
+P19_ROUTES = {
+    "/healthz": ["status", "uptime_s"],
+    "/api/v1/cluster/summary": ["engines", "topologies", "uptime_s"],
+    "/api/v1/topology/summary": ["topologies"],
+    "/api/v1/topology/{name}": ["components", "errors", "inflight_trees", "name", "status"],
+    "/api/v1/topology/{name}/errors": ["errors"],
+    "/api/v1/topology/{name}/graph": ["components", "edges", "name"],
+    "/api/v1/topology/{name}/component/inference-bolt": ["component", "executors"],
+    "/api/v1/topology/{name}/traces": ["flight", "recent", "slowest", "stats", "topology"],
+    "/api/v1/topology/{name}/flight": ["flight", "topology"],
+    "/api/v1/topology/{name}/qos": ["continuous", "qos", "topology"],
+    "/api/v1/topology/{name}/cascade": ["bolts", "cascade", "engines", "topology"],
+    "/api/v1/topology/{name}/profile": ["baseline_loaded", "bottleneck", "copies",
+                                        "corrector", "decode", "occupancy", "profile",
+                                        "regressions", "slo", "topology", "utilization"],
+    "/api/v1/topology/{name}/bottleneck": ["bottleneck", "interval_s", "topology",
+                                           "utilization"],
+    "/api/v1/topology/{name}/copies": ["amp_ceiling", "cumulative", "topology", "window"],
+    "/api/v1/topology/{name}/plan": ["corrector", "coverage", "note", "topology"],
+    "/api/v1/topology/{name}/logs": None,
+    "/api/v1/topology/{name}/scorecard": None,
+}
+P19_INFO_KEYS = ["buckets", "dtype", "input_shape", "mesh", "model", "num_classes"]
+P19_TOML = """\
+[model]
+name = "{name}"
+dtype = "{dtype}"
+weights = "{weights}"
+num_classes = {num_classes}
+input_shape = {shape}
+
+[batch]
+max_batch = {B}
+buckets = [{B}]
+max_wait_ms = 50.0
+
+[offsets]
+policy = "earliest"
+
+[topology]
+inference_parallelism = 1
+message_timeout_s = 60.0
+
+[control]
+auth_token = "{token}"
+
+[obs]
+enabled = true
+interval_s = 0.5
+
+[plan]
+enabled = true
+correct = false
+"""
+
+
+def p19_http(port: int, method: str, path: str, body=None, token: str = "",
+             timeout: float = 120.0) -> tuple:
+    """One HTTP call: (status, the JSON or text answer)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=json.dumps(body).encode() if body is not None else None)
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode("utf-8", "replace")
+
+
+def p19_callers(batcher, parts: list, timeout_s: float = 120.0) -> list:
+    """``batcher.predict`` from one thread a part, all released at once."""
+    import threading
+
+    outs: list = [None] * len(parts)
+    errs: list = []
+    gate = threading.Barrier(len(parts))
+
+    def call(i):
+        try:
+            gate.wait(timeout_s)
+            outs[i] = batcher.predict(parts[i])
+        except Exception as e:  # the caller's error is the result
+            errs.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,), daemon=True,
+                                name=f"p19-caller-{i}") for i in range(len(parts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"19 (a): callers failed or hung: {errs[:2]}")
+    return outs
+
+
+def p19_worker(torch, card: str, engine, batch_cfg) -> tuple:
+    """19 (a); returns the result and the worker (kept for (b))."""
+    from storm_tpu_torch.api.schema import encode_predictions
+    from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.resilience import RpcError
+    from storm_tpu_torch.serve import encode_tensor
+    from storm_tpu_torch.serve.batcher import CrossCallerBatcher
+    from storm_tpu_torch.serve.client import InferenceClient
+    from storm_tpu_torch.serve.worker import InferenceWorker
+
+    x = np.random.RandomState(P19_SEED).rand(B, *LIFE_SHAPE).astype(np.float32)
+    worker = InferenceWorker(vit_b16_config(), batch=batch_cfg, engine=engine, port=0,
+                             host="127.0.0.1").start()
+    client = InferenceClient(f"127.0.0.1:{worker.port}")
+    try:
+        before, f0 = engine.launch_tally(), engine.forwards
+        _build.reset_launch_counts()
+        info = client.info()
+        if (sorted(info) != P19_INFO_KEYS or info["model"] != vit_b16_config().name
+                or info["input_shape"] != list(LIFE_SHAPE) or info["buckets"] != [B]
+                or info["mesh"] != {"data": 1, "model": 1}):
+            raise AssertionError(f"19 (a): Info answered {info}")
+        got = client.predict(x)
+        direct = engine.predict(x)
+        if got.dtype != np.float32 or not np.array_equal(got, direct):
+            raise AssertionError(f"19 (a): Predict is not the engine's forward bit for bit "
+                                 f"(max |d| {np.abs(got - direct).max():.3e})")
+        body = json.dumps({"instances": x.tolist()})
+        js = client.predict_json(body)
+        if js != encode_predictions(direct):
+            raise AssertionError("19 (a): PredictJson is not the native encoding of the "
+                                 "engine's forward")
+        codes = {}
+        for case, method, payload in (
+                ("bad shape", "Predict", encode_tensor(np.zeros((1, 5, 5, 3), np.float32))),
+                ("garbage tensor", "Predict", b"not an arrow tensor"),
+                ("bad json", "PredictJson", b"{nope"),
+                ("ragged json", "PredictJson", POISON.encode()),
+                ("unknown method", "/storm_tpu.Dist/Control", b"{}")):
+            try:
+                client.call(method, payload, timeout=60.0)
+                codes[case] = "OK"
+            except RpcError as e:
+                codes[case] = e.code().name
+        want = {c: "INVALID_ARGUMENT" for c in codes}
+        want["unknown method"] = "UNIMPLEMENTED"
+        if codes != want:
+            raise AssertionError(f"19 (a): status codes {codes} (want {want})")
+
+        def median_ms(fn) -> float:
+            ts = []
+            for _ in range(P19_TIMED):
+                t = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(ts))
+
+        times = {"predict_ms": median_ms(lambda: client.predict(x)),
+                 "predict_json_ms": median_ms(lambda: client.predict_json(body)),
+                 "engine_predict_ms": median_ms(lambda: engine.predict(x))}
+        parts = [x[2 * i: 2 * i + 2] for i in range(P19_CALLERS)]
+        batchers = {}
+        for mode, b in (("window", CrossCallerBatcher(engine, window_ms=50.0)),
+                        ("continuous", CrossCallerBatcher(engine, continuous=True,
+                                                          batch_cfg=batch_cfg))):
+            n0 = engine.forwards
+            outs = p19_callers(b, parts)
+            n = engine.forwards - n0
+            err = max(float(np.abs(o - direct[2 * i: 2 * i + 2]).max())
+                      for i, o in enumerate(outs))
+            if not 1 <= n < P19_CALLERS or err > DIST_TOL:
+                raise AssertionError(f"19 (a): {mode} batcher ran {n} forwards for "
+                                     f"{P19_CALLERS} callers, rows {err:.2e} from the forward "
+                                     f"of all 8")
+            batchers[mode] = {"forwards": n, "max_abs_err": err}
+        launches = check_tally_delta(engine, before, f0, VIT_LAUNCHES, _build.launch_counts(),
+                                     "19 (a)")
+    finally:
+        client.close()
+    log(f"  19 (a) on {card}: Info {info}; Predict of {B} seeded images bit-identical to "
+        f"engine.predict, PredictJson the native encoding of the same forward; codes {codes}; "
+        f"round trips at B = {B}, medians of {P19_TIMED}: Predict {times['predict_ms']:.3f} ms, "
+        f"PredictJson {times['predict_json_ms']:.3f} ms, engine.predict "
+        f"{times['engine_predict_ms']:.3f} ms; {P19_CALLERS} callers of 2 rows coalesced into "
+        f"{batchers['window']['forwards']} forward (window 50 ms) and "
+        f"{batchers['continuous']['forwards']} (continuous); tally {launches}")
+    return {"info": info, "codes": codes, "batchers": batchers, "launches": launches,
+            **times, "x": x, "predict": got}, worker
+
+
+async def p19_remote_topology(target: str, batch_cfg, payloads: list) -> dict:
+    """The 2/4/2 topology with a RemoteInferenceBolt against ``target``:
+    ``payloads`` and the poison record."""
+    from storm_tpu_torch.config import Config, OffsetsConfig
+    from storm_tpu_torch.connectors import BrokerSink, BrokerSpout, MemoryBroker
+    from storm_tpu_torch.runtime import AsyncLocalCluster, TopologyBuilder
+    from storm_tpu_torch.serve.remote_bolt import RemoteInferenceBolt
+
+    cfg = Config()
+    broker = MemoryBroker(default_partitions=2)
+    tb = TopologyBuilder()
+    tb.set_spout("kafka-spout", BrokerSpout(
+        broker, "input", OffsetsConfig(policy="earliest", max_behind=None)),
+        parallelism=cfg.topology.spout_parallelism)
+    tb.set_bolt("inference-bolt", RemoteInferenceBolt(target, batch_cfg),
+                parallelism=cfg.topology.inference_parallelism).shuffle_grouping("kafka-spout")
+    tb.set_bolt("kafka-bolt", BrokerSink(broker, "output", cfg.sink),
+                parallelism=cfg.topology.sink_parallelism).shuffle_grouping("inference-bolt")
+    tb.set_bolt("dlq-bolt", BrokerSink(broker, "dead-letter", cfg.sink)) \
+        .shuffle_grouping("inference-bolt", stream="dead_letter")
+    cluster = AsyncLocalCluster()
+    rt = await cluster.submit("chip-smoke-phase19b", cfg, tb.build())
+    t0 = time.perf_counter()
+    for i, p in enumerate(payloads):
+        broker.produce("input", p)
+        if i == len(payloads) // 2:
+            broker.produce("input", POISON)
+    await out_count(broker, len(payloads) + 1, "19 (b)")
+    wall = time.perf_counter() - t0
+    await rt.drain(timeout_s=60)
+    res = {"snap": rt.metrics.snapshot(), "errors": list(rt.errors), "wall": wall,
+           "outs": broker.drain_topic("output"), "dlq": broker.drain_topic("dead-letter")}
+    await cluster.shutdown()
+    return res
+
+
+def p19_remote(torch, card: str, engine, worker, batch_cfg, served: dict) -> dict:
+    """19 (b)."""
+    from storm_tpu_torch.native import format_predictions
+    from storm_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(P19_SEED + 1)
+    xs = rng.rand(16, *LIFE_SHAPE).astype(np.float32)
+    payloads = [json.dumps({"instances": xs[i: i + 1].tolist()}) for i in range(16)]
+    batches: list = []
+    run_predict = worker._run_predict
+
+    def recorded(x):
+        batches.append(np.array(x, copy=True))
+        return run_predict(x)
+
+    worker._run_predict = recorded
+    before, f0 = engine.launch_tally(), engine.forwards
+    _build.reset_launch_counts()
+    try:
+        r = asyncio.run(p19_remote_topology(f"127.0.0.1:{worker.port}", batch_cfg, payloads))
+    finally:
+        worker._run_predict = run_predict
+    launches = check_tally_delta(engine, before, f0, VIT_LAUNCHES, _build.launch_counts(),
+                                 "19 (b)")
+    if r["errors"] or len(r["outs"]) != 16 or len(r["dlq"]) != 1 \
+            or json.loads(r["dlq"][0].value)["stage"] != "decode":
+        raise AssertionError(f"19 (b): {len(r['outs'])} outputs, {len(r['dlq'])} dead letters, "
+                             f"errors {r['errors'][:2]}")
+    want = [format_predictions(row[None]) for b in batches for row in engine.predict(b)]
+    got = [v.value.decode() if isinstance(v.value, bytes) else v.value for v in r["outs"]]
+    if sorted(got) != sorted(want):
+        raise AssertionError("19 (b): an output is not the bytes of the worker engine's direct "
+                             "forward of the batch it was served in")
+    e2e = r["snap"]["kafka-bolt"]["e2e_latency_ms"]
+    res = {"launches": launches, "batches": [len(b) for b in batches], "e2e_p50_ms": e2e["p50"],
+           "e2e_p99_ms": e2e["p99"], "records_per_s": 16 / r["wall"]}
+    log(f"  19 (b) on {card}: RemoteInferenceBolt x4 -> the worker: 16 records + the poison, "
+        f"{len(r['outs'])} outputs byte-identical to the worker engine's direct forward of "
+        f"batches {res['batches']}, the poison dead-lettered; e2e p50 {e2e['p50']:.3f} ms, p99 "
+        f"{e2e['p99']:.3f} ms, {res['records_per_s']:.3f} records/s (phase 5's in-process bolt: "
+        f"p50 {served['e2e_p50_ms']:.3f} ms); tally {launches}")
+    return res
+
+
+def p19_cli_worker(card: str, a: dict) -> dict:
+    """19 (c): ``python -m storm_tpu_torch.main serve`` in a process of its
+    own, on the card."""
+    import queue
+    import signal
+    import threading
+
+    from storm_tpu_torch.serve.client import InferenceClient
+
+    m = vit_b16_config()
+    argv = [sys.executable, "-m", "storm_tpu_torch.main", "serve", "--model", m.name,
+            "--set", f"model.weights={m.weights}", "--set", f"model.dtype={m.dtype}",
+            "--set", f"model.num_classes={m.num_classes}",
+            "--set", f"model.input_shape={list(m.input_shape)}",
+            "--set", f"batch.max_batch={B}", "--set", f"batch.buckets=[{B}]",
+            "--set", "batch.max_wait_ms=50.0", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    tail: list = []
+
+    def read():
+        for line in proc.stderr:
+            tail.append(line)
+            del tail[:-40]
+            lines.put(line)
+
+    reader = threading.Thread(target=read, daemon=True, name="p19-serve-stderr")
+    reader.start()
+    try:
+        port = None
+        deadline = time.monotonic() + 300
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError("19 (c): the serve process never said its port") from None
+            if line.startswith(f"serving {m.name} on port "):
+                port = int(line.split()[-1])
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"19 (c): serve exited {proc.poll()}: {''.join(tail)}")
+        up_s = time.perf_counter() - t0
+        with InferenceClient(f"127.0.0.1:{port}") as c:
+            info = c.info()
+            t1 = time.perf_counter()
+            got = c.predict(a["x"], timeout=600.0)
+            first_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            again = c.predict(a["x"])
+            warm_ms = (time.perf_counter() - t1) * 1e3
+        if info != a["info"] or not np.array_equal(got, a["predict"]) \
+                or not np.array_equal(again, got):
+            raise AssertionError(f"19 (c): the CLI worker's Info {info} or Predict differs "
+                                 f"from (a)'s (max |d| {np.abs(got - a['predict']).max():.3e})")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"19 (c): serve exited {rc} on SIGTERM: {''.join(tail)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    log(f"  19 (c) on {card}: `python -m storm_tpu_torch.main serve --model {m.name} ...` said "
+        f"its port after {up_s:.3f} s; its Info and its Predict of (a)'s images equal (a)'s bit "
+        f"for bit (first call {first_s:.3f} s, with the bucket's capture; then "
+        f"{warm_ms:.3f} ms); SIGTERM -> exit 0")
+    return {"up_s": up_s, "first_predict_s": first_s, "warm_predict_ms": warm_ms}
+
+
+class P19Daemon:
+    """``main._run_daemon`` as ``run`` would start it, on a thread with its
+    own event loop: ``call(coro)`` runs a coroutine on that loop."""
+
+    def __init__(self, name: str, cfg, target_ms: float) -> None:
+        import threading
+
+        self.name, self.cfg, self.target_ms = name, cfg, target_ms
+        self.ready = threading.Event()
+        self.info: dict = {}
+        self.error = None
+        self.thread = threading.Thread(target=self._main, name="p19-daemon", daemon=True)
+
+    def _started(self, info: dict) -> None:
+        self.info = info
+        self.ready.set()
+
+    def _main(self) -> None:
+        from storm_tpu_torch import main
+
+        async def go():
+            self.loop = asyncio.get_running_loop()
+            self.stop = asyncio.Event()
+            await main._run_daemon(self.name, self.cfg, 0, autoscale_target_ms=self.target_ms,
+                                   ui_port=0, device="cuda", stop=self.stop,
+                                   started=self._started, autoscale_interval_s=P19_SCALE_S)
+
+        try:
+            asyncio.run(go())
+        except BaseException as e:
+            self.error = e
+            self.ready.set()
+
+    def start(self) -> "P19Daemon":
+        self.thread.start()
+        if not self.ready.wait(600) or self.error is not None:
+            raise AssertionError(f"19 (d): the daemon did not start: {self.error!r}")
+        return self
+
+    def call(self, coro, timeout: float = 120.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        if self.ready.is_set() and self.error is None:
+            self.loop.call_soon_threadsafe(self.stop.set)
+        self.thread.join(300)
+        if self.thread.is_alive():
+            raise AssertionError("19: the daemon did not stop")
+
+
+def p19_wait(broker, n: int, label: str, timeout_s: float = 180.0) -> float:
+    return wait_for(lambda: broker.topic_size("output") + broker.topic_size("dead-letter") >= n,
+                    timeout_s, label, poll_s=0.01)
+
+
+def p19_answered(engine, batches: list, outs: list, keys: list, want: list, label: str) -> None:
+    """Every output a row of a forward the engine ran, each record answered
+    as often as ``want`` says."""
+    counts = answers(output_index(engine, batches), outs, keys, label)
+    if counts != list(want):
+        bad = [(i, c, w) for i, (c, w) in enumerate(zip(counts, want)) if c != w]
+        raise AssertionError(f"{label}: records answered other than once: (record, answers, "
+                             f"produced) {bad[:5]}")
+
+
+def p19_autoscale(d: P19Daemon, engine, payloads: list, keys: list, card: str) -> dict:
+    """19 (e)'s burst: the daemon's autoscaler scales the inference bolt up
+    (never past its cap), then, calm (the burst's latencies discarded, a
+    trickle of single records), back down; every record answered once.
+    Then with the corrector enabled the same burst scales nothing
+    (``defer_plan``)."""
+    from storm_tpu_torch.runtime.autoscale import ACCEL_MAX_PARALLELISM
+
+    rt, broker = d.info["runtime"], d.info["broker"]
+    hist = rt.metrics.histogram("kafka-bolt", "e2e_latency_ms")
+    burst, counts = life_burst(payloads)
+    burst, counts = burst * P19_BURSTS, [c * P19_BURSTS for c in counts]
+    batches: list = []
+    recording(engine, batches)
+    base = broker.topic_size("output")
+    since = time.time()
+    t0 = time.perf_counter()
+    try:
+        for p in burst:
+            broker.produce("input", p)
+        p19_wait(broker, base + len(burst), "19 (e) the burst")
+        burst_s = time.perf_counter() - t0
+        burst_e2e = hist.snapshot()
+        hist.reset()  # the reservoir's burst values are gone: a calm window starts
+        trickle = 0
+        while rt.parallelism_of("inference-bolt") > 1 or trickle < 4:
+            if time.perf_counter() - t0 > 120:
+                tail = [e for e in rt.flight.tail(512) if e["kind"] == "autoscale_decision"]
+                raise TimeoutError(f"19 (e): the autoscaler did not scale back down in 120 s: "
+                                   f"parallelism {rt.parallelism_of('inference-bolt')}, sink "
+                                   f"e2e {hist.snapshot()}, decisions {tail[-6:]}")
+            broker.produce("input", payloads[trickle % len(payloads)])
+            trickle += 1
+            time.sleep(P19_TRICKLE_S)
+        p19_wait(broker, base + len(burst) + trickle, "19 (e) the trickle")
+        calm_e2e = hist.snapshot()
+        outs = broker.drain_topic("output")[base:]
+    finally:
+        del engine.dispatch
+    want = list(counts)
+    for i in range(trickle):
+        want[i % len(payloads)] += 1
+    p19_answered(engine, batches, outs, keys, want, "19 (e) the autoscaled burst")
+    events = [e for e in rt.flight.tail(512)
+              if e["kind"] == "autoscale_decision" and e["ts"] >= round(since, 3) - 0.001]
+    ups = [e for e in events if e["direction"] == "up"]
+    downs = [e for e in events if e["direction"] == "down"]
+    peak = max([e["parallelism"][1] for e in ups], default=1)
+    if not ups or peak > ACCEL_MAX_PARALLELISM or len(downs) != len(ups) \
+            or rt.parallelism_of("inference-bolt") != 1:
+        raise AssertionError(f"19 (e): autoscale decisions {events}")
+    decisions = [{"direction": e["direction"], "parallelism": list(e["parallelism"]),
+                  "p50_ms": e["p50_ms"], "inbox_frac": e["inbox_frac"],
+                  "after_first_s": round(e["ts"] - events[0]["ts"], 3)} for e in events]
+    # with the corrector enabled, the same burst: scale-up is the corrector's
+    corr = d.info["observatory"].corrector
+    corr.enabled = True
+    hist.reset()
+    since = time.time()
+    base = broker.topic_size("output")
+    for p in burst[:2 * LIFE_BURST]:
+        broker.produce("input", p)
+    p19_wait(broker, base + 2 * LIFE_BURST, "19 (e) the deferred burst")
+    time.sleep(2 * P19_SCALE_S)
+    deferred = [e["direction"] for e in rt.flight.tail(512)
+                if e["kind"] == "autoscale_decision" and e["ts"] >= round(since, 3) - 0.001]
+    corr.enabled = False
+    if "defer_plan" not in deferred or "up" in deferred or \
+            rt.parallelism_of("inference-bolt") != 1:
+        raise AssertionError(f"19 (e): with the corrector enabled the autoscaler decided "
+                             f"{deferred}")
+    res = {"decisions": decisions, "peak": peak, "burst_s": burst_s,
+           "burst_records_per_s": len(burst) / burst_s, "burst_e2e": burst_e2e,
+           "calm_e2e": calm_e2e, "trickle": trickle, "deferred": deferred}
+    log(f"  19 (e) on {card}: a burst of {len(burst)} records at inference parallelism 1, "
+        f"autoscale target {P19_TARGET_MS} ms (interval {P19_SCALE_S} s, cap "
+        f"{ACCEL_MAX_PARALLELISM}): {res['burst_records_per_s']:.3f} records/s, e2e p50 "
+        f"{burst_e2e['p50']:.3f} ms; decisions {decisions}; back to 1 over a trickle of "
+        f"{trickle} single records (e2e p50 {calm_e2e['p50']}); every record answered once; "
+        f"with the corrector enabled a second burst decided {deferred}, parallelism kept")
+    return res
+
+
+def p19_plan(url: str, name: str, engine, e: dict, card: str) -> dict:
+    """19 (e)'s planner: ``main plan`` on this phase's own profile curves,
+    the plan's overrides applied to a fresh Config."""
+    import io
+
+    from storm_tpu_torch import main
+    from storm_tpu_torch.config import Config
+
+    rate = round(0.5 * e["burst_records_per_s"], 1)
+    slo = round(max(4.0 * e["calm_e2e"]["p99"], 100.0), 1)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main.main(["plan", name, "--url", url, "--rate", str(rate), "--slo-ms", str(slo),
+                        "--engine", engine.profile_key, "--json"])
+    out = json.loads(buf.getvalue())
+    if rc != 0 or not out.get("feasible"):
+        raise AssertionError(f"19 (e): plan at {rate} rows/s, p99 {slo} ms: rc {rc}, "
+                             f"{out.get('why')}; coverage {out.get('coverage')}")
+    plan = out["plan"]
+    cfg = Config()
+    cfg.apply_overrides(plan["override_args"])
+    if (cfg.batch.buckets != (plan["bucket"],)
+            or cfg.topology.inference_parallelism != plan["parallelism"]):
+        raise AssertionError(f"19 (e): the plan's overrides did not land: {plan}")
+    pred = plan["prediction"]
+    # The cost model on the daemon's own config at the trickle's rate: the
+    # prediction the trickle's measured e2e can be held to.
+    from storm_tpu_torch.obs.profile import profile_store
+    from storm_tpu_torch.plan import Candidate, CostModel, Target
+
+    bc = engine.batch_cfg
+    running = CostModel(profile_store().snapshot()).evaluate(
+        Candidate(engine=engine.profile_key, bucket=bc.buckets[-1], deadline_ms=bc.max_wait_ms,
+                  parallelism=1, continuous=bc.continuous, pipeline_depth=bc.pipeline_depth,
+                  max_inflight=bc.max_inflight, eager=bc.eager),
+        Target(1.0 / P19_TRICKLE_S, slo))
+    res = {"rate_rows_s": rate, "slo_ms": slo, "plan": {k: plan[k] for k in (
+        "bucket", "deadline_ms", "parallelism", "continuous", "pipeline_depth",
+        "max_inflight")}, "predicted_p99_ms": pred["p99_ms"],
+        "predicted_stages": pred["stages"], "running_predicted_p99_ms": running["p99_ms"],
+        "running_predicted_stages": running["stages"],
+        "measured_calm_p99_ms": e["calm_e2e"]["p99"],
+        "measured_calm_p50_ms": e["calm_e2e"]["p50"]}
+    log(f"  19 (e) plan on {card} at {rate} rows/s, p99 SLO {slo} ms, over this phase's "
+        f"curves: {res['plan']}, overrides {plan['override_args']} validated onto Config; "
+        f"its predicted e2e p99 {pred['p99_ms']} ms (stages {pred['stages']}, queue "
+        f"{pred.get('queue_ms')} ms); the daemon's own config (bucket {bc.buckets[-1]}, "
+        f"deadline {bc.max_wait_ms} ms, continuous {bc.continuous}) at the trickle's "
+        f"{1.0 / P19_TRICKLE_S:.0f} rows/s predicted p99 {running['p99_ms']} ms (stages "
+        f"{running['stages']}) against the trickle's measured p99 "
+        f"{e['calm_e2e']['p99']:.3f} ms, p50 {e['calm_e2e']['p50']:.3f} ms (information)")
+    return res
+
+
+def p19_ui(d: P19Daemon, engine, payloads: list, keys: list, card: str, tmp: str) -> dict:
+    """19 (d): the routes, the token, rebalance 4 -> 2 and drain under
+    traffic, DRPC over HTTP, a profile capture of live traffic and the ctl
+    subcommands."""
+    import io
+    import threading
+
+    from storm_tpu_torch import main
+    from storm_tpu_torch.config import Config
+    from storm_tpu_torch.runtime.drpc import DRPCServer, drpc_inference_topology
+    from storm_tpu_torch.runtime.ui import UIServer
+
+    rt, broker, ui = d.info["runtime"], d.info["broker"], d.info["ui"]
+    name, port, tok = d.name, ui.port, P19_TOKEN
+    res: dict = {}
+    # every read route, without the token: storm_tpu's keys
+    routes = {}
+    for route, want in P19_ROUTES.items():
+        st, body = p19_http(port, "GET", route.format(name=name))
+        got = sorted(body) if isinstance(body, dict) else None
+        if (want is None and st != 404) or (want is not None and (st != 200 or got != want)):
+            raise AssertionError(f"19 (d): GET {route} answered {st} {got} (want {want})")
+        routes[route] = st
+    st, met = p19_http(port, "GET", f"/api/v1/topology/{name}/metrics")
+    st2, prom = p19_http(port, "GET", "/metrics")
+    if st != 200 or "inference-bolt" not in met or st2 != 200 or \
+            f'storm_tpu_instances_inferred_total{{topology="{name}",component="inference-bolt"}}' \
+            not in prom:
+        raise AssertionError(f"19 (d): metrics {st}, Prometheus {st2}")
+    # a mutating route without the token (or with a wrong one): 401, no effect
+    for t in ("", "wrong"):
+        st, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/deactivate", token=t)
+        if st != 401:
+            raise AssertionError(f"19 (d): deactivate with token {t!r} answered {st}")
+    if p19_http(port, "GET", f"/api/v1/topology/{name}")[1]["status"] != "ACTIVE":
+        raise AssertionError("19 (d): a refused deactivate took effect")
+    # rebalance 4 -> 2 under a burst: every record answered once
+    burst, counts = life_burst(payloads)
+    st, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/rebalance",
+                     {"component": "inference-bolt", "parallelism": 4}, token=tok)
+    batches: list = []
+    recording(engine, batches)
+    base = broker.topic_size("output")
+    try:
+        t0 = time.perf_counter()
+        for p in burst:
+            broker.produce("input", p)
+        p19_wait(broker, base + len(burst) // 3, "19 (d) a third of the burst")
+        at = broker.topic_size("output") - base
+        st2, r = p19_http(port, "POST", f"/api/v1/topology/{name}/rebalance",
+                          {"component": "inference-bolt", "parallelism": 2}, token=tok)
+        done_at = broker.topic_size("output") - base
+        p19_wait(broker, base + len(burst), "19 (d) the rebalanced burst")
+        reb_s = time.perf_counter() - t0
+        outs = broker.drain_topic("output")[base:]
+    finally:
+        del engine.dispatch
+    if (st, st2, rt.parallelism_of("inference-bolt")) != (200, 200, 2):
+        raise AssertionError(f"19 (d): rebalance answered {st}, {st2} {r}")
+    p19_answered(engine, batches, outs, keys, counts, "19 (d) rebalance 4 -> 2")
+    res["rebalance"] = {"at_outputs": at, "returned_at_outputs": done_at, "s": reb_s}
+    # drain under traffic: it returns once the in-flight records are answered
+    base = broker.topic_size("output")
+    for p in payloads[:P19_DRAIN]:
+        broker.produce("input", p)
+    time.sleep(0.1)
+    t0 = time.perf_counter()
+    st, r = p19_http(port, "POST", f"/api/v1/topology/{name}/drain", {"timeout_s": 60},
+                     token=tok)
+    drain_s = time.perf_counter() - t0
+    answered = broker.topic_size("output") - base
+    if st != 200 or r != {"status": "INACTIVE", "drained": True} or rt.ledger.inflight != 0:
+        raise AssertionError(f"19 (d): drain answered {st} {r}, {rt.ledger.inflight} trees "
+                             f"in flight")
+    st, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/activate", token=tok)
+    p19_wait(broker, base + P19_DRAIN, "19 (d) the drained records after activate")
+    res["drain"] = {"s": drain_s, "answered_at_drain": answered, "of": P19_DRAIN}
+    # DRPC over HTTP into ViT-B/16 on the daemon's cluster
+    server = DRPCServer()
+    cluster = d.info["cluster"]
+    d.call(cluster.submit("p19-drpc", Config(), drpc_inference_topology(
+        server, vit_b16_config(), engine.batch_cfg, device="cuda", infer_parallelism=1)))
+    dui = d.call(UIServer(cluster, port=0, drpc=server, auth_token=tok).start())
+    try:
+        t0 = time.perf_counter()
+        st, r = p19_http(dui.port, "POST", "/api/v1/drpc/predict", {"args": payloads[0]})
+        drpc_ms = (time.perf_counter() - t0) * 1e3
+        st2, _ = p19_http(dui.port, "POST", "/api/v1/drpc/nothing", {"args": "x"})
+    finally:
+        d.call(dui.stop())
+        d.call(cluster.kill("p19-drpc", wait_secs=0))
+    x0 = np.frombuffer(keys[0], np.float32).reshape(1, *LIFE_SHAPE)
+    from storm_tpu_torch.api.schema import decode_predictions
+
+    row = decode_predictions(r["result"]).data if st == 200 else None
+    if st != 200 or st2 != 404 or row.shape != (1, CLASSES) or \
+            np.abs(row - engine.predict(x0)).max() > DIST_TOL:
+        raise AssertionError(f"19 (d): DRPC over HTTP answered {st} / {st2}")
+    res["drpc_ms"] = drpc_ms
+    # a profile capture of live traffic through the UI
+    log_dir = os.path.join(tmp, "p19-profile")
+    stop = threading.Event()
+
+    def feed():
+        i = 0
+        while not stop.is_set():
+            for _ in range(B):
+                broker.produce("input", payloads[i % len(payloads)])
+                i += 1
+            time.sleep(0.1)
+
+    base = broker.topic_size("output")
+    feeder = threading.Thread(target=feed, name="p19-traffic", daemon=True)
+    feeder.start()
+    box: dict = {}
+    try:
+        p19_wait(broker, base + B, "19 (d) traffic before the capture")
+        st, r = p19_http(port, "POST", f"/api/v1/topology/{name}/profile",
+                         {"log_dir": log_dir, "seconds": 2.0}, token=tok)
+        st2, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/profile",
+                          {"log_dir": log_dir, "seconds": 2.0}, token=tok)
+
+        def written():
+            try:
+                with open(os.path.join(log_dir, "trace.json")) as f:
+                    box["events"] = json.load(f).get("traceEvents", [])
+                return True
+            except (OSError, ValueError):
+                return False
+
+        prof_s = wait_for(written, 180, "19 (d) the profile's trace", poll_s=0.2)
+    finally:
+        stop.set()
+        feeder.join(timeout=30)
+    names = [e.get("name", "") for e in box["events"] if e.get("cat") == "kernel"]
+    seen = {k: sum(1 for n in names if f in n) for k, f in P17_PROFILED.items()}
+    log(f"  19 (d) on {card}: POST profile (2 s of live ViT-B/16 traffic) answered {st} "
+        f"{r.get('status')}, a second one {st2}; the trace holds {len(names)} kernels of "
+        f"{len(box['events'])} events, ours {seen}, written {prof_s:.3f} s after the call")
+    if st != 200 or st2 != 409 or not any(seen.values()):
+        raise AssertionError(f"19 (d): the UI's profile capture named none of the three "
+                             f"kernels ({seen}; {len(names)} kernels)")
+    res["profile"] = {"kernels": seen, "all_kernels": len(names), "s": prof_s}
+    # the ctl subcommands through main([...])
+    url = f"http://127.0.0.1:{port}"
+    ctl = {}
+    for argv, want in ((["list"], 0), (["status", name], 0), (["metrics", name], 0),
+                       (["graph", name], 0), (["errors", name], 0),
+                       (["component", name, "inference-bolt"], 0),
+                       (["rebalance", name, "inference-bolt", "1"], 0),
+                       (["deactivate", name], 0), (["activate", name], 0),
+                       (["drain", name], 0), (["activate", name], 0),
+                       (["seek", name, "kafka-spout", "latest"], 0),
+                       (["seek", name, "kafka-spout", "sideways"], 2),
+                       (["logs", name], 1), (["status", "nope"], 1)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main.main(["ctl", "--url", url, "--token", tok, *argv])
+        if rc != want:
+            raise AssertionError(f"19 (d): ctl {argv} exited {rc} (want {want}): "
+                                 f"{buf.getvalue()[:300]}")
+        ctl[" ".join(argv[:1])] = rc
+    for argv in (["traces", name], ["traces", name, "--flight"], ["profile", name],
+                 ["bottleneck", name], ["copies", name], ["plan", name]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main.main([*argv, "--url", url])
+        if rc != 0:
+            raise AssertionError(f"19 (d): {argv} exited {rc}: {buf.getvalue()[:300]}")
+    res["routes"] = routes
+    log(f"  19 (d) on {card}: {len(routes)} read routes answered storm_tpu's status and keys "
+        f"(logs and scorecard 404), Prometheus text served; deactivate without the token 401; "
+        f"rebalance 4 -> 2 asked after {at} of {len(burst)} outputs (it returned after "
+        f"{done_at}), every record answered once ({reb_s:.3f} s); drain returned in {drain_s:.3f} s with no tree in flight ({answered} "
+        f"of {P19_DRAIN} answered by then, the rest after activate); DRPC over HTTP into "
+        f"ViT-B/16 in {drpc_ms:.3f} ms; 15 ctl subcommands and traces/profile/bottleneck/"
+        f"copies/plan exited as storm_tpu's do")
+    return res
+
+
+def p19_daemon(torch, card: str, engine, tmp: str) -> dict:
+    """19 (d) and (e): the ``run`` daemon in this process."""
+    from types import SimpleNamespace
+
+    from storm_tpu_torch import main
+    from storm_tpu_torch.ops import _build
+
+    path = os.path.join(tmp, "p19.toml")
+    m = vit_b16_config()
+    with open(path, "w") as f:
+        f.write(P19_TOML.format(name=m.name, dtype=m.dtype, weights=m.weights,
+                                num_classes=m.num_classes, shape=list(m.input_shape), B=B,
+                                token=P19_TOKEN))
+    cfg = main._load_config(SimpleNamespace(config=path, set=["offsets.max_behind=null"]))
+    cfg.broker.input_topic, cfg.broker.output_topic = "input", "output"
+    payloads, keys = life_payloads()
+    before, f0 = engine.launch_tally(), engine.forwards
+    _build.reset_launch_counts()
+    d = P19Daemon("chip-smoke-phase19", cfg, P19_TARGET_MS).start()
+    res: dict = {}
+    try:
+        if d.info["runtime"].bolt_execs["inference-bolt"][0].bolt.engine is not engine:
+            raise AssertionError("19: the daemon built an engine of its own")
+        res["e"] = p19_autoscale(d, engine, payloads, keys, card)
+        for s in d.info["scalers"]:
+            d.call(s.stop())  # the rebalances of (d) are the operator's own
+        res["plan"] = p19_plan(f"http://127.0.0.1:{d.info['ui'].port}", d.name, engine,
+                               res["e"], card)
+        res["d"] = p19_ui(d, engine, payloads, keys, card, tmp)
+        res["launches"] = check_tally_delta(engine, before, f0, VIT_LAUNCHES,
+                                            _build.launch_counts(), "19 (d) and (e)")
+    finally:
+        d.close()
+    return res
+
+
+def p19_dist_ui(cluster, producer, bootstrap: str, payloads: list, ref: np.ndarray,
+                card: str, tmp: str) -> dict:
+    """19 (f), on phase 17's cluster before it shuts down: the dist UI over
+    a ViT-B/16 topology (inference on w1): the status routes, a rebalance
+    4 -> 2 under traffic, a profile capture routed to w1, and
+    ``DistMetrics``' Prometheus text against the controller's merged
+    snapshot."""
+    import threading
+
+    from storm_tpu_torch.config import OffsetsConfig
+    from storm_tpu_torch.dist.ui import start_dist_ui
+
+    name = "chip-smoke-phase19f"
+    cfg = dist_config(bootstrap)
+    cfg.offsets = OffsetsConfig(policy="earliest", max_behind=None)
+    cfg.broker.input_topic, cfg.broker.output_topic, cfg.broker.dead_letter_topic = \
+        P19_DIST_TOPICS
+    cluster.submit(name, cfg, placement=DIST_PLACEMENT)
+    out = TopicReader(producer, P19_DIST_TOPICS[1])
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="p19-dist-ui", daemon=True)
+    thread.start()
+    ui = asyncio.run_coroutine_threadsafe(
+        start_dist_ui(cluster, name, 0, auth_token=DIST_TOKEN), loop).result(timeout=30)
+    got: list = []
+    res: dict = {}
+    try:
+        before = vit_engine(worker_reports(cluster), 1)
+        before = {"tally": before["launch_tally"], "forwards": before["forwards"]}
+        half = len(payloads) // 2
+        for p in payloads[:half]:
+            producer.produce(P19_DIST_TOPICS[0], p.encode())
+        wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= half, 180,
+                 "19 (f) the first half")
+        port, tok = ui.port, DIST_TOKEN
+        st, summary = p19_http(port, "GET", "/api/v1/cluster/summary")
+        st2, topo = p19_http(port, "GET", f"/api/v1/topology/{name}")
+        if st != 200 or summary["topologies"] != [name] or st2 != 200 or \
+                topo["components"]["inference-bolt"]["tasks"] != 4:
+            raise AssertionError(f"19 (f): summary {st} {summary}, topology {st2} {topo}")
+        routes = {}
+        for route in ("metrics", "component/inference-bolt", "bottleneck", "copies", "plan",
+                      "logs?worker=1", "traces?n=5"):
+            st, body = p19_http(port, "GET", f"/api/v1/topology/{name}/{route}")
+            if st != 200:
+                raise AssertionError(f"19 (f): GET {route} answered {st} {body}")
+            routes[route] = sorted(body) if isinstance(body, dict) else None
+        st, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/rebalance",
+                         {"component": "inference-bolt", "parallelism": 2})
+        if st != 401:
+            raise AssertionError(f"19 (f): rebalance without the token answered {st}")
+        st, _ = p19_http(port, "POST", f"/api/v1/topology/{name}/rebalance",
+                         {"component": "inference-bolt", "parallelism": 2}, token=tok)
+        st2, topo = p19_http(port, "GET", f"/api/v1/topology/{name}")
+        if st != 200 or topo["components"]["inference-bolt"]["tasks"] != 2:
+            raise AssertionError(f"19 (f): rebalance answered {st}, tasks "
+                                 f"{topo['components']['inference-bolt']}")
+        log_dir = os.path.join(tmp, "p19-dist-profile")
+        st, r = p19_http(port, "POST", f"/api/v1/topology/{name}/profile",
+                         {"log_dir": log_dir, "seconds": 2.0, "worker": 1}, token=tok)
+        for p in payloads[half:]:
+            producer.produce(P19_DIST_TOPICS[0], p.encode())
+        wait_for(lambda: got.extend(out.take()) or len(dist_rows(got)) >= len(payloads), 180,
+                 "19 (f) the second half")
+        box: dict = {}
+
+        def written():
+            try:
+                with open(os.path.join(log_dir, "trace.json")) as f:
+                    box["events"] = json.load(f).get("traceEvents", [])
+                return True
+            except (OSError, ValueError):
+                return False
+
+        wait_for(written, 120, "19 (f) the profile's trace", poll_s=0.2)
+        names = [e.get("name", "") for e in box["events"] if e.get("cat") == "kernel"]
+        seen = {k: sum(1 for n in names if f in n) for k, f in P17_PROFILED.items()}
+        if st != 200 or r.get("worker") != 1 or not any(seen.values()):
+            raise AssertionError(f"19 (f): profile on w1 answered {st} {r}; kernels {seen}")
+        served_once(dist_rows(got), ref, "19 (f) the records across the rebalance")
+        quiesce(cluster, "19 (f)")
+        st, text = p19_http(port, "GET", "/metrics")
+        merged = cluster.metrics()["inference-bolt"]["instances_inferred"]
+        line = (f'storm_tpu_instances_inferred_total{{topology="{name}",'
+                f'component="inference-bolt"}} {merged}')
+        if st != 200 or line not in text:
+            raise AssertionError(f"19 (f): the Prometheus text lacks {line!r}")
+        tally = vit_tally(worker_reports(cluster), 1, before, "19 (f)")
+    finally:
+        asyncio.run_coroutine_threadsafe(ui.stop(), loop).result(timeout=30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+        loop.close()
+    cluster.kill()
+    res = {"launches": tally["launches"], "forwards": tally["forwards"], "routes": routes,
+           "profile_kernels": seen, "profile_all_kernels": len(names)}
+    log(f"  19 (f) on {card}: the dist UI over phase 17's cluster: summary, topology and "
+        f"{len(routes)} status routes 200; rebalance 4 -> 2 on w1 (401 without the token), "
+        f"{len(payloads)} records answered once across it; profile routed to w1 wrote "
+        f"{len(names)} kernels, ours {seen}; Prometheus text carries the merged "
+        f"instances_inferred {merged}; w1's tally {tally['launches']} for {tally['forwards']} "
+        f"forwards")
+    return res
+
+
+def control_and_serving(torch, card: str, served: dict, phase17: dict) -> dict:
+    """Phase 19 (see the module docstring); (f) ran inside phase 17."""
+    import shutil
+    import tempfile
+
+    from storm_tpu_torch.config import BatchConfig
+    from storm_tpu_torch.infer.engine import shared_engine
+
+    t_phase = time.perf_counter()
+    bc = BatchConfig(max_batch=B, buckets=(B,), max_wait_ms=50.0)
+    engine = shared_engine(vit_b16_config(), bc, device="cuda")
+    engine.warmup()  # built before any path's counts are zeroed
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-phase19-")
+    res: dict = {"f": phase17["ui"]}
+    try:
+        res["a"], worker = p19_worker(torch, card, engine, bc)
+        try:
+            res["b"] = p19_remote(torch, card, engine, worker, bc, served)
+        finally:
+            worker.stop()
+        res["c"] = p19_cli_worker(card, res["a"])
+        res.update(p19_daemon(torch, card, engine, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("x", "predict"):
+        res["a"].pop(k)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  19: the phase took {res['phase_s']:.1f} s on {card}")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -7733,6 +8682,12 @@ def run() -> int:
     log(json.dumps({"parallel_serving": {k: v for k, v in phase18.items() if k != "launches"},
                     "card": card}, default=float))
 
+    phase("[19] the control plane: the inference worker and its client, the cross-caller "
+          "batcher, RemoteInferenceBolt, the serve CLI, the run daemon with its UI, ctl, the "
+          "autoscaler and the planner (the dist UI ran in phase 17), ViT-B/16 bf16 int8_fused")
+    phase19 = control_and_serving(torch, card, served, phase17)
+    log(json.dumps({"control_and_serving": phase19, "card": card}, default=float))
+
     phase("[20] sharded training: four ranks on cuda:0 over gloo, ViT-B/16 float32 at dp4, "
           "dp2xtp2, tp4, pp4, dp2xpp2 against the one-rank step, the planted faults; resnet20 "
           "train_to_convergence over dp4")
@@ -7804,6 +8759,14 @@ def run() -> int:
                 phase17["b"]["launches"][name],
             "vit_b16 int8_fused dist exactly-once, the replacement w1 (phase 17e)":
                 phase17["e"]["launches"][name]})
+        paths.update({
+            "vit_b16 int8_fused inference worker, Predict, PredictJson, the batcher (phase 19a)":
+                phase19["a"]["launches"][name],
+            "vit_b16 int8_fused RemoteInferenceBolt -> the worker (phase 19b)":
+                phase19["b"]["launches"][name],
+            "vit_b16 int8_fused run daemon: autoscaled bursts, UI, DRPC, ctl (phase 19d, e)":
+                phase19["launches"][name],
+            "vit_b16 int8_fused dist UI, w1 (phase 19f)": phase19["f"]["launches"][name]})
         paths.update({f"{label} int8_fused, rank 0 of 4 (phase 18)": c[name]
                       for label, c in phase18["launches"].items()})
         paths.update({f"{m} train to convergence, float32 (phase 15b)": r["launches"][name]

@@ -2,7 +2,10 @@
 the port reads: model, batching, the engine's sharding over ranks, spout
 offsets, sink delivery, topology knobs, the broker, the control plane's
 token and journal, resilience and chaos, QoS, the sink's SLO, the
-observatory and the cascade, with their validation.
+observatory, the planner, the cascade and the ``[[pipelines]]`` of a
+multi-model topology, with their validation. ``Config.load`` reads a TOML
+or JSON file and ``Config.apply_overrides`` the CLI's
+``--set section.key=value``, as storm_tpu's do.
 
 ``Config.to_dict`` and ``Config.from_dict`` carry a config through the
 dist controller's submit recipe to its workers; a section or key the
@@ -14,8 +17,10 @@ leaves it alone."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional
 
 from storm_tpu_torch.cascade.policy import CascadeConfig
@@ -225,6 +230,9 @@ class SinkConfig:
     ``txn_ms`` milliseconds, and ack only after its commit)."""
 
     mode: str = "async"  # 'async' | 'sync' | 'fire_and_forget' | 'transactional'
+    # storm_tpu's producer acks (its reference's acks=1); declared there and
+    # read nowhere, carried so that its config files load here.
+    acks: int = 1
     txn_batch: int = 64
     txn_ms: float = 100.0
     # The consumer group to commit the consumed offsets to inside the
@@ -484,8 +492,8 @@ class ChaosConfig:
     """Dist fault injection for drills. It rides the submit recipe, so
     arming it on the controller arms every worker's injector
     (:mod:`storm_tpu_torch.resilience.chaos`). Never for production.
-    storm_tpu's drill timers (``kill_worker_s``, ``kill_controller_s``)
-    belong to its ``dist`` command, which the port does not have yet."""
+    The drill timers ``kill_worker_s`` and ``kill_controller_s`` are read
+    by ``main.py dist-run``."""
 
     enabled: bool = False
     seed: int = 0
@@ -496,6 +504,13 @@ class ChaosConfig:
     # Fraction of outbound frames with one byte flipped.
     corrupt_pct: float = 0.0
     engine_hang_ms: float = 0.0
+    # dist-run drills: SIGKILL a random worker (never the first) every this
+    # many seconds, recovered by the heartbeat monitor (0 = off); and this
+    # many seconds into the run, abandon the controller and build a fresh
+    # one from the journal, which reattaches (0 = off; needs
+    # control.journal_dir).
+    kill_worker_s: float = 0.0
+    kill_controller_s: float = 0.0
 
     def __post_init__(self) -> None:
         for name in ("wire_drop_pct", "corrupt_pct"):
@@ -503,7 +518,8 @@ class ChaosConfig:
             if not 0.0 <= v <= 1.0:
                 raise ValueError(
                     f"chaos.{name} must be in [0, 1], got {v!r}")
-        for name in ("wire_latency_ms", "wire_jitter_ms", "engine_hang_ms"):
+        for name in ("wire_latency_ms", "wire_jitter_ms", "engine_hang_ms",
+                     "kill_worker_s", "kill_controller_s"):
             if float(getattr(self, name)) < 0:
                 raise ValueError(
                     f"chaos.{name} must be >= 0, got "
@@ -702,6 +718,95 @@ class ObsConfig:
 
 
 @dataclass
+class PlanConfig:
+    """The SLO planner (``storm_tpu_torch/plan/``). The offline solve
+    (``main.py plan``) needs no config; this section sets the online half:
+    when ``enabled``, the ``run`` daemon attaches a
+    :class:`~storm_tpu_torch.plan.corrector.PlanCorrector` to the
+    Observatory loop, which moves only the named limiter's parallelism, and
+    the autoscaler defers its scale-up to it. The defaults are storm_tpu's
+    (``overhead_ms`` among them, a TPU-era figure not measured on the
+    card)."""
+
+    enabled: bool = False
+    # Offline solve targets (logged and served; never applied by itself).
+    rate_rows_s: float = 0.0
+    slo_p99_ms: float = 0.0
+    # Highest predicted device utilization a feasible candidate may run at.
+    headroom: float = 0.8
+    # Horizon over which a cold shape's build cost is amortized.
+    horizon_s: float = 600.0
+    # Framework floor added to every predicted e2e p99.
+    overhead_ms: float = 15.0
+    # Charged for a cold shape with no recorded build.
+    default_compile_ms: float = 500.0
+    # An (engine, bucket) curve with fewer device samples is "cold".
+    min_samples: int = 8
+    # ---- the online corrector ----
+    correct: bool = True
+    hot_steps: int = 2
+    calm_steps: int = 6
+    hold_steps: int = 3
+    # Parallelism bound of a correction; 0 = per kind
+    # (runtime.autoscale.ACCEL_MAX_PARALLELISM / CPU_MAX_PARALLELISM).
+    max_parallelism: int = 0
+
+    def __post_init__(self) -> None:
+        if not 0.0 < float(self.headroom) <= 1.0:
+            raise ValueError(
+                f"plan.headroom must be in (0, 1], got {self.headroom!r}")
+        if self.rate_rows_s < 0 or self.slo_p99_ms < 0:
+            raise ValueError("plan targets must be >= 0")
+        if self.horizon_s <= 0:
+            raise ValueError("plan.horizon_s must be > 0")
+        if self.overhead_ms < 0 or self.default_compile_ms < 0:
+            raise ValueError("plan cost floors must be >= 0")
+        if min(self.hot_steps, self.calm_steps) < 1 or self.hold_steps < 0:
+            raise ValueError(
+                "need plan.hot_steps/calm_steps >= 1 and hold_steps >= 0")
+        if self.min_samples < 1:
+            raise ValueError("plan.min_samples must be >= 1")
+        if self.max_parallelism < 0:
+            raise ValueError("plan.max_parallelism must be >= 0 (0 = auto)")
+
+
+@dataclass
+class PipelineConfig:
+    """One spout -> inference -> sink chain of a multi-model topology
+    (``main.build_multi_model_topology``): its own model, batching,
+    sharding, offsets and topics, in one process beside the others."""
+
+    name: str = "pipeline"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    batch: BatchConfig = field(default_factory=BatchConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    offsets: OffsetsConfig = field(default_factory=OffsetsConfig)
+    input_topic: str = "input"
+    output_topic: str = "output"
+    dead_letter_topic: str = "dead-letter"
+    # Records a spout tuple; 0 = topology.spout_chunk.
+    spout_chunk: int = 0
+    # "" = topology.spout_scheme.
+    spout_scheme: str = ""
+    spout_parallelism: int = 1
+    inference_parallelism: int = 1
+    sink_parallelism: int = 1
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PipelineConfig":
+        p = cls()
+        for k, v in d.items():
+            if not hasattr(p, k):
+                raise KeyError(f"unknown pipeline key {k!r}")
+            cur = getattr(p, k)
+            if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+                _apply_section(cur, v)
+            else:
+                setattr(p, k, v)
+        return p
+
+
+@dataclass
 class Config:
     topology: TopologyConfig = field(default_factory=TopologyConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -712,11 +817,14 @@ class Config:
     tracing: TracingConfig = field(default_factory=TracingConfig)
     qos: QosConfig = field(default_factory=QosConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    plan: PlanConfig = field(default_factory=PlanConfig)
     cascade: CascadeConfig = field(default_factory=CascadeConfig)
     broker: BrokerConfig = field(default_factory=BrokerConfig)
     control: ControlConfig = field(default_factory=ControlConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    # Non-empty: ``run`` builds one chain per entry (TOML [[pipelines]]).
+    pipelines: list = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
@@ -728,9 +836,42 @@ class Config:
         for section, values in d.items():
             if not hasattr(self, section):
                 raise KeyError(f"unknown config section {section!r}")
+            if section == "pipelines":
+                if not isinstance(values, list):
+                    raise TypeError("config section 'pipelines' must be a list of tables")
+                self.pipelines = [v if isinstance(v, PipelineConfig)
+                                  else PipelineConfig.from_dict(v) for v in values]
+                continue
             if not isinstance(values, dict):
                 raise TypeError(f"config section {section!r} must be a table/dict")
             _apply_section(getattr(self, section), values)
+
+    @classmethod
+    def load(cls, path) -> "Config":
+        """A TOML or JSON (by the ``.json`` suffix) config file."""
+        path = Path(path)
+        text = path.read_text()
+        if path.suffix == ".json":
+            return cls.from_dict(json.loads(text))
+        import tomllib
+
+        return cls.from_dict(tomllib.loads(text))
+
+    def apply_overrides(self, overrides: list) -> None:
+        """``section.key=value`` overrides (``--set``); a value is JSON
+        where it parses as JSON, else the bare string."""
+        patch: dict = {}
+        for item in overrides:
+            key, sep, raw = item.partition("=")
+            if not sep:
+                raise ValueError(f"override must be section.key=value: {item!r}")
+            section, _, k = key.partition(".")
+            try:
+                val = json.loads(raw)
+            except json.JSONDecodeError:
+                val = raw
+            patch.setdefault(section, {})[k] = val
+        self.apply_dict(patch)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -24,7 +24,7 @@ holds across processes.
 The call itself (gRPC's part in storm_tpu) is a length-prefixed frame on
 a persistent connection, little-endian::
 
-    request   u32 length | u8 method | f64 timeout_s (0 = none)
+    request   u32 length | u8 method id | f64 timeout_s (0 = none)
               | u16 + token | u16 + traceparent | payload
     response  u32 length | u8 status | u32 + details (utf-8) | payload
 
@@ -37,6 +37,13 @@ the request left is ``ABORTED`` (the handler may have run, so a
 ``Deliver`` is not sent again; Control and Ack retry it); an exception in
 a handler is ``UNKNOWN``; a token mismatch is ``UNAUTHENTICATED``. A
 pooled connection the server closed is dropped before reuse.
+
+A server serves one service, as a gRPC server with one handler does:
+:data:`SERVICES` gives each service's methods their id bytes, the Dist
+service's 1-3 and the inference service's (``storm_tpu.Inference``,
+:mod:`storm_tpu_torch.serve.worker`) 0x11-0x13. A call to a method its
+server's service lacks, or to an id no service has, is
+``UNIMPLEMENTED``, as a gRPC call to a path the server does not route.
 """
 
 from __future__ import annotations
@@ -70,9 +77,13 @@ __all__ = [
 
 log = logging.getLogger("storm_tpu_torch.dist.transport")
 
+#: Each service's method table: name -> the method id byte of a request.
+SERVICES = {
+    "storm_tpu.Dist": {"Deliver": 1, "Ack": 2, "Control": 3},
+    "storm_tpu.Inference": {"Predict": 0x11, "PredictJson": 0x12, "Info": 0x13},
+}
 SERVICE = "storm_tpu.Dist"
-METHODS = ("Deliver", "Ack", "Control")
-_METHOD_ID = {m: i + 1 for i, m in enumerate(METHODS)}
+_BY_ID = {i: (svc, m) for svc, table in SERVICES.items() for m, i in table.items()}
 
 #: Largest request or response a peer accepts (gRPC's limit in storm_tpu).
 MAX_MESSAGE_BYTES = 64 * 1024 * 1024
@@ -241,6 +252,15 @@ def _send_parts(sock: socket.socket, parts: List) -> None:
         sock.sendall(p)
 
 
+def _method_id(service: str, method: str) -> int:
+    if method.startswith("/"):
+        service, _, method = method[1:].partition("/")
+    try:
+        return SERVICES[service][method]
+    except KeyError:
+        raise ValueError(f"no method /{service}/{method} in {sorted(SERVICES)}") from None
+
+
 def _split_target(target: str) -> Tup[str, int]:
     host, _, port = target.rpartition(":")
     return host.strip("[]") or "127.0.0.1", int(port)
@@ -251,10 +271,13 @@ def _split_target(target: str) -> Tup[str, int]:
 
 class _Channel:
     """Persistent connections to one server, pooled: a call takes an idle
-    one (or connects), and gives it back after a complete response."""
+    one (or connects), and gives it back after a complete response. A
+    method is named in ``service``'s table, or by its full path
+    ``/<service>/<method>`` in any service's."""
 
-    def __init__(self, target: str) -> None:
+    def __init__(self, target: str, service: str = SERVICE) -> None:
         self.target = target
+        self.service = service
         self._addr = _split_target(target)
         self._idle: List[socket.socket] = []
         self._lock = threading.Lock()
@@ -301,7 +324,8 @@ class _Channel:
         timeout = 3600.0 if timeout is None else max(float(timeout), 0.001)
         deadline = time.monotonic() + timeout
         nbytes = payload.nbytes if isinstance(payload, memoryview) else len(payload)
-        head = (_req_fix.pack(_METHOD_ID[method], timeout) + _vstr(token) + _vstr(tp))
+        head = (_req_fix.pack(_method_id(self.service, method), timeout) + _vstr(token)
+                + _vstr(tp))
         if len(head) + nbytes > MAX_MESSAGE_BYTES:
             raise RpcError(StatusCode.RESOURCE_EXHAUSTED,
                            f"request of {len(head) + nbytes} bytes exceeds "
@@ -474,7 +498,7 @@ class ServerContext:
 
 
 class DistHandler:
-    """Routes the three methods to a worker's callbacks
+    """Routes the Dist service's three methods to a worker's callbacks
     ``fn(request, context) -> bytes``.
 
     ``token=None`` reads STORM_TPU_CONTROL_TOKEN (exported by the spawning
@@ -490,6 +514,7 @@ class DistHandler:
             deliver_fn = self._guarded(deliver_fn, token, "Deliver")
             ack_fn = self._guarded(ack_fn, token, "Ack")
             control_fn = self._guarded(control_fn, token, "Control")
+        self.name = SERVICE
         self._methods = {
             f"/{SERVICE}/Deliver": deliver_fn,
             f"/{SERVICE}/Ack": ack_fn,
@@ -520,9 +545,11 @@ class TransportServer:
     """The worker's listening socket: one thread per connection reads a
     complete request, runs the handler's method and writes its response
     (gRPC's server in storm_tpu). A handler may block (``Deliver`` waits
-    for inbox room); only that connection waits."""
+    for inbox room); only that connection waits. The handler serves one
+    service: its ``name`` (a key of :data:`SERVICES`) and
+    ``service(method) -> fn or None``."""
 
-    def __init__(self, handler: DistHandler, port: int = 0,
+    def __init__(self, handler, port: int = 0,
                  host: str = "0.0.0.0") -> None:
         self._handler = handler
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -577,11 +604,12 @@ class TransportServer:
                 md = ((_TOKEN_MD_KEY, token),) + ((("traceparent", tp),) if tp else ())
                 deadline = arrived + timeout if timeout > 0 else None
                 ctx = ServerContext(md, peer, deadline)
-                method = METHODS[method_id - 1] if 1 <= method_id <= len(METHODS) else None
-                fn = self._handler.service(method) if method else None
+                svc, method = _BY_ID.get(method_id, (None, None))
+                fn = self._handler.service(method) if svc == self._handler.name else None
                 if fn is None:
                     self._respond(conn, StatusCode.UNIMPLEMENTED,
-                                  f"unknown method id {method_id}")
+                                  f"method /{svc}/{method} is not served here" if svc
+                                  else f"unknown method id {method_id}")
                     continue
                 try:
                     out = fn(payload, ctx)

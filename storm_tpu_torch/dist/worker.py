@@ -955,6 +955,7 @@ _BUILDERS = {
     "standard": "storm_tpu_torch.main:build_standard_topology",
     # Device-free framework-ceiling topology (NullEngine).
     "null": "storm_tpu_torch.main:build_null_engine_topology",
+    "multi": "storm_tpu_torch.main:build_multi_model_topology",
 }
 
 
@@ -974,7 +975,8 @@ def _engine_report() -> Dict[str, Any]:
     kernels), and the eager launches of each kernel wrapper in this
     process: what the ``metrics`` op reports beside the registry's
     snapshot. The same identity and buckets after a controller's reattach
-    show that nothing was built or captured again."""
+    show that nothing was built or captured again. An auxiliary engine
+    without graphs (the decode tier's) reports no bucket and no tally."""
     out: Dict[str, Any] = {"engines": [], "eager_launches": {}}
     if "storm_tpu_torch.infer.engine" not in sys.modules:
         return out
@@ -986,11 +988,11 @@ def _engine_report() -> Dict[str, Any]:
         out["engines"].append({
             "model": getattr(cfg, "name", None),
             "id": id(eng),
-            "buckets": sorted(eng.compiled_batches),
+            "buckets": sorted(getattr(eng, "compiled_batches", ())),
             "weights": getattr(cfg, "weights", None),
             "dtype": getattr(cfg, "dtype", None),
             "forwards": int(getattr(eng, "forwards", 0)),
-            "launch_tally": dict(eng.launch_tally()),
+            "launch_tally": dict(eng.launch_tally()) if hasattr(eng, "launch_tally") else {},
         })
     out["eager_launches"] = dict(_build.launch_counts())
     return out
@@ -1009,7 +1011,7 @@ def _replay_report(model: Optional[str] = None) -> List[Dict[str, Any]]:
 
     for eng in live_engines():
         name = getattr(getattr(eng, "model_cfg", None), "name", None)
-        if model is not None and name != model:
+        if (model is not None and name != model) or not hasattr(eng, "graph_for"):
             continue
         buckets = {}
         for padded in sorted(eng.compiled_batches):

@@ -880,29 +880,37 @@ class InferenceBolt(Bolt):
         rt = None if tier is None else self._router.tiers[tier]
         engine = self.engine if rt is None else rt.engine
         try:
+            dispatch = getattr(engine, "dispatch", None)
             t0 = time.perf_counter()
-            # The dispatch phase on a worker thread (it can park on the
-            # engine's ring); the future resolves from the fetch thread.
-            # The semaphore stays held for the whole round trip, so
-            # max_inflight and the deferred acks keep their meaning.
-            handle = await asyncio.to_thread(engine.dispatch, batch.parts())
-            out = await asyncio.wrap_future(handle.future)
+            if dispatch is not None:
+                # The dispatch phase on a worker thread (it can park on the
+                # engine's ring); the future resolves from the fetch thread.
+                # The semaphore stays held for the whole round trip, so
+                # max_inflight and the deferred acks keep their meaning.
+                handle = await asyncio.to_thread(dispatch, batch.parts())
+                out = await asyncio.wrap_future(handle.future)
+                timings, padded = handle.timings, handle.padded
+            else:
+                # An engine with ``predict`` alone (the remote bolt's, a
+                # test double): the serialized forward, no substages.
+                out = await asyncio.to_thread(engine.predict, batch.stack())
+                timings, padded = {}, 0
             t1 = time.perf_counter()
             self._m_device_ms.observe((t1 - t0) * 1e3)
             if rt is not None:
                 rt.m_device.observe((t1 - t0) * 1e3)
             for key, _ in DEVICE_SUBSTAGES:
-                if key in handle.timings:
-                    self._m_substage[key].observe(handle.timings[key])
+                if key in timings:
+                    self._m_substage[key].observe(timings[key])
             self._m_batch.observe(batch.size)
             self._m_infer.inc(batch.size)
-            padded = handle.padded or self.batch_cfg.bucket_for(batch.size)
+            padded = padded or self.batch_cfg.bucket_for(batch.size)
             fill = batch.size / max(padded, 1)
             self._m_fill.observe(fill)
             self._m_coalesced.inc()  # a per-task batch has one source
             batch_span = None
             if self._tracer is not None and self._tracer.active:
-                batch_span = self._trace_batch(batch, t0, t1, handle.timings, fill, tier)
+                batch_span = self._trace_batch(batch, t0, t1, timings, fill, tier)
             if self._flight is not None:
                 # Throttled: enough to see batch sizes and device time in a
                 # post-mortem without a per-batch firehose.

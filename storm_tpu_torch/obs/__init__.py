@@ -23,9 +23,11 @@ costs, how fast the SLO budget burns, and which component limits it.
   regression sentinel against a loaded baseline (``profile_regression``
   events).
 
-Not ported yet: the UI routes and CLI subcommands that serve these, the
-autoscaler's bottleneck signal and the plan corrector (``corrector``
-stays None).
+The UI routes (``runtime/ui.py``) and the CLI subcommands (``main.py``)
+serve these; the autoscaler reads the verdict (``scaler.bottleneck =
+obs.bottleneck``), and an attached plan corrector (``obs.corrector =
+PlanCorrector(...)``, :mod:`storm_tpu_torch.plan`) is stepped after each
+step of the loop.
 """
 
 from __future__ import annotations
@@ -109,7 +111,9 @@ class Observatory:
         self.bottleneck = BottleneckAttributor(
             runtime, self.cfg, self.capacity, self.lag, clock=clock)
         self.last_regressions: List[dict] = []
-        # storm_tpu's online plan corrector; the planner is not ported.
+        # The online plan corrector (plan/corrector.py): attach one
+        # (``obs.corrector = PlanCorrector(...)``) and the loop steps it
+        # after each step, on the verdict and the burn state just taken.
         self.corrector = None
         self._m_regress = runtime.metrics.counter("obs", "profile_regressions")
         self._last_sentinel = clock()
@@ -146,6 +150,11 @@ class Observatory:
                 self.step()
             except Exception as e:  # pragma: no cover
                 log.warning("obs step failed: %s", e)
+            if self.corrector is not None:
+                try:
+                    await self.corrector.step()
+                except Exception as e:  # pragma: no cover
+                    log.warning("plan corrector step failed: %s", e)
 
     # ---- the control step ----------------------------------------------------
 

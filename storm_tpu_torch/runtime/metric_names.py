@@ -72,6 +72,8 @@ METRIC_NAMES = frozenset({
     'ingest_lag_ms',
     'instances_inferred',
     'kv_arena_occupancy',
+    'plan_active',
+    'plan_corrections',
     'produce_ms',
     'profile_regressions',
     'shed_decisions',

@@ -54,12 +54,12 @@ log = logging.getLogger("storm_tpu_torch.tracing")
 #: recorded, with one warning per kind (a misspelt kind is otherwise
 #: invisible: every reader filters on the spelling that never arrives).
 EVENT_KINDS = frozenset({
-    "batch_formed", "bottleneck_shift", "cascade_escalation", "chaos_injection",
+    "autoscale_decision", "batch_formed", "bottleneck_shift", "cascade_escalation", "chaos_injection",
     "copy_amplification_high", "decode_session_evicted", "decode_session_migrated",
     "decode_session_started", "dist_circuit_close", "dist_circuit_open",
     "dist_heartbeat_miss", "dist_peer_replaced", "dist_reattached", "dist_worker_draining",
     "dist_worker_recovered", "dist_worker_restarted", "engine_quarantined", "engine_replaced", "executor_restart",
-    "graph_capture", "profile_regression", "ring_handoff", "shed_decision", "shed_degrade",
+    "graph_capture", "plan_correction", "profile_regression", "ring_handoff", "shed_decision", "shed_degrade",
     "shed_reject", "slo_breach", "slo_burn", "tree_timeout", "wire_error", "worker_drained",
     "worker_draining",
 })

@@ -10,7 +10,10 @@ primitives, controller journal and the worker's ``state_report``,
 ``decode_sessions`` and ``profile`` ops included, and the parallel
 serving paths: the mesh, collectives, sharding, ring attention, sequence
 parallelism, expert-parallel MoE, the rank launcher and the sharded
-engine), and neither chip_smoke.py nor kernel_sweep.py,
+engine, and the control plane: the UI server and the dist UI, the
+autoscaler, the planner, the inference worker, its client, the
+cross-caller batcher, the remote bolt and the CLI), and neither
+chip_smoke.py nor kernel_sweep.py,
 imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
 package storm_tpu (the machine with the card has none of them; the
 port's dist RPCs run over the standard library's sockets)."""
@@ -235,7 +238,13 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.resilience.circuit", "storm_tpu_torch.resilience.tokens",
                  "storm_tpu_torch.parallel.mesh", "storm_tpu_torch.parallel.collectives",
                  "storm_tpu_torch.parallel.sharding", "storm_tpu_torch.parallel.ring_attention",
-                 "storm_tpu_torch.parallel.sequence", "storm_tpu_torch.parallel.launch"):
+                 "storm_tpu_torch.parallel.sequence", "storm_tpu_torch.parallel.launch",
+                 "storm_tpu_torch.runtime.ui", "storm_tpu_torch.runtime.autoscale",
+                 "storm_tpu_torch.plan", "storm_tpu_torch.plan.model",
+                 "storm_tpu_torch.plan.solver", "storm_tpu_torch.plan.corrector",
+                 "storm_tpu_torch.serve.worker", "storm_tpu_torch.serve.client",
+                 "storm_tpu_torch.serve.batcher", "storm_tpu_torch.serve.remote_bolt",
+                 "storm_tpu_torch.dist.ui"):
         assert repr(name) in out.stdout, name
 
 
@@ -425,3 +434,95 @@ def test_dist_runtime_loads_no_jax_or_grpc():
     assert "PING {'ok': True}" in out.stdout, out.stdout
     assert "FETCH [b'v']" in out.stdout, out.stdout
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_control_plane_loads_no_jax_or_grpc():
+    """The control plane, each module imported first in a fresh
+    interpreter, then used: the CLI's ``--help``, an offline plan, an
+    inference worker answering ``Info`` and an unknown method, a UI
+    server's health route over a running topology, an autoscaler step and
+    the dist UI's Prometheus facade: nothing of JAX, gRPC or storm_tpu gets
+    loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import storm_tpu_torch.runtime.ui
+        import storm_tpu_torch.dist.ui
+        import storm_tpu_torch.plan
+        import storm_tpu_torch.runtime.autoscale
+        import storm_tpu_torch.serve.remote_bolt
+        import storm_tpu_torch.main as m
+        import asyncio, io, json, urllib.request
+        from contextlib import redirect_stdout
+        from storm_tpu_torch.config import BatchConfig, Config, ModelConfig
+        from storm_tpu_torch.resilience import RpcError
+        from storm_tpu_torch.runtime import Bolt, TopologyBuilder
+        from storm_tpu_torch.runtime.cluster import AsyncLocalCluster
+        from storm_tpu_torch.runtime.metrics import prometheus_text
+        from storm_tpu_torch.serve import InferenceClient, InferenceWorker
+        from storm_tpu_torch.serve.batcher import CrossCallerBatcher
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rc = m.main(["plan", "--baseline", {os.path.join(ROOT, "PROFILE_r11.json")!r},
+                         "--rate", "600", "--slo-ms", "250"])
+        print("PLAN", rc, buf.getvalue().split()[0])
+        w = InferenceWorker(ModelConfig(name="lenet5", input_shape=(28, 28, 1),
+                                        num_classes=10), port=0, device="cpu",
+                            host="127.0.0.1").start()
+        with InferenceClient(f"127.0.0.1:{{w.port}}") as c:
+            info = c.info()
+            try:
+                c.call("/storm_tpu.Dist/Ack", b"[]")
+            except RpcError as e:
+                code = e.code().name
+        w.stop()
+        print("WORKER", info["model"], code, CrossCallerBatcher.__name__)
+
+        class Idle(Bolt):
+            async def execute(self, t):
+                self.collector.ack(t)
+
+        async def go():
+            from storm_tpu_torch.connectors import MemoryBroker, BrokerSpout
+            tb = TopologyBuilder()
+            tb.set_spout("s", BrokerSpout(MemoryBroker(), "in"))
+            tb.set_bolt("inference-bolt", Idle(), 2).shuffle_grouping("s")
+            cluster = AsyncLocalCluster()
+            rt = await cluster.submit("t", Config(), tb.build())
+            ui = await storm_tpu_torch.runtime.ui.UIServer(cluster, port=0).start()
+            loop = asyncio.get_running_loop()
+            body = await loop.run_in_executor(None, lambda: urllib.request.urlopen(
+                f"http://127.0.0.1:{{ui.port}}/healthz").read())
+            sc = storm_tpu_torch.runtime.autoscale.Autoscaler(rt)
+            step = await sc.step()
+            await ui.stop()
+            await cluster.shutdown()
+            return json.loads(body)["status"], step
+
+        print("UI", *asyncio.run(go()))
+
+        class Fake:
+            def metrics(self):
+                return {{"c": {{"n": 1}}}}
+
+        print("DIST", prometheus_text({{"d": storm_tpu_torch.dist.ui.DistMetrics(Fake())}})
+              .splitlines()[-1])
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow", "grpc"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "PLAN 0 PLAN" in out.stdout, out.stdout
+    assert "WORKER lenet5 UNIMPLEMENTED CrossCallerBatcher" in out.stdout, out.stdout
+    assert "UI ok None" in out.stdout, out.stdout
+    assert 'DIST storm_tpu_n_total{topology="d",component="c"} 1' in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout
+    out = subprocess.run([sys.executable, "-m", "storm_tpu_torch.main", "--help"],
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    for cmd in ("run", "dist-run", "serve", "info", "ctl", "traces", "profile", "bottleneck",
+                "copies", "plan"):
+        assert cmd in out.stdout, cmd

@@ -167,14 +167,14 @@ def test_chaos_injector_decides_alike_under_one_seed():
 
 def test_install_chaos_and_config_sections_match():
     assert ResilienceConfig().__dict__ == JaxResilienceConfig().__dict__
-    # storm_tpu's drill timers ride its dist command, which the port lacks:
-    # a config naming one is refused, not silently left unarmed.
+    # storm_tpu's drill timers ride the dist-run command, ported with it:
+    # a config naming one loads and is validated as storm_tpu's is.
     drills = ("kill_worker_s", "kill_controller_s")
-    assert ChaosConfig().__dict__ == {k: v for k, v in JaxChaosConfig().__dict__.items()
-                                      if k not in drills}
+    assert ChaosConfig().__dict__ == JaxChaosConfig().__dict__
     for k in drills:
-        with pytest.raises(KeyError, match=k):
-            Config.from_dict({"chaos": {k: 1.0}})
+        assert getattr(Config.from_dict({"chaos": {k: 1.5}}).chaos, k) == 1.5
+        with pytest.raises(ValueError, match=k):
+            Config.from_dict({"chaos": {k: -1.0}})
     assert pr.install_chaos(ChaosConfig()) is None
     inj = pr.install_chaos(ChaosConfig(enabled=True, corrupt_pct=0.5, wire_drop_pct=0.1))
     try:
