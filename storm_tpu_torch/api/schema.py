@@ -46,12 +46,20 @@ class Instances:
     # record): the decode wrote nothing, and the ledger's row says so.
     view: bool = False
 
+    @property
+    def batch_size(self) -> int:
+        return int(self.data.shape[0])
+
 
 @dataclass(frozen=True)
 class Predictions:
     """Decoded/encodable output record: ``(N, K)`` class scores."""
 
     data: np.ndarray
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.data.shape[0])
 
 
 @dataclass(frozen=True)

@@ -177,6 +177,12 @@ class DecodeEngine:
 
     # ---- convenience ---------------------------------------------------------
 
+    def greedy_step(self, slot: int, token: int, pos: int) -> int:
+        """One row's step: the argmax token after ``token`` at ``pos`` in
+        ``slot`` (a deterministic oracle for tests and replays)."""
+        lg = self.predict(np.array([[slot, token, pos]], np.int64))
+        return int(np.argmax(lg[0]))
+
     def prefill_rows(self, slot: int, tokens, start: int = 0) -> np.ndarray:
         """The (T, 3) row block that prefills ``tokens`` into ``slot`` from
         position ``start``: one submission, one batch."""

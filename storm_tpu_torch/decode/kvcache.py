@@ -130,6 +130,12 @@ class KvCacheManager:
         self.lens[slot] = 0
         self._free.append(slot)
 
+    def touch(self, session_id: str) -> None:
+        """Freshen a live session's last use (its eviction age)."""
+        with self._lock:
+            if session_id in self._owner:
+                self._used_at[session_id] = self._clock()
+
     def pin(self, session_id: str) -> None:
         """Protect the session's slot from eviction while a batch holding
         its rows is in flight."""
@@ -145,6 +151,16 @@ class KvCacheManager:
                 self._pins[slot] -= 1
 
     # ---- lengths (the engine writes k and v by indexing the arena) ------------
+
+    def append(self, slot: int, layer: int, pos: int, k, v) -> None:
+        """Write one position's k and v (``d_model`` values each) of one
+        layer into the arena; the engine writes its batches by indexing.
+        Writing the last layer past the cached length extends it."""
+        with self._lock:
+            self.arena[slot, layer, 0, pos] = torch.as_tensor(k, dtype=torch.float32)
+            self.arena[slot, layer, 1, pos] = torch.as_tensor(v, dtype=torch.float32)
+            if layer == self.layers - 1 and pos >= self.lens[slot]:
+                self.lens[slot] = pos + 1
 
     def advance(self, slot: int, new_len: int) -> None:
         with self._lock:

@@ -814,11 +814,7 @@ class InferenceBolt(Bolt):
             wait_s = self.batch_cfg.max_wait_ms / 1e3 - (time.perf_counter() - oldest)
             if wait_s > 0:
                 await asyncio.sleep(wait_s)
-            for tier, b in self._sources:
-                batch = b.take_if_due()
-                while batch is not None:
-                    await self._dispatch(batch, tier)
-                    batch = b.take_ready()
+            await self.tick()
 
     def _spawn_dispatch(self, batch: Batch, tier: Optional[int]) -> None:
         """Dispatch on a task of its own: for ``_escalate``, which runs
@@ -979,6 +975,15 @@ class InferenceBolt(Bolt):
                 self._spawn_dispatch(batch, tier)
                 batch = b.take_ready()
         self._kick_flush()
+
+    async def tick(self) -> None:
+        """A tick tuple (``topology.tick_interval_s``) dispatches every due
+        batch, as ``_deadline_flush`` does when its deadline comes."""
+        for tier, b in self._sources:
+            batch = b.take_if_due()
+            while batch is not None:
+                await self._dispatch(batch, tier)
+                batch = b.take_ready()
 
     async def flush(self) -> None:
         """Drain: dispatch whatever is pending and wait for in-flight

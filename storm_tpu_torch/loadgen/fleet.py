@@ -1,0 +1,1251 @@
+"""Scenario-matrix fleet runner, the counterpart of
+``storm_tpu/loadgen/fleet.py``: every serving scenario x every traffic
+pattern, scored into one scorecard, on the card unless the caller asks
+for the CPU::
+
+    python -m storm_tpu_torch.loadgen.fleet [--fleet-scenarios a,b] \
+        [--seed N] [--stage-seconds S] [--slo-ms MS] [--device cuda|cpu]
+
+prints the scorecard JSON to stdout (storm_tpu runs the same matrix
+through ``bench.py --fleet``). ``run_fleet`` runs each scenario — classify
+(the reference lenet5 DAG), cascade (confidence-gated tiers on the
+exported digits checkpoints), continuous (per-engine continuous
+batching), serve-path (inference across the worker boundary, the port's
+frames) and decode (char_tiny's decode tier under session arrivals) —
+against each :mod:`storm_tpu_torch.loadgen.trace` pattern (heavy-tail
+tenants, diurnal wave, flash crowd; decode runs under ``decode_sessions``
+only). One cell = one fresh topology + one seeded trace replayed against
+it, with the full protection stack live (per-tenant admission, EDF
+lanes, adaptive shedding, Observatory).
+
+Scoring reads ONLY surfaces the runtime already exposes: delivered /
+slo_breaches counters and per-lane e2e histograms at the sink, the
+SLO-burn tracker's gauges, the bottleneck attributor's verdict, and the
+flight recorder — the scorecard is an observability consumer, not a
+parallel measurement stack. Each cell advances a *named*
+``window()`` cursor keyed by the cell and drops it on exit
+(``MetricsRegistry.drop_windows`` / ``CapacityTracker.drop``), so a
+long matrix leaks no per-cell cursor state. The scoring is storm_tpu's,
+including its count of an operator's ``Overloaded`` answer as a delivery
+(ROADMAP C24), so the two packages' scorecards read alike.
+
+Rates are declared as fractions of a per-scenario measured capacity
+probe, so the matrix is host-independent in its *claims* (protection
+behavior at a declared overload multiple) while the artifact records
+the absolute rates the host actually saw.
+
+Each scenario starts on an empty engine cache and leaves one: the
+scorecard's ``engines`` records, per scenario, each engine it served
+through (its forwards, launch tally and built buckets).
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from storm_tpu_torch.loadgen.scorecard import (CellTargets, score_cell,
+                                               targets_dict)
+from storm_tpu_torch.loadgen.trace import TraceSpec, generate, replay
+
+__all__ = ["run_fleet", "SCENARIOS", "PATTERNS"]
+
+PATTERNS = ("heavy_tail", "diurnal", "flash_crowd")
+SCENARIOS = ("classify", "cascade", "continuous", "serve_path", "decode")
+
+#: Offered load as a fraction of the scenario's probed OPEN-LOOP
+#: sustained capacity (see ``_probe_capacity``), where the pattern's
+#: rate profile == 1.0. Flash peaks at base * flash_mult. Steady
+#: heavy-tail runs at 55% utilization and the diurnal crest reaches
+#: ~0.6x capacity (0.4 * 1.5) — provisioned the way real fleets
+#: provision steady load, with headroom for the ~±30% minute-scale
+#: capacity variance a shared 1-core host exhibits (observed directly:
+#: back-to-back probes measured 451 and 626 msg/s). The flash spike
+#: deliberately clears capacity by ~1.5x (0.5 * 3.0), which is what
+#: forces the protection stack to engage.
+_PATTERN_RATE_FRAC = {"heavy_tail": 0.55, "diurnal": 0.40,
+                      "flash_crowd": 0.50,
+                      # decode: session arrivals at half the probed
+                      # sustained session rate — long sessions overlap
+                      # arrival waves, so occupancy (KV slots) is the
+                      # pressured axis, not instantaneous rate.
+                      "decode_sessions": 0.50}
+_FLASH_MULT = 3.0
+# The capacity probe's open-loop steps (``_saturated_rate``): a step whose
+# deliveries keep up with SATURATED x its offered rate raises the rate by
+# PROBE_RAISE; a step that falls behind is checked by one at CONFIRM x the
+# best delivery so far. At most PROBE_STEPS steps, each after the first
+# RAISED_S long.
+_SATURATED, _PROBE_RAISE, _CONFIRM = 0.95, 2.0, 1.25
+_PROBE_STEPS, _RAISED_S = 5, 4.0
+# A cell's flight ring and harvest: a decode cell's warm-up burst alone
+# records hundreds of session starts and evictions, which storm_tpu's
+# 512-event ring drops the cell's first phase event under (ROADMAP C26).
+_FLIGHT_EVENTS = 8192
+# A cell's warm-up: a closed-loop burst of WARM_BURST records, then
+# WARM_PACED paced at 0.3x the cell's base rate (``_run_cell``).
+_WARM_BURST, _WARM_PACED = 192, 64
+
+
+def _log(msg: str) -> None:
+    import sys
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _repo_root() -> str:
+    import storm_tpu_torch
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        storm_tpu_torch.__file__)))
+
+
+def _capture_session() -> str:
+    return "cap-" + time.strftime("%Y%m%dT%H%M%S")
+
+
+def _code_version() -> str:
+    import subprocess
+    try:
+        head = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                              capture_output=True, text=True,
+                              cwd=_repo_root(), timeout=10)
+        if head.returncode != 0:
+            return "unknown"
+        dirty = subprocess.run(["git", "status", "--porcelain"],
+                               capture_output=True, text=True,
+                               cwd=_repo_root(), timeout=10)
+        suffix = "-dirty" if dirty.stdout.strip() else ""
+        return head.stdout.strip() + suffix
+    except Exception:
+        return "unknown"
+
+
+def _noise_payloads(input_shape, instances, n_distinct=24) -> List[bytes]:
+    rng = np.random.RandomState(0)
+    return [json.dumps({"instances":
+                        rng.rand(instances, *input_shape).round(4).tolist()})
+            .encode() for _ in range(n_distinct)]
+
+
+def _digits_payloads(instances) -> List[bytes]:
+    from storm_tpu_torch.data import load_digits_nhwc
+    _, _, x_te, _ = load_digits_nhwc((32, 32, 3), seed=0)
+    n_distinct = max(1, len(x_te) // instances)
+    return [json.dumps({"instances":
+                        x_te[i * instances:(i + 1) * instances]
+                        .round(4).tolist()}).encode()
+            for i in range(n_distinct)]
+
+
+def _qos_cfg():
+    from storm_tpu_torch.config import QosConfig
+    # Two deliberate departures from the bench --qos-overload knobs:
+    # breach_rate is ABSOLUTE breaches/s, and at fleet rates (hundreds of
+    # msg/s) the bench's 2.0/s is under a 1% latency tail — a healthy
+    # steady cell would escalate on noise, so gate at 20/s (a flash spike
+    # exceeds it by an order of magnitude and also trips inbox_frac).
+    # And instead of the bench's sticky latch (calm_steps=1000) the fleet
+    # wants the *recovery* arc on the timeline: 6 calm intervals (3 s)
+    # step the shed level back down after a flash crowd passes.
+    return QosConfig(enabled=True, tenant_rate=0.0, shed_interval_s=0.5,
+                     shed_hot_steps=2, shed_breach_rate=20.0,
+                     shed_inbox_frac=0.5, shed_calm_steps=6)
+
+
+def _obs_cfg():
+    from storm_tpu_torch.config import ObsConfig
+    # Short burn windows (bench --slo-burn): trips within a flash spike.
+    return ObsConfig(enabled=True, interval_s=0.25, burn_fast_window_s=5.0,
+                     burn_slow_window_s=15.0, burn_threshold=1.0,
+                     sentinel_interval_s=5.0, min_samples=10)
+
+
+class _Scenario:
+    """One serving configuration the matrix drives. ``build()`` returns a
+    fresh (broker, run_cfg, topology) per cell; ``payloads`` maps the
+    trace's shape names to pre-encoded record bodies; ``device`` is where
+    its engines run (set by ``run_fleet``)."""
+
+    name = "?"
+    device = "cuda"
+    sink = "kafka-bolt"
+    #: Component whose inbox/batch-wait the shed controller watches.
+    shed_component = "inference-bolt"
+    #: None = run the matrix's default pattern set; a scenario that only
+    #: makes sense under its own traffic (decode) narrows it.
+    patterns: Optional[tuple] = None
+
+    def setup(self) -> None:  # once, before the scenario's cells
+        pass
+
+    def teardown(self) -> None:
+        pass
+
+    def available(self) -> Optional[str]:
+        """None if runnable, else a human reason to skip."""
+        return None
+
+    def build(self, slo_ms: float):
+        raise NotImplementedError
+
+    def probe(self, cluster, slo_ms: float, log: Callable) -> float:
+        """Sustained capacity in OFFERED records/s (cells rate against
+        it). The default measures sink deliveries == offered records;
+        multi-emit scenarios (decode) override."""
+        return _probe_capacity(cluster, self, slo_ms, log)
+
+    def targets(self, pattern: str, slo_ms: float,
+                spec: TraceSpec) -> CellTargets:
+        return _targets_for(pattern, slo_ms)
+
+    def extra_scores(self, rt, snap: dict, scores: dict) -> dict:
+        """Scenario-specific score axes merged into the cell's scores
+        before gating (decode: tokens/s goodput, TTFT p99)."""
+        return {}
+
+
+class _StandardScenario(_Scenario):
+    """classify / continuous: the reference lenet5 DAG via
+    ``build_standard_topology`` — continuous flips the per-engine
+    continuous-batching queue on, nothing else."""
+
+    def __init__(self, name: str, continuous: bool) -> None:
+        self.name = name
+        self.continuous = continuous
+        self.payloads = {"s1": _noise_payloads((28, 28, 1), 1),
+                         "s8": _noise_payloads((28, 28, 1), 8)}
+
+    def _cfg(self, slo_ms: float):
+        from storm_tpu_torch.config import Config
+        cfg = Config()
+        cfg.model.name = "lenet5"
+        cfg.model.dtype = "bfloat16"
+        cfg.model.input_shape = (28, 28, 1)
+        cfg.model.num_classes = 10
+        cfg.batch.max_batch = 256
+        cfg.batch.max_wait_ms = 10.0
+        cfg.batch.buckets = (64, 256)
+        cfg.batch.continuous = self.continuous
+        cfg.topology.spout_parallelism = 2
+        cfg.topology.inference_parallelism = 1
+        cfg.topology.sink_parallelism = 1
+        cfg.topology.message_timeout_s = 300.0
+        cfg.offsets.policy = "earliest"
+        cfg.offsets.max_behind = None
+        cfg.tracing.slo_ms = slo_ms
+        cfg.qos = _qos_cfg()
+        cfg.obs = _obs_cfg()
+        return cfg
+
+    def build(self, slo_ms: float):
+        from storm_tpu_torch.connectors import MemoryBroker
+        from storm_tpu_torch.main import build_standard_topology
+        cfg = self._cfg(slo_ms)
+        broker = MemoryBroker(default_partitions=4)
+        return broker, cfg, build_standard_topology(cfg, broker,
+                                                    device=self.device)
+
+
+class _CascadeScenario(_StandardScenario):
+    """Confidence-gated tiers (vit_tiny -> lenet5_rgb -> resnet20) on the
+    exported digits checkpoints (``checkpoints_torch/<tag>_digits.npz``),
+    operating point from ACCURACY_CASCADE_r09.json — real images (the
+    port's ``checkpoints_torch/digits.npz``), because uniformly-uncertain
+    noise escalates everything and measures a cascade that never gates."""
+
+    chain = ("vit_tiny", "lenet5", "resnet20")
+
+    def __init__(self) -> None:
+        self.name = "cascade"
+        self.continuous = False
+        root = _repo_root()
+        self.ckpts = {n: os.path.join(root, "checkpoints_torch",
+                                      f"{tag}_digits.npz")
+                      for n, tag in (("lenet5", "lenet5_rgb"),
+                                     ("resnet20", "resnet20"),
+                                     ("vit_tiny", "vit_tiny"))}
+        self.payloads = None  # built in setup(): reads the digits file
+
+    def available(self) -> Optional[str]:
+        missing = [p for p in self.ckpts.values() if not os.path.exists(p)]
+        if missing:
+            return f"missing tier checkpoints: {missing}"
+        return None
+
+    def setup(self) -> None:
+        self.payloads = {"s1": _digits_payloads(1),
+                         "s8": _digits_payloads(8)}
+
+    def _cfg(self, slo_ms: float):
+        from storm_tpu_torch.cascade.policy import CascadeConfig
+        cfg = super()._cfg(slo_ms)
+        cfg.model.name = self.chain[-1]
+        cfg.model.checkpoint = self.ckpts[self.chain[-1]]
+        cfg.model.input_shape = (32, 32, 3)
+        cfg.batch.max_batch = 32
+        cfg.batch.max_wait_ms = 5.0
+        cfg.batch.buckets = (8, 32)
+        acc_path = os.path.join(_repo_root(), "ACCURACY_CASCADE_r09.json")
+        if os.path.exists(acc_path):
+            with open(acc_path) as f:
+                acc = json.load(f)
+            point = {"metric": acc["metric"],
+                     "thresholds": tuple(acc["thresholds"]),
+                     "temperature": acc["temperature"]}
+        else:
+            point = {"metric": "max_softmax", "thresholds": (0.2, 0.2),
+                     "temperature": 1.0}
+        cfg.cascade = CascadeConfig(
+            enabled=True, tiers=self.chain,
+            checkpoints=tuple(self.ckpts[n] for n in self.chain),
+            thresholds=point["thresholds"], metric=point["metric"],
+            temperature=point["temperature"])
+        return cfg
+
+
+class _ServeScenario(_Scenario):
+    """Inference across the worker boundary (the port's frames over TCP):
+    BrokerSpout -> RemoteInferenceBolt -> BrokerSink against one shared
+    in-process InferenceWorker — the north-star front-end/worker split
+    under fleet traffic, with QoS lanes riding through the remote
+    operator."""
+
+    def __init__(self) -> None:
+        self.name = "serve_path"
+        self.worker = None
+        self.payloads = {"s1": _noise_payloads((28, 28, 1), 1),
+                         "s8": _noise_payloads((28, 28, 1), 8)}
+
+    def setup(self) -> None:
+        from storm_tpu_torch.config import (BatchConfig, ModelConfig,
+                                      ShardingConfig)
+        from storm_tpu_torch.serve import InferenceWorker
+        self.worker = InferenceWorker(
+            ModelConfig(name="lenet5", dtype="float32",
+                        input_shape=(28, 28, 1)),
+            ShardingConfig(data_parallel=1),
+            BatchConfig(max_batch=64, buckets=(64,)),
+            port=0, device=self.device, host="127.0.0.1").start()
+
+    def teardown(self) -> None:
+        if self.worker is not None:
+            self.worker.stop()
+            self.worker = None
+
+    def build(self, slo_ms: float):
+        from storm_tpu_torch.config import BatchConfig, Config, OffsetsConfig
+        from storm_tpu_torch.connectors import (BrokerSink, BrokerSpout,
+                                          MemoryBroker)
+        from storm_tpu_torch.runtime import TopologyBuilder
+        from storm_tpu_torch.serve.remote_bolt import RemoteInferenceBolt
+        qos = _qos_cfg()
+        cfg = Config()
+        cfg.topology.message_timeout_s = 300.0
+        cfg.tracing.slo_ms = slo_ms
+        cfg.qos = qos
+        cfg.obs = _obs_cfg()
+        broker = MemoryBroker(default_partitions=4)
+        tb = TopologyBuilder()
+        tb.set_spout("kafka-spout",
+                     BrokerSpout(broker, cfg.broker.input_topic,
+                                 OffsetsConfig(policy="earliest",
+                                               max_behind=None),
+                                 fetch_size=1024, scheme="raw", qos=qos),
+                     parallelism=2)
+        tb.set_bolt("inference-bolt",
+                    RemoteInferenceBolt(
+                        f"127.0.0.1:{self.worker.port}",
+                        BatchConfig(max_batch=64, max_wait_ms=10.0,
+                                    buckets=(8, 64)),
+                        qos=qos, passthrough=("qos_lane",)),
+                    parallelism=1).shuffle_grouping("kafka-spout")
+        tb.set_bolt("kafka-bolt",
+                    BrokerSink(broker, cfg.broker.output_topic, cfg.sink),
+                    parallelism=1).shuffle_grouping("inference-bolt")
+        tb.set_bolt("dlq-bolt",
+                    BrokerSink(broker, cfg.broker.dead_letter_topic,
+                               cfg.sink),
+                    parallelism=1).shuffle_grouping("inference-bolt",
+                                                    stream="dead_letter")
+        return broker, cfg, tb.build()
+
+
+class _DecodeScenario(_Scenario):
+    """The decode column: BrokerSpout -> DecodeBolt -> BrokerSink under
+    SESSION-arrival traffic (``decode_sessions`` pattern only — record
+    patterns measure a different thing). Each trace event produces one
+    session request; the shape axis is the ragged length distribution
+    (s1 -> short sessions, s8 -> long), so one sink delivery is one
+    TOKEN and the cell gates on tokens/s goodput + session TTFT p99
+    instead of record goodput. Payload pools are large (one distinct
+    session id per entry) so a hold opens fresh sessions instead of
+    endlessly extending a handful; pool wrap-around turns into
+    follow-up turns on retained KV, which is real serving too."""
+
+    #: tokens per session by shape class (mix 0.7/0.3 -> mean ~10)
+    TOKENS = {"s1": 4, "s8": 24}
+    _POOL = 4096
+
+    def __init__(self) -> None:
+        self.name = "decode"
+        self.sink = "kafka-bolt"
+        self.shed_component = "decode-bolt"
+        self.patterns = ("decode_sessions",)
+        self.payloads = {
+            shp: [json.dumps({
+                "session_id": f"{shp}-{i:05d}",
+                "prompt": f"fleet {shp} session {i:05d}",
+                "max_new_tokens": n}).encode()
+                for i in range(self._POOL)]
+            for shp, n in self.TOKENS.items()}
+
+    def _mean_tokens(self) -> float:
+        # matches the trace default shape_mix (0.7, 0.3) over (s1, s8)
+        return 0.7 * self.TOKENS["s1"] + 0.3 * self.TOKENS["s8"]
+
+    def build(self, slo_ms: float):
+        from storm_tpu_torch.config import Config, OffsetsConfig
+        from storm_tpu_torch.connectors import (BrokerSink, BrokerSpout,
+                                          MemoryBroker)
+        from storm_tpu_torch.decode import DecodeBolt, DecodeConfig
+        from storm_tpu_torch.runtime import TopologyBuilder
+        qos = _qos_cfg()
+        cfg = Config()
+        cfg.topology.message_timeout_s = 300.0
+        cfg.tracing.slo_ms = slo_ms
+        cfg.qos = qos
+        cfg.obs = _obs_cfg()
+        broker = MemoryBroker(default_partitions=4)
+        tb = TopologyBuilder()
+        tb.set_spout("kafka-spout",
+                     BrokerSpout(broker, cfg.broker.input_topic,
+                                 OffsetsConfig(policy="earliest",
+                                               max_behind=None),
+                                 fetch_size=1024, scheme="raw", qos=qos),
+                     parallelism=2)
+        # One decode task per cell host: sticky routing needs no ring
+        # here (the ring-grouped multi-task path is exercised in
+        # tests/test_torch_decode.py); what the cell measures is
+        # session/token serving under arrival waves.
+        tb.set_bolt("decode-bolt",
+                    DecodeBolt(DecodeConfig(arena_blocks=64,
+                                            drain_mode="complete"),
+                               qos=qos, device=self.device),
+                    parallelism=1).shuffle_grouping("kafka-spout")
+        tb.set_bolt("kafka-bolt",
+                    BrokerSink(broker, cfg.broker.output_topic, cfg.sink),
+                    parallelism=1).shuffle_grouping("decode-bolt")
+        return broker, cfg, tb.build()
+
+    def probe(self, cluster, slo_ms: float, log: Callable) -> float:
+        """Closed-loop session probe: offer N sessions, wait for ~their
+        token volume to land, return sustained SESSIONS/s (the unit cell
+        rates are declared in)."""
+        broker, run_cfg, topo = self.build(slo_ms)
+        name = "fleet-probe-decode"
+        input_topic = run_cfg.broker.input_topic
+        output_topic = run_cfg.broker.output_topic
+        ref_spec = _trace_spec("decode_sessions", 0, 8.0, 1.0)
+        cluster.submit_topology(name, run_cfg, topo)
+        try:
+            n_warm, n_meas = 32, 192
+            base = broker.topic_size(output_topic)
+            for i in range(n_warm):
+                broker.produce(input_topic,
+                               _mixed_payload(self, ref_spec, i),
+                               key=b"t00000:high")
+            _await_topic(broker, output_topic,
+                         base + int(n_warm * self._mean_tokens() * 0.7),
+                         name)
+            base = broker.topic_size(output_topic)
+            t0 = time.perf_counter()
+            for i in range(n_warm, n_warm + n_meas):
+                broker.produce(input_topic,
+                               _mixed_payload(self, ref_spec, i),
+                               key=b"t00000:high")
+            _await_topic(broker, output_topic,
+                         base + int(n_meas * self._mean_tokens() * 0.7),
+                         name)
+            cap = n_meas / (time.perf_counter() - t0)
+            log(f"[decode] capacity: ~{cap:.0f} sessions/s "
+                f"(~{cap * self._mean_tokens():.0f} tokens/s)")
+            return max(1.0, cap)
+        finally:
+            cluster.kill_topology(name, wait_secs=2)
+            gc.collect()
+
+    def targets(self, pattern: str, slo_ms: float,
+                spec: TraceSpec) -> CellTargets:
+        # Gate on tokens/s goodput (0.4x the offered token rate must
+        # land within the hold) and session TTFT p99 (first token within
+        # 2x the record SLO; TTFT includes prefill's trip through the
+        # continuous queue).
+        return CellTargets(
+            min_tokens_s=round(0.4 * spec.base_rate * self._mean_tokens(),
+                               1),
+            ttft_p99_ms=2.0 * slo_ms,
+            max_shed_frac=0.10)
+
+    def extra_scores(self, rt, snap: dict, scores: dict) -> dict:
+        h = snap.get(self.shed_component, {}).get("decode_ttft_ms")
+        ttft_p99 = (h.get("p99") if isinstance(h, dict) and h.get("count")
+                    else None)
+        hold = scores.get("hold_elapsed_s") or 1.0
+        good = max(0, (scores.get("delivered") or 0)
+                   - (scores.get("slo_breaches") or 0))
+        from storm_tpu_torch.decode import decode_stats
+        d = decode_stats()
+        return {
+            "tokens_per_s": round(good / hold, 1),
+            "ttft_p99_ms": ttft_p99,
+            "sessions_started": sum(r["sessions_started"]
+                                    for r in d["stores"]),
+            "kv_arena": (d["engines"][0]["kv"] if d["engines"] else None),
+        }
+
+
+def _mixed_payload(sc: _Scenario, spec: TraceSpec, i: int) -> bytes:
+    """Deterministic golden-ratio interleave of the scenario's payloads
+    matching ``spec.shape_mix`` — probe and warm traffic must offer the
+    TRACE's shape mix, not just the smallest record: an s1-only burst
+    measures one padded batch of the small bucket and overestimates
+    mixed sustained throughput ~2x, and it never compiles the big-bucket
+    path — whose first mid-hold compile stall is exactly the kind of
+    inbox spike that latches the shedder on a steady cell."""
+    frac = (i * 0.618033988749895) % 1.0
+    acc = 0.0
+    for shp, w in zip(spec.shapes, spec.shape_mix):
+        acc += w
+        if frac < acc:
+            plist = sc.payloads[shp]
+            return plist[i % len(plist)]
+    plist = sc.payloads[spec.shapes[-1]]
+    return plist[i % len(plist)]
+
+
+def _probe_capacity(cluster, sc: _Scenario, slo_ms: float,
+                    log: Callable) -> float:
+    """Measure the scenario's OPEN-LOOP sustained mixed-shape capacity
+    (msg/s) on a THROWAWAY topology, then kill it.
+
+    Two phases. A closed-loop burst first: it compiles every
+    (shape, bucket) path and yields an upper bound — but an inflated,
+    noisy one (a parked backlog forms full max-size batches; Poisson
+    arrivals at max_wait_ms never do; observed 1.5x run-to-run spread).
+    Then the real measurement: pace arrivals at 0.9x the bound — enough
+    to keep the pipeline saturated — and count sink deliveries over the
+    back 2/3 of the window, which is the rate the topology actually
+    sustains under open-loop arrival pressure, then step the rate
+    (``_saturated_rate``). Rates the cells offer are declared fractions
+    of THIS number.
+
+    Run on its own topology because every probe record is an SLO
+    "breach" by construction: probing inside the first cell made that
+    cell start degraded (burn window poisoned, shedder latched) while
+    its siblings started clean."""
+    broker, run_cfg, topo = sc.build(slo_ms)
+    name = f"fleet-probe-{sc.name}"
+    input_topic = run_cfg.broker.input_topic
+    output_topic = run_cfg.broker.output_topic
+    ref_spec = _trace_spec("heavy_tail", 0, 8.0, 1.0)  # shapes/mix only
+    cluster.submit_topology(name, run_cfg, topo)
+    try:
+        n_burst = 768
+        # Unmeasured pre-burst compiles every (shape, bucket) path.
+        base = broker.topic_size(output_topic)
+        for i in range(128):
+            broker.produce(input_topic, _mixed_payload(sc, ref_spec, i),
+                           key=b"t00000:high")
+        _await_topic(broker, output_topic, base + 128, name)
+        base = broker.topic_size(output_topic)
+        t0 = time.perf_counter()
+        for i in range(n_burst):
+            broker.produce(input_topic, _mixed_payload(sc, ref_spec, i),
+                           key=b"t00000:high")
+        _await_topic(broker, output_topic, base + n_burst, name)
+        cap_burst = n_burst / (time.perf_counter() - t0)
+
+        # Open-loop phase: saturate at 0.9x the burst bound for 6 s and
+        # measure delivery rate over the back 2/3 (skip the ramp), then
+        # step the rate as ``_saturated_rate`` does (ROADMAP C25).
+        def step(rate: float, dur: float) -> tuple:
+            delivered, offered = _open_loop(broker, input_topic,
+                                            output_topic, sc, ref_spec,
+                                            rate, dur)
+            log(f"[{sc.name}] capacity: burst bound ~{cap_burst:.0f}, "
+                f"open-loop sustained ~{delivered:.0f} msg/s of "
+                f"{offered:.0f} offered")
+            return delivered, offered
+
+        # The steps run with the cyclic collector paused, as a cell's hold
+        # does (``_run_cell``): the capacity the hold will see.
+        gc.collect()
+        gc.disable()
+        return _saturated_rate(step, 0.9 * cap_burst)
+    finally:
+        gc.enable()
+        cluster.kill_topology(name, wait_secs=2)
+        # The burst leaves ~2k records of garbage; collect NOW so a gen-2
+        # GC pause doesn't land mid-hold in the next cell (on a 1-core
+        # host a big collection reads as a multi-hundred-ms stall that
+        # breaches every in-flight record).
+        gc.collect()
+
+
+def _saturated_rate(step: Callable, rate: float) -> float:
+    """The highest delivery rate of open-loop steps ``step(rate, dur) ->
+    (delivered, offered)`` msg/s, the first at ``rate`` for 6 s.
+
+    A topology delivers no faster than it can, so every step's deliveries
+    are a lower bound of its capacity and the probe keeps the highest.
+    storm_tpu's probe takes the first step's alone (ROADMAP C25). Where the
+    topology keeps up with that rate (the card's serve path drains a parked
+    burst slower than it serves a stream), that reading is the offered
+    rate, not the capacity, so a step that keeps up raises the rate. One
+    step that falls behind may be a stall or a count cut at a batch's
+    edge, and a step far past capacity delivers less: the step after one
+    that fell behind offers a little above the best delivery so far, and
+    the probe ends at the second step that falls behind."""
+    best, behind, dur = 0.0, 0, 6.0
+    for _ in range(_PROBE_STEPS):
+        delivered, offered = step(rate, dur)
+        best = max(best, delivered)
+        if delivered < _SATURATED * offered:
+            behind += 1
+            if behind == 2:
+                break
+            rate = _CONFIRM * best
+        else:
+            rate *= _PROBE_RAISE
+        dur = _RAISED_S
+    return best
+
+
+def _open_loop(broker, input_topic: str, output_topic: str, sc: _Scenario,
+               ref_spec: TraceSpec, rate: float, dur: float) -> tuple:
+    """Offer ``rate`` msg/s for ``dur`` s; (delivered, offered) msg/s over
+    the back 2/3 of the window."""
+    iv = 1.0 / rate
+    t0 = time.perf_counter()
+    base = broker.topic_size(output_topic)
+    mark = None
+    i = 0
+    while True:
+        now = time.perf_counter() - t0
+        if now >= dur:
+            break
+        if mark is None and now >= dur / 3.0:
+            mark = (broker.topic_size(output_topic), time.perf_counter(), i)
+        broker.produce(input_topic, _mixed_payload(sc, ref_spec, i),
+                       key=b"t00000:high")
+        i += 1
+        t_next = (i + 1) * iv
+        if t_next > now:
+            time.sleep(min(t_next - now, 0.05))
+    out0, tm, i0 = mark if mark else (base, t0, 0)
+    out1, t1 = broker.topic_size(output_topic), time.perf_counter()
+    return max(1.0, (out1 - out0) / (t1 - tm)), (i - i0) / (t1 - tm)
+
+
+def _make_scenarios(which, device="cuda") -> List[_Scenario]:
+    all_ = {
+        "classify": lambda: _StandardScenario("classify", continuous=False),
+        "continuous": lambda: _StandardScenario("continuous",
+                                                continuous=True),
+        "cascade": _CascadeScenario,
+        "serve_path": _ServeScenario,
+        "decode": _DecodeScenario,
+    }
+    out = [all_[n]() for n in which]
+    for sc in out:
+        sc.device = device
+    return out
+
+
+def _targets_for(pattern: str, slo_ms: float) -> CellTargets:
+    """Declared per-cell targets (docs/OPERATIONS.md "Fleet drills").
+
+    Steady/diurnal cells must serve within SLO with negligible shedding
+    and no burn alarm; flash cells pass exactly when the protection
+    stack ENGAGES — shed up, burn tripped, a goodput floor held through
+    the spike, and the protected lane degraded by at most 3x SLO while a
+    2x-capacity flash is being shed. A paced bench cannot produce the
+    flash signature at all."""
+    if pattern == "heavy_tail":
+        return CellTargets(p99_ms=slo_ms, min_goodput_frac=0.80,
+                           max_shed_frac=0.05, forbid_burn_trip=True)
+    if pattern == "diurnal":
+        # The wave crest is allowed to degrade the protected lane up to
+        # 1.5x SLO and shed a little; it must not collapse.
+        return CellTargets(p99_ms=1.5 * slo_ms, min_goodput_frac=0.75,
+                           max_shed_frac=0.10)
+    return CellTargets(p99_ms=3 * slo_ms, min_goodput_frac=0.30,
+                       expect_shed=True, expect_burn_trip=True)
+
+
+def _trace_spec(pattern: str, seed: int, hold_s: float,
+                cap1_msg_s: float) -> TraceSpec:
+    """``cap1_msg_s`` is the probe's sustained throughput in messages/s
+    of TRACE-MIX traffic (the probe offers the same shape mix the trace
+    does), so the declared utilization fraction applies directly."""
+    kw = dict(seed=seed, pattern=pattern, duration_s=float(hold_s),
+              base_rate=round(_PATTERN_RATE_FRAC[pattern] * cap1_msg_s, 2),
+              tenants=1000, zipf_s=1.1, gold_frac=0.02)
+    if pattern == "diurnal":
+        # One full wave inside the hold (trough -> peak -> trough), so the
+        # measured window sees the whole cycle and mean rate == base_rate.
+        kw.update(diurnal_period_s=float(hold_s), diurnal_amp=0.5)
+    if pattern == "flash_crowd":
+        kw.update(flash_mult=_FLASH_MULT, flash_at_frac=0.3,
+                  flash_ramp_s=1.0,
+                  flash_hold_s=min(6.0, max(4.0, hold_s * 0.25)))
+    return TraceSpec(**kw)
+
+
+def run_fleet(args=None, **overrides) -> dict:
+    """Run the scenario x pattern matrix; returns the scorecard dict (the
+    module's entry point prints it to stdout). ``args`` may carry
+    ``stage_seconds``, ``slo_ms``, ``seed``, ``fleet_scenarios`` and
+    ``device``; ``overrides`` (``hold_s``, ``slo_ms``, ``seed``,
+    ``scenarios``, ``patterns``, ``log``, ``device``) win over them. The
+    device defaults to ``cuda`` and is resolved first: without a card
+    this raises unless ``device="cpu"`` is given."""
+    from storm_tpu_torch.device import resolve_device
+
+    device = str(resolve_device(overrides.get(
+        "device", getattr(args, "device", None) or "cuda")))
+    hold_s = float(overrides.get("hold_s",
+                                 getattr(args, "stage_seconds", 0) or 24.0))
+    # Default fleet SLO: storm_tpu's 400 ms, set for a 1-core CPU host
+    # where the 256-row padded lenet5 step alone is ~100-200 ms. The
+    # declared SLO is recorded per cell.
+    slo_ms = float(overrides.get("slo_ms",
+                                 getattr(args, "slo_ms", 0) or 400.0))
+    seed = int(overrides.get("seed", getattr(args, "seed", None) or 16))
+    scenarios = overrides.get("scenarios",
+                              getattr(args, "fleet_scenarios", None)
+                              or SCENARIOS)
+    patterns = overrides.get("patterns", PATTERNS)
+    log = overrides.get("log", _log)
+
+    from storm_tpu_torch.runtime.cluster import LocalCluster
+    from storm_tpu_torch.runtime.ui import UIServer
+
+    cluster = LocalCluster()
+    cells: List[dict] = []
+    skipped: List[dict] = []
+    engines: Dict[str, List[dict]] = {}
+    cursor_hygiene = None
+    route_probe = None
+    scorecard: Dict[str, object] = {
+        "metric": "fleet_scorecard_cells_passed",
+        "seed": seed, "slo_ms": slo_ms, "hold_s": hold_s,
+        "patterns": list(patterns), "scenarios": list(scenarios),
+        "device": device,
+        "cells": cells,
+    }
+    ui = None
+    try:
+        async def _mk_ui():
+            return await UIServer(cluster._cluster, port=0).start()
+
+        ui = cluster._run(_mk_ui())
+        log(f"fleet UI on http://127.0.0.1:{ui.port} (the running cell's "
+            f"/api/v1/topology/<name>/scorecard)")
+        cell_idx = 0
+        for sc in _make_scenarios(scenarios, device):
+            reason = sc.available()
+            if reason:
+                log(f"[{sc.name}] SKIP: {reason}")
+                skipped.append({"scenario": sc.name, "reason": reason})
+                continue
+            _clear_engines()
+            sc.setup()
+            try:
+                cap1 = sc.probe(cluster, slo_ms, log)
+                for pattern in (sc.patterns or patterns):
+                    cell_seed = seed + 7 * cell_idx
+                    cell_idx += 1
+                    cell, hygiene, probe = _run_cell(
+                        cluster, ui, sc, pattern, cell_seed, hold_s,
+                        slo_ms, cap1, scorecard, log,
+                        probe_route=(cell_idx == 1))
+                    cells.append(cell)
+                    if hygiene is not None:
+                        cursor_hygiene = hygiene
+                    if probe is not None:
+                        route_probe = probe
+                    log(f"[{sc.name}/{pattern}] "
+                        f"{'PASS' if cell['ok'] else 'FAIL'} "
+                        f"goodput={cell['scores']['goodput_per_s']}/s "
+                        f"shed={cell['scores']['shed_frac']} "
+                        f"burn_peak={cell['scores']['burn_peak']} "
+                        f"hold={cell['hold_elapsed_s']}s of {hold_s}s")
+            finally:
+                sc.teardown()
+                engines[sc.name] = _engine_rows()
+                _clear_engines()
+    finally:
+        try:
+            if ui is not None:
+                cluster._run(ui.stop())
+        finally:
+            cluster.shutdown()
+
+    n_pass = sum(1 for c in cells if c["ok"])
+    flash_evidence = [
+        {"cell": f"{c['scenario']}/{c['pattern']}",
+         "shed_frac": c["scores"]["shed_frac"],
+         "burn_tripped": c["scores"]["burn_tripped"],
+         "bottleneck": (c.get("bottleneck") or {}).get("leader")}
+        for c in cells
+        if c["pattern"] == "flash_crowd" and c["scores"]["shed_frac"] > 0
+        and c["scores"]["burn_tripped"]]
+    scorecard.update({
+        "value": n_pass,
+        "unit": (f"scorecard cells passing their declared targets "
+                 f"(of {len(cells)}: {len(scenarios)} scenarios x "
+                 f"{len(patterns)} traffic patterns)"),
+        "cells_total": len(cells),
+        "cells_passed": n_pass,
+        "all_pass": bool(cells) and n_pass == len(cells),
+        "skipped": skipped,
+        "engines": engines,
+        "evidence": {
+            # The behavior a paced bench cannot show: a flash crowd
+            # tripping shed + burn with the bottleneck verdict attached.
+            "flash_shed_burn_cells": flash_evidence,
+            "bottleneck_verdict_attached": any(
+                (c.get("bottleneck") or {}).get("leader")
+                for c in cells),
+            "scenario_phase_flight_events": all(
+                c.get("flight", {}).get("scenario_phase", 0) >= 3
+                for c in cells),
+            "cursor_hygiene": cursor_hygiene,
+            "scorecard_route": route_probe,
+        },
+        "capture_session": _capture_session(),
+        "code_version": _code_version(),
+        "note": (f"device {device}: per-scenario cap1 is this host's "
+                 "measured sustained capacity and all offered rates are "
+                 "declared fractions of it, so the claims (SLO held at "
+                 "declared utilization; protection engages at a declared "
+                 "overload multiple) are host-independent; traces "
+                 "regenerate byte-identically from the recorded spec+seed "
+                 "(tests/test_torch_loadgen.py)"),
+    })
+    return scorecard
+
+
+def _run_cell(cluster, ui, sc: _Scenario, pattern: str, cell_seed: int,
+              hold_s: float, slo_ms: float, cap1: float,
+              scorecard: dict, log: Callable, probe_route: bool = False):
+    """One (scenario, pattern) cell on a fresh topology: warm, measured
+    trace replay, drain, score. Capacity was probed beforehand on a
+    separate throwaway topology (``_probe_capacity``)."""
+    from storm_tpu_torch.obs import Observatory
+    from storm_tpu_torch.obs.capacity import utilization_snapshot
+    from storm_tpu_torch.qos import LoadShedController, ShedPolicy
+
+    broker, run_cfg, topo = sc.build(slo_ms)
+    run_cfg.tracing.flight_capacity = _FLIGHT_EVENTS
+    name = f"fleet-{sc.name}-{pattern.replace('_', '-')}"
+    cell_key = f"cell-{sc.name}-{pattern}"
+    input_topic = run_cfg.broker.input_topic
+    output_topic = run_cfg.broker.output_topic
+    cluster.submit_topology(name, run_cfg, topo)
+    qos_cfg, obs_cfg = run_cfg.qos, run_cfg.obs
+
+    rt = cluster._cluster.runtime(name)
+    obs = shedder = None
+
+    async def mk_protection():
+        # Started at HOLD time, not submit time: the closed-loop probe
+        # is all "breaches" by construction, and letting the burn
+        # tracker's 15 s slow window and the shedder's level carry that
+        # into the measured hold made every first cell start tripped.
+        o = Observatory(rt, obs_cfg, sink_components=(sc.sink,)).start()
+        s = LoadShedController(
+            rt, ShedPolicy.from_qos(qos_cfg, sc.shed_component,
+                                    sc.sink)).start()
+        s.burn = o.burn  # burn is an additional hot signal
+        return o, s
+    payload_idx = {shape: 0 for shape in sc.payloads}
+    offered_counter = rt.metrics.counter("loadgen", "offered_records")
+
+    def produce_event(ev):
+        plist = sc.payloads[ev.shape]
+        i = payload_idx[ev.shape]
+        payload_idx[ev.shape] = i + 1
+        broker.produce(input_topic, plist[i % len(plist)], key=ev.key())
+        offered_counter.inc()
+        rt.metrics.counter("loadgen", f"offered_lane_{ev.lane}").inc()
+
+    def snap():
+        return cluster.metrics(name)
+
+    def counter(component, metric, s) -> int:
+        return int(s.get(component, {}).get(metric, 0) or 0)
+
+    def phase_event(phase: str, **fields) -> None:
+        # satellite: scenario_phase boundaries in the flight stream so a
+        # flight/trace tail can be sliced per scorecard cell.
+        rt.flight.event("scenario_phase", scenario=sc.name,
+                        pattern=pattern, cell=cell_key, phase=phase,
+                        **fields)
+
+    hygiene = None
+    probe = None
+    try:
+        spec = _trace_spec(pattern, cell_seed, hold_s, cap1)
+        trace = generate(spec)
+        targets = sc.targets(pattern, slo_ms, spec)
+
+        # -- warm: compile burst + paced pre-roll, unmeasured --------------
+        # Every bucket path must be built HERE, not mid-hold (storm_tpu's
+        # fresh topology compiles its own jit cache; the port's shares the
+        # scenario's engine, whose probe built its buckets, and the burst
+        # keeps the cell's warm-up the same as storm_tpu's). The paced
+        # pre-roll alone never does it: at 0.3x rate batches stay ~a dozen
+        # rows, so the big bucket would first build when a transient
+        # backlog forms a full batch mid-hold — a stall that breaches
+        # every in-flight record and reads as a burn spike the traffic
+        # never caused. The closed-loop burst parks enough rows to form
+        # max-size batches.
+        phase_event("warm", base_rate=spec.base_rate)
+        base = broker.topic_size(output_topic)
+        for i in range(_WARM_BURST):
+            broker.produce(input_topic, _mixed_payload(sc, spec, i),
+                           key=b"t00001:normal")
+        _await_topic(broker, output_topic, base + _WARM_BURST, name)
+        warm_iv = 1.0 / max(1.0, 0.3 * spec.base_rate)
+        for i in range(_WARM_PACED):
+            broker.produce(input_topic, _mixed_payload(sc, spec, i),
+                           key=b"t00001:normal")
+            time.sleep(warm_iv)
+        time.sleep(1.5)
+        # Collect warm-up garbage, then pause the cyclic collector for
+        # the hold: a gen-2 collection is a stop-the-world stall (multi-
+        # hundred-ms on a 1-core host) that breaches every in-flight
+        # record — measured as a burn spike the traffic never caused.
+        # Refcounting still reclaims everything acyclic; cycles
+        # accumulate for only ~hold_s seconds and are collected in the
+        # cell's finally, which re-enables the collector on every exit.
+        gc.collect()
+        gc.disable()
+        for lane in ("", "_high", "_normal", "_best_effort"):
+            cluster.reset_histogram(name, sc.sink, f"e2e_latency_ms{lane}")
+
+        # -- measured hold: replay the trace -------------------------------
+        obs, shedder = cluster._run(mk_protection())
+        s0 = snap()
+        base_delivered = counter(sc.sink, "delivered", s0)
+        base_breach = counter(sc.sink, "slo_breaches", s0)
+        base_shed = _shed_total(s0)
+        timeline: List[dict] = []
+        verdict_at_peak: Optional[dict] = None
+        state = {"peak_burn": -1.0}
+        e2e_hist = rt.metrics.histogram(sc.sink, "e2e_latency_ms")
+        delivered_ctr = rt.metrics.counter(sc.sink, "delivered")
+        breach_ctr = rt.metrics.counter(sc.sink, "slo_breaches")
+        burn_gauge = rt.metrics.gauge("slo", "burn_rate")
+        trip_gauge = rt.metrics.gauge("slo", "tripped")
+        level_gauge = rt.metrics.gauge("qos", "shed_level")
+        t_hold = time.perf_counter()
+        phase_event("hold", events=len(trace), base_rate=spec.base_rate)
+
+        def sample(now: float) -> None:
+            # Direct registry reads only — a full cluster.metrics()
+            # snapshot serializes every per-tenant counter (grows all
+            # run) and must never run on the replay thread's schedule.
+            nonlocal verdict_at_peak
+            burn = round(float(burn_gauge.value or 0.0), 3)
+            win = e2e_hist.window(cell_key)  # named per-cell cursor
+            utilization_snapshot(rt, key=cell_key)  # tracker cursor too
+            row = {
+                "t": round(now - t_hold, 2),
+                "burn_rate": burn,
+                "burn_tripped": int(trip_gauge.value or 0),
+                "shed_level": int(level_gauge.value or 0),
+                "delivered_rate": round(win["rate_per_s"], 1),
+                "delivered": int(delivered_ctr.value) - base_delivered,
+                "slo_breaches": int(breach_ctr.value) - base_breach,
+            }
+            timeline.append(row)
+            if burn > state["peak_burn"]:
+                state["peak_burn"] = burn
+            # Keep the compact verdict observed at the highest burn seen
+            # with a named leader — "what limited us when it hurt most".
+            v = obs.last_verdict() or {}
+            if v.get("leader") and burn >= state.get("verdict_burn", -1.0):
+                state["verdict_burn"] = burn
+                top = (v.get("ranked") or [{}])[0]
+                verdict_at_peak = {
+                    "leader": v["leader"],
+                    "score": top.get("score"),
+                    "capacity": top.get("capacity"),
+                    "busy_frac": top.get("busy_frac"),
+                    "reasons": top.get("reasons"),
+                    "at_t": row["t"], "at_burn": burn,
+                }
+
+        # Sampling runs on its own thread so a slow tick can never stall
+        # the replay's event pacing (which would read as a latency spike
+        # the cell itself caused).
+        hold_done = threading.Event()
+
+        def sampler():
+            while not hold_done.wait(0.5):
+                sample(time.perf_counter())
+
+        sampler_thread = threading.Thread(target=sampler, daemon=True)
+        sampler_thread.start()
+        try:
+            offered = replay(trace, produce_event)
+        finally:
+            hold_done.set()
+            sampler_thread.join(timeout=5.0)
+        hold_elapsed = time.perf_counter() - t_hold
+
+        # -- drain: let admitted in-flight work land -----------------------
+        phase_event("drain", offered=offered)
+        stable_since, last_delivered = time.time(), -1
+        deadline = time.time() + 15.0
+        while time.time() < deadline:
+            d = int(delivered_ctr.value)
+            if d != last_delivered:
+                last_delivered, stable_since = d, time.time()
+            elif time.time() - stable_since >= 1.5:
+                break
+            time.sleep(0.25)
+
+        s1 = snap()
+        delivered = counter(sc.sink, "delivered", s1) - base_delivered
+        breaches = counter(sc.sink, "slo_breaches", s1) - base_breach
+        shed_total = _shed_total(s1) - base_shed
+        lane_offered = {
+            ln: int(s1.get("loadgen", {}).get(f"offered_lane_{ln}", 0) or 0)
+            for ln in spec.lanes}
+
+        def lane_p99(lane: str):
+            h = s1.get(sc.sink, {}).get(f"e2e_latency_ms_{lane}")
+            if isinstance(h, dict) and h.get("count"):
+                return {"count": h["count"],
+                        "p50": h.get("p50"), "p99": h.get("p99")}
+            return None
+
+        lane_hists = {ln: lane_p99(ln) for ln in spec.lanes}
+        burn_snap = obs.burn.snapshot()
+        good = max(0, delivered - breaches)
+        scores = {
+            "hold_elapsed_s": round(hold_elapsed, 2),
+            "offered": offered,
+            "offered_rate_per_s": round(offered / hold_elapsed, 1),
+            "offered_by_lane": lane_offered,
+            "delivered": delivered,
+            "slo_breaches": breaches,
+            "goodput_per_s": round(good / hold_elapsed, 1),
+            "goodput_frac": round(good / offered, 4) if offered else None,
+            "shed_total": shed_total,
+            "shed_frac": (round(min(1.0, shed_total / offered), 4)
+                          if offered else None),
+            "lane_p99_ms": {ln: (h["p99"] if h else None)
+                            for ln, h in lane_hists.items()},
+            "burn_peak": max(0.0, state["peak_burn"]),
+            "burn_tripped": bool(any(r["burn_tripped"] for r in timeline)
+                                 or burn_snap.get("trips", 0)),
+        }
+        scores.update(sc.extra_scores(rt, s1, scores))
+        if verdict_at_peak is None:
+            # No leader surfaced during the hold: record the final
+            # verdict's compact form (leader may still be null).
+            v = obs.last_verdict() or {}
+            top = (v.get("ranked") or [{}])[0]
+            verdict_at_peak = {
+                "leader": v.get("leader"),
+                "score": top.get("score"),
+                "capacity": top.get("capacity"),
+                "busy_frac": top.get("busy_frac"),
+            } if v else None
+        verdict = verdict_at_peak or {}
+
+        flight_tail = cluster._run(_harvest_flight(cluster, name))
+        flight_counts = {"scenario_phase": 0, "shed": 0, "slo_burn": 0}
+        for e in flight_tail:
+            kind = str(e.get("kind", ""))
+            if kind == "scenario_phase":
+                flight_counts["scenario_phase"] += 1
+            elif kind.startswith("shed"):
+                flight_counts["shed"] += 1
+            elif kind == "slo_burn":
+                flight_counts["slo_burn"] += 1
+
+        graded = score_cell(scores, targets)
+        cell = {
+            "scenario": sc.name,
+            "pattern": pattern,
+            "seed": cell_seed,
+            "cap1_msg_s": round(cap1, 1),
+            "trace": {"spec": _spec_dict(spec), "events": len(trace),
+                      "sha256": trace.sha256(), "stats": trace.stats()},
+            "hold_elapsed_s": round(hold_elapsed, 2),
+            "scores": scores,
+            "lane_hists": lane_hists,
+            "targets": targets_dict(targets),
+            "gates": graded["gates"],
+            "ok": graded["ok"],
+            "bottleneck": verdict or None,
+            "burn_snapshot": burn_snap,
+            "flight": flight_counts,
+            "timeline": _thin(timeline, 48),
+        }
+
+        # Live scorecard route: attach the matrix-so-far to this runtime
+        # and (once) prove the route serves it while traffic is landing.
+        rt.scorecard = {"seed": scorecard["seed"],
+                        "cells": scorecard["cells"] + [cell],
+                        "in_progress": True}
+        if probe_route:
+            probe = _probe_route(ui.port, name)
+
+        # Cursor hygiene (satellite): each cell drops its named cursors on
+        # exit; record the before/after so the artifact evidences it.
+        tracker = getattr(rt, "_capacity_tracker", None)
+        hygiene = {
+            "hist_cursors_before": e2e_hist.window_keys(),
+            "hist_cursors_dropped": rt.metrics.drop_windows(cell_key),
+            "capacity_cursor_dropped": (tracker.drop(cell_key)
+                                        if tracker is not None else False),
+        }
+        hygiene["hist_cursors_after"] = e2e_hist.window_keys()
+        return cell, hygiene, probe
+    finally:
+        gc.enable()
+        gc.collect()
+        for svc in (obs, shedder):
+            if svc is not None:
+                try:
+                    cluster._run(svc.stop())
+                except Exception as e:  # noqa: BLE001 - the kill must run
+                    log(f"[{sc.name}/{pattern}] {type(svc).__name__}.stop "
+                        f"failed: {e!r}")
+        cluster.kill_topology(name, wait_secs=2)
+
+
+def _engine_rows() -> List[dict]:
+    """The cached inference engines: what each served, by forwards, kernel
+    launch tally (``InferenceEngine.launch_tally``) and built buckets."""
+    from storm_tpu_torch.infer.engine import InferenceEngine, live_engines
+    return [{"model": e.model_cfg.name,
+             "checkpoint": e.model_cfg.checkpoint,
+             "dtype": str(e.dtype).replace("torch.", ""),
+             "forwards": e.forwards,
+             "launch_tally": e.launch_tally(),
+             "buckets": sorted(e.compiled_batches)}
+            for e in live_engines() if isinstance(e, InferenceEngine)]
+
+
+def _clear_engines() -> None:
+    """Empty the process's inference and decode engine caches, so each
+    scenario builds and warms its own engines (ROADMAP C4: the cache key
+    omits the watchdog policy) and its ``engines`` rows are its own."""
+    from storm_tpu_torch.decode.engine import _reset_engines
+    from storm_tpu_torch.infer.engine import clear_engines
+    clear_engines()
+    _reset_engines()
+
+
+def _shed_total(s: dict) -> int:
+    """Shed records visible in metrics: spout-edge admission sheds plus
+    operator-side rejects. Admission increments BOTH ``shed_<tenant>``
+    and ``shed_lane_<lane>`` per record, so only the lane family is
+    summed (it partitions the shed set); ``shed_level`` is a gauge and
+    ``shed_decisions`` counts controller level moves — neither is a
+    record count."""
+    total = 0
+    for k, v in s.get("qos", {}).items():
+        if k.startswith("shed_lane_") and not isinstance(v, dict):
+            total += int(v or 0)
+    total += int(s.get("inference-bolt", {}).get("shed_rejected", 0) or 0)
+    return total
+
+
+def _await_topic(broker, topic: str, size: int, name: str,
+                 timeout_s: float = 180.0) -> None:
+    """Poll until ``topic`` holds ``size`` records (probe drain)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if broker.topic_size(topic) >= size:
+            return
+        time.sleep(0.01)
+    raise RuntimeError(f"{name}: capacity probe never drained")
+
+
+def _spec_dict(spec: TraceSpec) -> dict:
+    from dataclasses import asdict
+    return asdict(spec)
+
+
+def _thin(rows: List[dict], keep: int) -> List[dict]:
+    if len(rows) <= keep:
+        return rows
+    step = len(rows) / keep
+    return [rows[int(i * step)] for i in range(keep)]
+
+
+async def _harvest_flight(cluster, name):
+    rt = cluster._cluster.runtime(name)
+    return rt.flight.tail(_FLIGHT_EVENTS)
+
+
+def _probe_route(port: int, name: str) -> dict:
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/v1/topology/{name}/scorecard",
+                timeout=10) as resp:
+            body = json.loads(resp.read().decode())
+        return {"status": resp.status,
+                "cells": len(body.get("cells", [])),
+                "in_progress": body.get("in_progress")}
+    except Exception as e:  # noqa: BLE001 - probe failure is evidence
+        return {"error": str(e)}
+
+
+def main(argv=None) -> int:
+    """``python -m storm_tpu_torch.loadgen.fleet``: run the matrix and
+    print the scorecard JSON to stdout (progress goes to stderr)."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m storm_tpu_torch.loadgen.fleet",
+        description="trace-driven fleet matrix: every scenario x every "
+                    "traffic pattern, scored on goodput, per-lane p99, SLO "
+                    "burn and shed fraction; prints the scorecard JSON")
+    ap.add_argument("--fleet-scenarios", default=None,
+                    help="comma list restricting the scenarios "
+                         f"(default: all of {','.join(SCENARIOS)})")
+    ap.add_argument("--seed", type=int, default=16,
+                    help="base RNG seed for trace generation (recorded per "
+                         "cell; same seed -> byte-identical traces)")
+    ap.add_argument("--stage-seconds", type=float, default=0.0,
+                    help="seconds of each cell's measured hold (default 24)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="the cells' declared e2e SLO in ms (default 400)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    kw = {}
+    if args.fleet_scenarios:
+        kw["scenarios"] = tuple(s.strip() for s in
+                                args.fleet_scenarios.split(",") if s.strip())
+    print(json.dumps(run_fleet(args, **kw), default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,6 +11,7 @@
     python -m storm_tpu_torch.main traces|profile|bottleneck|copies <topology>
     python -m storm_tpu_torch.main plan [<topology>] --rate R --slo-ms MS \
         [--baseline PROFILE.json]
+    python -m storm_tpu_torch.main scorecard [<topology>] [--file SCORECARD.json]
 
 ``run`` builds the standard topology (spout -> inference -> sink, plus a
 dead-letter sink; one chain per ``[[pipelines]]`` entry, or a Flux file)
@@ -21,8 +22,10 @@ spreads the topology over worker processes (:mod:`storm_tpu_torch.dist`).
 ``serve`` starts the inference worker (:mod:`storm_tpu_torch.serve`) over
 the port's frames. ``run``, ``dist-run`` and ``serve`` run on the card
 unless ``--device cpu`` is given (storm_tpu picks its platform from
-``JAX_PLATFORMS`` instead). storm_tpu's ``lint`` (its analyzer) and
-``scorecard`` (its load generator) are not ported.
+``JAX_PLATFORMS`` instead). ``scorecard`` renders the fleet matrix's
+scorecard (:mod:`storm_tpu_torch.loadgen`), from a file or from the route
+the fleet matrix attaches to the topology it drives. storm_tpu's
+``lint`` (its analyzer) is not ported.
 
 The builders: ``build_standard_topology``, the reference DAG (one ingest
 spout, the inference operator, an egress sink and a dead-letter sink, with
@@ -466,32 +469,42 @@ def _ctl(args) -> int:
     return rc
 
 
-def _traces(args) -> int:
-    """Dump slowest-N traces / flight-recorder tail from a running
-    topology's UI endpoint (``main traces <topology>``)."""
+def _read_route(args, path: str, timeout: float = 30):
+    """GET ``path`` from the UI at ``args.url``, with ``--token`` or the
+    environment's control token (the read routes are open; the header is
+    harmless where unneeded). ``(body, 0)``; ``(None, 1)`` on an HTTP error,
+    its body on stderr; ``(None, 2)`` when the UI cannot be reached."""
     import urllib.error
-    import urllib.parse
     import urllib.request
 
     from storm_tpu_torch.config import env_control_token
 
     base = args.url.rstrip("/")
-    topo = urllib.parse.quote(args.topology, safe="")
-    action = "flight" if args.flight else "traces"
-    req = urllib.request.Request(
-        f"{base}/api/v1/topology/{topo}/{action}?n={args.n}")
+    req = urllib.request.Request(base + path)
     token = args.token or env_control_token()
-    if token:  # read route is open; header is harmless if unneeded
+    if token:
         req.add_header("Authorization", f"Bearer {token}")
     try:
-        with urllib.request.urlopen(req, timeout=30) as r:
-            out = json.loads(r.read())
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read()), 0
     except urllib.error.HTTPError as e:
         print(e.read().decode("utf-8", "replace"), file=sys.stderr)
-        return 1
+        return None, 1
     except urllib.error.URLError as e:
         print(f"cannot reach {base}: {e}", file=sys.stderr)
-        return 2
+        return None, 2
+
+
+def _traces(args) -> int:
+    """Dump slowest-N traces / flight-recorder tail from a running
+    topology's UI endpoint (``main traces <topology>``)."""
+    import urllib.parse
+
+    topo = urllib.parse.quote(args.topology, safe="")
+    action = "flight" if args.flight else "traces"
+    out, rc = _read_route(args, f"/api/v1/topology/{topo}/{action}?n={args.n}")
+    if rc:
+        return rc
     if args.json:
         print(json.dumps(out, indent=2, default=str))
         return 0
@@ -528,27 +541,12 @@ def _profile_cmd(args) -> int:
     compile costs, SLO burn, occupancy) from a running topology's UI
     endpoint (``main profile <topology>``), the queryable face of
     ``obs/``, mirroring the traces/flight CLI."""
-    import urllib.error
     import urllib.parse
-    import urllib.request
 
-    from storm_tpu_torch.config import env_control_token
-
-    base = args.url.rstrip("/")
     topo = urllib.parse.quote(args.topology, safe="")
-    req = urllib.request.Request(f"{base}/api/v1/topology/{topo}/profile")
-    token = args.token or env_control_token()
-    if token:  # read route is open; header is harmless if unneeded
-        req.add_header("Authorization", f"Bearer {token}")
-    try:
-        with urllib.request.urlopen(req, timeout=30) as r:
-            out = json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        print(e.read().decode("utf-8", "replace"), file=sys.stderr)
-        return 1
-    except urllib.error.URLError as e:
-        print(f"cannot reach {base}: {e}", file=sys.stderr)
-        return 2
+    out, rc = _read_route(args, f"/api/v1/topology/{topo}/profile")
+    if rc:
+        return rc
     if args.json:
         print(json.dumps(out, indent=2, default=str))
         return 0
@@ -596,27 +594,12 @@ def _bottleneck_cmd(args) -> int:
     critical-path latency decomposition. Against a dist UI the table is
     the controller-merged per-worker utilization (no attributor runs
     cross-worker)."""
-    import urllib.error
     import urllib.parse
-    import urllib.request
 
-    from storm_tpu_torch.config import env_control_token
-
-    base = args.url.rstrip("/")
     topo = urllib.parse.quote(args.topology, safe="")
-    req = urllib.request.Request(f"{base}/api/v1/topology/{topo}/bottleneck")
-    token = args.token or env_control_token()
-    if token:  # read route is open; header is harmless if unneeded
-        req.add_header("Authorization", f"Bearer {token}")
-    try:
-        with urllib.request.urlopen(req, timeout=30) as r:
-            out = json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        print(e.read().decode("utf-8", "replace"), file=sys.stderr)
-        return 1
-    except urllib.error.URLError as e:
-        print(f"cannot reach {base}: {e}", file=sys.stderr)
-        return 2
+    out, rc = _read_route(args, f"/api/v1/topology/{topo}/bottleneck")
+    if rc:
+        return rc
     if args.json:
         print(json.dumps(out, indent=2, default=str))
         return 0
@@ -675,27 +658,12 @@ def _copies_cmd(args) -> int:
     copies/record ranked by bytes moved, plus the derived copy
     amplification ratio (bytes moved / payload bytes ingested). Against
     a dist UI the tree is the controller-merged per-worker window."""
-    import urllib.error
     import urllib.parse
-    import urllib.request
 
-    from storm_tpu_torch.config import env_control_token
-
-    base = args.url.rstrip("/")
     topo = urllib.parse.quote(args.topology, safe="")
-    req = urllib.request.Request(f"{base}/api/v1/topology/{topo}/copies")
-    token = args.token or env_control_token()
-    if token:  # read route is open; header is harmless if unneeded
-        req.add_header("Authorization", f"Bearer {token}")
-    try:
-        with urllib.request.urlopen(req, timeout=30) as r:
-            out = json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        print(e.read().decode("utf-8", "replace"), file=sys.stderr)
-        return 1
-    except urllib.error.URLError as e:
-        print(f"cannot reach {base}: {e}", file=sys.stderr)
-        return 2
+    out, rc = _read_route(args, f"/api/v1/topology/{topo}/copies")
+    if rc:
+        return rc
     if args.json:
         print(json.dumps(out, indent=2, default=str))
         return 0
@@ -743,6 +711,38 @@ def _copies_cmd(args) -> int:
             print(f"worker {idx}: moved {_fmt(t.get('bytes'))}B "
                   f"ingested {_fmt(t.get('ingest_bytes'))}B "
                   f"amp={workers[idx].get('copy_amplification')}")
+    return 0
+
+
+def _scorecard_cmd(args) -> int:
+    """Render the fleet scenario-matrix scorecard
+    (:mod:`storm_tpu_torch.loadgen`): one row per (scenario, traffic
+    pattern) cell with goodput, protected-lane p99, burn, shed fraction,
+    the bottleneck verdict, and the declared-target pass/fail. Offline
+    mode (``--file``) renders a saved scorecard; online mode queries the
+    /scorecard route the fleet matrix attaches mid-run."""
+    import urllib.parse
+
+    from storm_tpu_torch.loadgen.scorecard import render_table
+
+    if args.file:
+        with open(args.file) as f:
+            out = json.load(f)
+    else:
+        if not args.topology:
+            print("scorecard: give a topology name or --file "
+                  "SCORECARD_*.json", file=sys.stderr)
+            return 2
+        topo = urllib.parse.quote(args.topology, safe="")
+        out, rc = _read_route(args, f"/api/v1/topology/{topo}/scorecard")
+        if rc:
+            return rc
+    if args.json:
+        print(json.dumps(out, indent=2, default=str))
+        return 0
+    print(render_table(out))
+    if out.get("in_progress"):
+        print("(matrix still running: cells land as they are scored)")
     return 0
 
 
@@ -818,13 +818,8 @@ def _plan_cmd(args) -> int:
             return 0 if res.feasible else 1
         return _render_solve(out)
 
-    import urllib.error
     import urllib.parse
-    import urllib.request
 
-    from storm_tpu_torch.config import env_control_token
-
-    base = args.url.rstrip("/")
     topo = urllib.parse.quote(args.topology, safe="")
     q = {}
     if args.rate > 0:
@@ -835,20 +830,9 @@ def _plan_cmd(args) -> int:
         q["engine"] = args.engine
     q["headroom"] = args.headroom
     qs = urllib.parse.urlencode(q)
-    req = urllib.request.Request(
-        f"{base}/api/v1/topology/{topo}/plan?{qs}")
-    token = args.token or env_control_token()
-    if token:
-        req.add_header("Authorization", f"Bearer {token}")
-    try:
-        with urllib.request.urlopen(req, timeout=60) as r:
-            out = json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        print(e.read().decode("utf-8", "replace"), file=sys.stderr)
-        return 1
-    except urllib.error.URLError as e:
-        print(f"cannot reach {base}: {e}", file=sys.stderr)
-        return 2
+    out, rc = _read_route(args, f"/api/v1/topology/{topo}/plan?{qs}", timeout=60)
+    if rc:
+        return rc
     if args.json:
         print(json.dumps(out, indent=2, default=str))
         return 0
@@ -1095,6 +1079,25 @@ def main(argv=None) -> int:
     planp.add_argument("--json", action="store_true",
                        help="raw JSON instead of the rendered view")
 
+    scorep = sub.add_parser(
+        "scorecard",
+        help="render the fleet scenario-matrix scorecard as a table: "
+             "live from a running topology's /scorecard route (attached "
+             "mid-run by python -m storm_tpu_torch.loadgen.fleet), or "
+             "offline from a saved scorecard via --file")
+    scorep.add_argument("topology", nargs="?", default=None,
+                        help="topology to query (omit with --file)")
+    scorep.add_argument("--file", default=None,
+                        help="render this scorecard JSON file instead of "
+                             "querying a running topology")
+    scorep.add_argument("--url", default="http://127.0.0.1:8080",
+                        help="base URL of the daemon's --ui-port server")
+    scorep.add_argument("--token", default=None,
+                        help="bearer token (default: "
+                             "$STORM_TPU_CONTROL_TOKEN)")
+    scorep.add_argument("--json", action="store_true",
+                        help="raw JSON instead of the rendered table")
+
     args = ap.parse_args(argv)
 
     if args.cmd == "run":
@@ -1131,6 +1134,9 @@ def main(argv=None) -> int:
 
     if args.cmd == "plan":
         return _plan_cmd(args)
+
+    if args.cmd == "scorecard":
+        return _scorecard_cmd(args)
 
     if args.cmd == "dist-run":
         cfg = _load_config(args)

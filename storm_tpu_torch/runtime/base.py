@@ -38,6 +38,9 @@ class TopologyContext:
         self.tracer = tracer
         self.flight = flight
 
+    def __repr__(self) -> str:
+        return f"<TopologyContext {self.component_id}[{self.task_index}/{self.parallelism}]>"
+
 
 class OutputCollector:
     """Routes emits and keeps the ack/anchor bookkeeping (Storm's

@@ -72,6 +72,7 @@ METRIC_NAMES = frozenset({
     'ingest_lag_ms',
     'instances_inferred',
     'kv_arena_occupancy',
+    'offered_records',
     'plan_active',
     'plan_corrections',
     'produce_ms',
@@ -109,6 +110,7 @@ METRIC_PATTERNS = (
     'edge_growth_*',
     'fair_rows_*_*',
     'fair_starved_*_*',
+    'offered_lane_*',
     'queue_depth_*',
     'queue_oldest_ms_*',
     'ring_capacity_*',

@@ -59,9 +59,9 @@ EVENT_KINDS = frozenset({
     "decode_session_started", "dist_circuit_close", "dist_circuit_open",
     "dist_heartbeat_miss", "dist_peer_replaced", "dist_reattached", "dist_worker_draining",
     "dist_worker_recovered", "dist_worker_restarted", "engine_quarantined", "engine_replaced", "executor_restart",
-    "graph_capture", "plan_correction", "profile_regression", "ring_handoff", "shed_decision", "shed_degrade",
-    "shed_reject", "slo_breach", "slo_burn", "tree_timeout", "wire_error", "worker_drained",
-    "worker_draining",
+    "graph_capture", "plan_correction", "profile_regression", "ring_handoff", "scenario_phase",
+    "shed_decision", "shed_degrade", "shed_reject", "slo_breach", "slo_burn", "tree_timeout",
+    "wire_error", "worker_drained", "worker_draining",
 })
 
 _event_names_checked: set = set()

@@ -432,8 +432,8 @@ class UIServer:
                 out["continuous"] = await asyncio.to_thread(registry_stats)
                 return 200, out
             if action == "scorecard":
-                # Fleet scenario-matrix scorecard (storm_tpu's loadgen): the
-                # fleet harness attaches its accumulated matrix to the
+                # Fleet scenario-matrix scorecard (storm_tpu_torch.loadgen): the
+                # fleet matrix attaches its accumulated matrix to the
                 # runtime it is currently driving (rt.scorecard), so an
                 # operator can watch cells land mid-run; 404 on topologies
                 # no fleet drill is scoring.
@@ -441,7 +441,8 @@ class UIServer:
                     return 405, {"error": "use GET"}
                 sc = getattr(rt, "scorecard", None)
                 if sc is None:
-                    return 404, {"error": "no scorecard attached"}
+                    return 404, {"error": "no scorecard attached (run python -m "
+                                          "storm_tpu_torch.loadgen.fleet)"}
                 return 200, {"topology": rt.name, **sc}
             if action == "cascade":
                 # Tiered-serving state: per-tier engine attribution (model,

@@ -243,6 +243,54 @@ def test_read_subcommands_against_twin_daemons(run):
     assert [rc for _, rc, _ in got["port"]] == [0] * 5 + [1] + [0] * 3 + [1]
 
 
+@pytest.mark.parametrize("extra", [[], ["--json"]])
+def test_scorecard_file_output_equals_storm_tpu(extra, tmp_path):
+    """``scorecard --file``: the same table (or JSON) as storm_tpu's for
+    its recorded r16 matrix and for a partial one still in progress."""
+    with open(os.path.join(ROOT, "SCORECARD_r16.json")) as f:
+        card = json.load(f)
+    partial = tmp_path / "partial.json"
+    partial.write_text(json.dumps({"seed": 16, "cells": card["cells"][:3],
+                                   "in_progress": True}))
+    for path in (os.path.join(ROOT, "SCORECARD_r16.json"), str(partial)):
+        got = _cli(port_main, "scorecard", "--file", path, *extra)
+        assert got == _cli(jax_main, "scorecard", "--file", path, *extra)
+        assert got[0] == 0
+        if not extra:
+            assert "cells pass · seed 16" in got[1]
+    assert _cli(port_main, "scorecard") == _cli(jax_main, "scorecard") == (2, "")
+
+
+def test_scorecard_live_route_equals_storm_tpu(run):
+    """``scorecard <topology>`` against twin daemons: 1 while no matrix is
+    attached, then the table of the attached one, as storm_tpu's; 2 for
+    an unreachable UI."""
+    with open(os.path.join(ROOT, "SCORECARD_r16.json")) as f:
+        cells = json.load(f)["cells"][4:7]
+
+    async def body(name, ui, cluster):
+        url = f"http://127.0.0.1:{ui.port}"
+        m = MAINS[name]
+        loop = asyncio.get_running_loop()
+        before = await loop.run_in_executor(None, _cli, m, "scorecard", "demo", "--url", url)
+        cluster.runtime("demo").scorecard = {"seed": 23, "cells": cells, "in_progress": True}
+        out = [before]
+        for extra in ([], ["--token", "tok"], ["--json"]):
+            out.append(await loop.run_in_executor(None, _cli, m, "scorecard", "demo",
+                                                  "--url", url, *extra))
+        return out
+
+    got = {n: run(_with_ui(impl, lambda ui, c, n=n: body(n, ui, c), token="tok"), timeout=120)
+           for n, impl in IMPLS.items()}
+    assert [rc for rc, _ in got["port"]] == [rc for rc, _ in got["storm_tpu"]] == [1, 0, 0, 0]
+    assert got["port"][1:3] == got["storm_tpu"][1:3]
+    assert got["port"][1][1].endswith("(matrix still running: cells land as they are scored)\n")
+    assert json.loads(got["port"][3][1]) == json.loads(got["storm_tpu"][3][1])
+    assert json.loads(got["port"][3][1])["topology"] == "demo"
+    unreachable = ("scorecard", "demo", "--url", "http://127.0.0.1:9")
+    assert _cli(port_main, *unreachable)[0] == _cli(jax_main, *unreachable)[0] == 2
+
+
 @pytest.mark.parametrize("argv", [["--rate", "600", "--slo-ms", "250"],
                                   ["--rate", "600", "--slo-ms", "250", "--engine", "resnet20"],
                                   ["--rate", "500000", "--slo-ms", "20"], ["--rate", "600"]])

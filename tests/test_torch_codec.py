@@ -200,6 +200,18 @@ def test_refusals_and_dead_letters_match_storm_tpu(payload):
             == jax_schema.DeadLetter(payload=text, error=str(want.value)).to_json())
 
 
+@pytest.mark.parametrize("payload", ['{"instances": [[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]]}',
+                                     '{"instances": [[[0.5]]]}'])
+def test_batch_size_matches_storm_tpu(payload):
+    """``Instances.batch_size`` and ``Predictions.batch_size``: the rows of
+    the record, as storm_tpu's properties give them."""
+    got, want = schema.decode_instances(payload), jax_schema.decode_instances(payload)
+    assert got.batch_size == want.batch_size == len(json.loads(payload)["instances"])
+    preds = np.zeros((got.batch_size, 10), np.float32)
+    assert schema.Predictions(preds).batch_size == \
+        jax_schema.Predictions(preds).batch_size == got.batch_size
+
+
 def test_non_finite_literals_are_read_as_storm_tpu_reads_them():
     """``NaN`` and ``Infinity``, which Python's json also reads: the parser
     (``std::from_chars``) takes them, in storm_tpu as in the port."""

@@ -300,6 +300,52 @@ def test_kv_eviction_picks_the_same_victim():
     assert got["port"][0] == [("short", 1), ("mid", 4)]
 
 
+def test_kv_touch_append_and_greedy_step_match():
+    """``touch`` freshens a session's age (so eviction spares it) and
+    ``append`` writes one position's k and v and extends the length on the
+    last layer, with the same effect on the arena in both packages; then
+    ``greedy_step`` gives storm_tpu's token for char_tiny from one init,
+    step after step, and leaves the same arena."""
+    got = {}
+    rng = np.random.default_rng(5)
+    rows = [(layer, pos, rng.standard_normal(4).astype(np.float32),
+             rng.standard_normal(4).astype(np.float32))
+            for pos in range(3) for layer in range(2)]
+    for name, impl in IMPLS.items():
+        now = [0.0]
+        evicted = []
+        kv = _kv(impl, 2, 2, 8, 4, clock=lambda: now[0],
+                 on_evict=lambda sid, n: evicted.append(sid))
+        a = kv.acquire("a")
+        now[0] = 1.0
+        b = kv.acquire("b")
+        for layer, pos, k, v in rows:
+            kv.append(a, layer, pos, k, v)
+        kv.append(b, 0, 5, rows[0][2], rows[0][3])  # layer 0 only: no length
+        now[0] = 10.0
+        kv.touch("a")
+        kv.touch("gone")  # no live lease: nothing happens
+        now[0] = 11.0
+        kv.acquire("c")  # a 3/1 beats b 0/10
+        arena = kv.arena.numpy() if isinstance(kv.arena, torch.Tensor) else kv.arena
+        got[name] = (evicted, kv.lens.tolist(), arena.copy())
+    assert got["port"][:2] == got["storm_tpu"][:2] == (["b"], [3, 0])
+    np.testing.assert_array_equal(got["port"][2], got["storm_tpu"][2])
+
+    engines = {name: _engine(impl, seed=2, blocks=2, max_seq=32) for name, impl in IMPLS.items()}
+    tokens = {}
+    for name, eng in engines.items():
+        slot = eng.kv.acquire("s")
+        tok, out = jct.BOS, []
+        for pos in range(12):
+            tok = eng.greedy_step(slot, tok, pos)
+            out.append(tok)
+        tokens[name] = out
+    assert tokens["port"] == tokens["storm_tpu"]
+    np.testing.assert_allclose(_arena(engines["port"]), _arena(engines["storm_tpu"]),
+                               rtol=0, atol=1e-5)
+
+
 def test_kv_leases_pins_and_refusals(impl):
     kv = _kv(impl, 1, 2, 8, 3)
     s = kv.acquire("a")

@@ -107,7 +107,9 @@ def test_metrics_op_reports_beside_a_decode_engine():
         rows = [r for r in worker._engine_report()["engines"] if r["id"] == id(eng)]
         assert rows == [{"model": "char_tiny", "id": id(eng), "buckets": [], "weights": None,
                          "dtype": None, "forwards": 0, "launch_tally": {}}]
-        assert all(r["model"] != "char_tiny" for r in worker._replay_report())
+        # of char_tiny's engines only: an engine another test left in the
+        # process's cache with a bucket built on the CPU cannot be traced
+        assert worker._replay_report("char_tiny") == []
     finally:
         dec._reset_engines()
         del eng

@@ -171,3 +171,12 @@ def test_partial_key_grouping_alike(run):
     assert got["port"] == got["storm_tpu"]
     assert all(len(v) <= 2 for v in got["port"].values())
     assert len(got["port"]["hot"]) == 2  # the skewed key used both its choices
+
+
+def test_topology_context_repr_alike():
+    import storm_tpu.runtime as jax_runtime
+    import storm_tpu_torch.runtime as port_runtime
+
+    args = ("inference-bolt", 2, 4, None)
+    assert repr(port_runtime.TopologyContext(*args)) == \
+        repr(jax_runtime.TopologyContext(*args)) == "<TopologyContext inference-bolt[2/4]>"

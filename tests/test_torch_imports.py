@@ -12,7 +12,8 @@ serving paths: the mesh, collectives, sharding, ring attention, sequence
 parallelism, expert-parallel MoE, the rank launcher and the sharded
 engine, and the control plane: the UI server and the dist UI, the
 autoscaler, the planner, the inference worker, its client, the
-cross-caller batcher, the remote bolt and the CLI), and neither
+cross-caller batcher, the remote bolt and the CLI, and the fleet load
+generator: its traces, scorecard and scenario-matrix runner), and neither
 chip_smoke.py nor kernel_sweep.py,
 imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
 package storm_tpu (the machine with the card has none of them; the
@@ -47,7 +48,9 @@ def test_no_jax_or_storm_tpu_imports_in_source():
     bad = []
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert {"storm_tpu_torch/dist/journal.py", "storm_tpu_torch/dist/worker.py",
-            "storm_tpu_torch/dist/controller.py"} <= scanned
+            "storm_tpu_torch/dist/controller.py", "storm_tpu_torch/loadgen/__init__.py",
+            "storm_tpu_torch/loadgen/trace.py", "storm_tpu_torch/loadgen/scorecard.py",
+            "storm_tpu_torch/loadgen/fleet.py"} <= scanned
     for path in _port_files():
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
         for node in ast.walk(tree):
@@ -244,7 +247,9 @@ def test_importing_the_port_loads_no_jax():
                  "storm_tpu_torch.plan.solver", "storm_tpu_torch.plan.corrector",
                  "storm_tpu_torch.serve.worker", "storm_tpu_torch.serve.client",
                  "storm_tpu_torch.serve.batcher", "storm_tpu_torch.serve.remote_bolt",
-                 "storm_tpu_torch.dist.ui"):
+                 "storm_tpu_torch.dist.ui", "storm_tpu_torch.loadgen",
+                 "storm_tpu_torch.loadgen.trace", "storm_tpu_torch.loadgen.scorecard",
+                 "storm_tpu_torch.loadgen.fleet"):
         assert repr(name) in out.stdout, name
 
 
@@ -524,5 +529,55 @@ def test_control_plane_loads_no_jax_or_grpc():
                          capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     for cmd in ("run", "dist-run", "serve", "info", "ctl", "traces", "profile", "bottleneck",
-                "copies", "plan"):
+                "copies", "plan", "scorecard"):
         assert cmd in out.stdout, cmd
+
+
+def test_loadgen_loads_no_jax():
+    """The load generator imported first in a fresh interpreter, then a
+    trace generated, saved and loaded, a cell scored and rendered, every
+    fleet scenario's topology built on the CPU (the cascade's tiers on the
+    exported checkpoints and the port's digits file) and the fleet's
+    ``-m`` entry asked for ``--help``: nothing of JAX, scikit-learn or
+    storm_tpu gets loaded."""
+    code = textwrap.dedent(f"""
+        import os, runpy, sys, tempfile
+        sys.path.insert(0, {ROOT!r})
+        import storm_tpu_torch.loadgen
+        import storm_tpu_torch.loadgen.fleet as fleet
+        from storm_tpu_torch.loadgen import (CellTargets, TraceSpec, generate, load_trace,
+                                             render_table, score_cell)
+        t = generate(TraceSpec(pattern="decode_sessions", duration_s=2.0))
+        path = t.save(os.path.join(tempfile.mkdtemp(), "t.trace"))
+        ok = score_cell({{"shed_frac": 0.2}}, CellTargets(expect_shed=True))["ok"]
+        table = render_table({{"cells": [{{"scenario": "x", "ok": ok}}]}})
+        print("TRACE", load_trace(path).rows == t.rows, ok, table.splitlines()[-1])
+        built = []
+        for sc in fleet._make_scenarios(fleet.SCENARIOS, "cpu"):
+            sc.setup()
+            try:
+                if sc.name == "serve_path":
+                    built.append(sc.name)
+                    continue
+                broker, cfg, topo = sc.build(400.0)
+                built.append(sorted(topo.specs))
+            finally:
+                sc.teardown()
+        print("BUILT", len(built), fleet._CascadeScenario().available())
+        sys.argv = ["storm_tpu_torch.loadgen.fleet", "--help"]
+        try:
+            runpy.run_module("storm_tpu_torch.loadgen.fleet", run_name="__main__")
+        except SystemExit as e:
+            print("HELP", e.code)
+        loaded = sorted(n for n in sys.modules
+                        if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
+                                               "storm_tpu", "pyarrow", "grpc"))
+        print("LOADED", loaded)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "TRACE True True 1/1 cells pass" in out.stdout, out.stdout
+    assert "BUILT 5 None" in out.stdout, out.stdout
+    assert "HELP 0" in out.stdout and "--fleet-scenarios" in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout

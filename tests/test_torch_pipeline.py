@@ -356,6 +356,30 @@ def test_operator_flush_drains_ring_and_pending(impl, run):
     run(go(), timeout=60)
 
 
+def test_operator_tick_dispatches_a_due_partial_batch(impl, run):
+    """A tick tuple dispatches a partial batch once its deadline has
+    passed (storm_tpu's ``InferenceBolt.tick``), and nothing before."""
+    async def go():
+        eng = _ManualEngine(impl)
+        bolt, coll = _prepared_bolt(impl, eng, max_batch=4, max_wait_ms=10_000,
+                                    max_inflight=4)
+        for _ in range(3):
+            await bolt.execute(_tuple(impl))
+        await bolt.tick()
+        await asyncio.sleep(0.05)
+        assert not eng.handles and len(bolt.batcher) == 3, "not due yet"
+        bolt.batcher.cfg.max_wait_ms = 0.0  # the deadline flush still sleeps
+        await bolt.tick()
+        await asyncio.sleep(0.05)
+        assert [h.n for h in eng.handles] == [3] and len(bolt.batcher) == 0
+        eng.handles[0].future.set_result(np.zeros((3, 10), np.float32))
+        await bolt.flush()
+        assert len(coll.acked) == 3 and not coll.failed and len(coll.emitted) == 3
+        bolt.cleanup()
+
+    run(go(), timeout=60)
+
+
 def test_null_engine_dispatch_protocol(impl):
     ne = impl.engine.NullEngine(SHAPE, 10)
     h = ne.dispatch((np.zeros((3, *SHAPE), np.float32),))
