@@ -13,8 +13,10 @@ no result):
 2. build: every hand-written kernel from ``storm_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel);
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the cases and tolerances of ``storm_tpu/ops/parity_checks.py``,
-   at the same ragged shapes in bf16, and at the ViT-B/16 shapes (batch 8);
+   card, the cases of ``storm_tpu_torch/ops/parity_checks.py`` (the ones
+   ``cuda_kernel_parity.py`` runs): ``run_all``, storm_tpu's cases and
+   tolerances, then ``parity_cases`` and ``longseq_kernel_cases``: the same
+   ragged shapes in bf16, and the ViT-B/16 shapes (batch 8);
    at Mixer-S/16's token-MLP shapes (K or N = 196, a transposed view)
    and its width 512; every kernel has two variants, its first version and its redesign for
    Hopper (``*_sm90``: w8a16 and flash attention on tensor cores for
@@ -408,8 +410,8 @@ no result):
    event counts and ``stats()``, and one trace per pattern (heavy_tail,
    diurnal, flash_crowd, decode_sessions) hashes to storm_tpu's
    (``P21_TRACE_SHA``, computed from storm_tpu on the CPU); (b)
-   ``run_fleet`` on ``cuda`` with the hold cut to ``P21_HOLD_S`` = 8 s
-   from its 24: classify, cascade (vit_tiny -> lenet5_rgb -> resnet20,
+   ``run_fleet`` on ``cuda`` with the hold cut to ``P21_HOLD_S`` = 6 s
+   from its 24 (8 s until the whole script neared its limit): classify, cascade (vit_tiny -> lenet5_rgb -> resnet20,
    bf16), continuous and serve_path under heavy_tail, diurnal and
    flash_crowd, decode under decode_sessions, 13 cells, none skipped, each
    with storm_tpu's keys and at least 3 ``scenario_phase`` flight events,
@@ -428,11 +430,46 @@ no result):
    Overloaded answers, counted both ways (ROADMAP C24); (c) ``python -m
    storm_tpu_torch.main scorecard --file`` renders the phase's scorecard
    as ``render_table`` does, in a process of its own;
-22. the ``{"kernels": [...]}`` line, then the card line, then the last line
+22. the compile cache and the root-script twins, each in processes of its
+   own (budget 120 s): (a) an engine with ``ModelConfig.compile_cache_dir``
+   an empty temporary directory (lenet5 float32 ``int8_fused``: the f32
+   w8a16 kernel alone) builds its kernel's library there; a second process
+   with nvcc made unreachable (``_build.find_nvcc`` raising) loads it from
+   there: the same predictions, the directory unchanged, each tally
+   exactly 6 launches of that kernel and no other (3 in the bucket
+   build's eager forward, 3 in the predict's replay); both first
+   forwards' ms printed (with the build, and loaded); (b) ``cuda_kernel_parity.py --out <tmp>``: ``all_pass``,
+   compiled, on the card; (c) ``bench_device_torch.py`` for vit_b16 at B =
+   64 (``--ab``: the kernels' graph and the plain route's, the measured HBM
+   bandwidth) and ``--attn-sweep`` at S = 128 and 2048, in one process:
+   every reading finite and positive (the roofline the compute one: the
+   counted bytes are an upper bound), the plain graph launching no
+   kernel of ours, each row printed beside the card; (d) ``__graft_entry_torch__
+   .entry()`` on the card, in float32 and (its parameters and input cast)
+   bfloat16: probabilities (8, 1000) whose rows sum to 1 within 1e-5, one
+   forward launching exactly 12 flash (``flash_attention``, and
+   ``flash_attention_sm90`` in bf16) and 12 fused norms; (e)
+   ``dryrun_multichip(4)``: four gloo ranks on ``cuda:0``, the dp2 x tp2
+   train step's two losses finite and equal on every rank, the pp, sp and
+   ep dry runs, and the serving dry run through spout -> InferenceBolt ->
+   sink in storm_tpu's four meshes with its batch policy and parallelism
+   (2 partitions, 2 spout and 2 inference tasks, batches of up to 8 on a
+   20 ms timer, two dispatches in flight a task), on rank 0 with its
+   engine led and the other ranks following: every record answered, the
+   ledger closed, every rank running each led batch, each record's answer
+   within 1e-4 of the one-rank engine's (but under ep, whose expert
+   capacity depends on the batch). (a) to (e) run side by side to keep
+   the script inside its limit, so (c)'s device times share the card with
+   the others' short bursts: information, not the readings PERF.md keeps
+   (those come from the bench run alone); the phase's wall time is held
+   to ``P22_LIMIT_S`` = 120 s. Depth cut to fit: (c)'s windows of 3
+   replays (the bench's default 30) and a sweep of 2 lengths (its default
+   6);
+23. the ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card (exits 2 without one) and the repository beside it
-(exits 3 without ``storm_tpu_torch``).
+(without ``storm_tpu_torch`` its import fails: exit 1).
 """
 
 from __future__ import annotations
@@ -452,11 +489,10 @@ from unittest import mock
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
-# the bounds are stated against these, beside the card's power limit.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+# The H100's published peaks and the card query, from the package (the
+# import fails, and the script exits non-zero, without it beside).
+from storm_tpu_torch.device import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES_PER_S,
+                                    card_line)
 
 B = 8  # ViT-B/16 batch of the timed shapes and of the main path's bucket
 SEQ, DIM, HEADS, HDIM, MLP, CLASSES, DEPTH = 197, 768, 12, 64, 3072, 1000, 12
@@ -478,13 +514,6 @@ STARTED = time.monotonic()
 def phase(title: str) -> None:
     """A phase's heading, with the seconds since the script started."""
     log(f"{title} (at {time.monotonic() - STARTED:.1f} s)")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
 def numeric_flags(torch) -> dict:
@@ -587,262 +616,8 @@ def launch_signatures(into: set):
         yield into
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Route the three kernel wrappers to their plain versions (CUDA
-    tensors included) at the points where the model calls them: the
-    reference side of the forward-parity phase, and nothing else."""
-    from storm_tpu_torch.ops import attention, fused_norm, quant_matmul
-    from storm_tpu_torch.ops.flash_attention import flash_attention_reference
-
-    def norm_plain(x2, r2, g, b, eps=1e-6, variant=None):
-        return fused_norm.fused_add_layernorm_reference(x2, r2, g, b, eps)
-
-    with contextlib.ExitStack() as st:
-        st.enter_context(mock.patch.object(
-            quant_matmul, "w8a16_matmul", quant_matmul.w8a16_matmul_reference))
-        st.enter_context(mock.patch.object(fused_norm, "fused_add_layernorm", norm_plain))
-        st.enter_context(mock.patch.object(
-            attention, "flash_attention", flash_attention_reference))
-        yield
-
-
-# ---- phase 3: kernels -------------------------------------------------------
-
-
-def parity_cases(torch, rows: list) -> dict:
-    """parity_checks.py's cases and tolerances, the same ragged shapes in
-    bf16, then the ViT-B/16 shapes. Each case also checks which variant of
-    the kernel it launched: w8a16 and flash f32 cases the f32 kernels, bf16
-    cases the tensor-core (sm90) kernels; every fused norm case the sm90
-    kernel. Returns max |kernel - plain| per kernel variant at the ViT-B/16
-    shapes (the first versions run there on the same bf16 inputs by naming
-    them)."""
-    from storm_tpu_torch.ops import _build
-    from storm_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
-    from storm_tpu_torch.ops.fused_norm import (
-        fused_add_layernorm, fused_add_layernorm_reference, norm_plan)
-    from storm_tpu_torch.ops.quant_matmul import w8a16_matmul, w8a16_matmul_reference
-
-    g = torch.Generator(device="cuda").manual_seed(0)
-    f32, bf16 = torch.float32, torch.bfloat16
-
-    def randn(*shape, dtype=f32):
-        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
-
-    def quantized(k, n):
-        w = torch.randn(k, n, device="cuda", generator=g)
-        s = (w.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
-        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
-        return q, s
-
-    def launched(fn, variant):
-        """fn(), holding that it launched ``variant`` and nothing else."""
-        before = _build.launch_counts()
-        out = fn()
-        diff = {k: v - before[k] for k, v in _build.launch_counts().items() if v != before[k]}
-        if diff != {variant: 1}:
-            raise AssertionError(f"expected one launch of {variant}, got {diff}")
-        return out
-
-    # Flash attention. The reference sees the same (possibly bf16-rounded)
-    # inputs upcast to f32; the f32 tolerance is parity_checks' @highest
-    # bound (the f32 kernel multiplies in full f32), bf16 allows one output
-    # rounding step.
-    for case, shape, dt in [("S2048", (1, 2, 2048, 64), f32),
-                            ("S2048_bf16", (1, 2, 2048, 64), bf16),
-                            ("S4096_multiblock", (1, 1, 4096, 128), f32),
-                            ("S600_padded", (1, 1, 600, 64), f32),
-                            ("S600_padded_bf16", (1, 1, 600, 64), bf16),
-                            ("S197_D16_bf16", (2, 2, 197, 16), bf16),
-                            ("S100_D32_bf16", (1, 2, 100, 32), bf16),
-                            ("S4096_D128_bf16", (1, 1, 4096, 128), bf16)]:
-        q, k, v = randn(*shape, dtype=dt), randn(*shape, dtype=dt), randn(*shape, dtype=dt)
-        want = flash_attention_reference(q.float(), k.float(), v.float())
-        variant = "flash_attention_sm90" if dt == bf16 else "flash_attention"
-        got = launched(lambda: flash_attention(q, k, v), variant)
-        check(rows, variant, case, rel_err(got, want), 1e-2 if dt == bf16 else 1e-5, "rel")
-    # Fused residual + LayerNorm, every case on the sm90 kernel: f32
-    # (absolute, both outputs), bf16 at each width with a plan of its own
-    # (64, 512, 768) and a ragged one (100, element loads), an offset view
-    # (element loads at 768) and bf16 g and b as the model passes them
-    # (bf16: one rounding step of the output, relative).
-    norm = "residual_layernorm_sm90"
-
-    def norm_case(case, x, r, gg, bb, tol_y, tol_o, metric):
-        wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
-        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb), norm)
-        err = abs_err if metric == "abs" else rel_err
-        check(rows, norm + ".y", case, err(y, wy), tol_y, metric)
-        check(rows, norm + ".ln", case, err(o, wo), tol_o, metric)
-
-    for rows_n, d in [(6, 64), (300, 100), (1024, 768)]:
-        norm_case(f"{rows_n}x{d}", randn(rows_n, d), randn(rows_n, d), randn(d), randn(d),
-                  1e-5, 1e-4, "abs")
-    for rows_n, d in [(6, 64), (300, 100), (40, 512), (MIXER_TOKENS * B, MIXER_DIM),
-                      (1024, 768)]:
-        norm_case(f"{rows_n}x{d}_bf16", randn(rows_n, d, dtype=bf16),
-                  randn(rows_n, d, dtype=bf16), randn(d), randn(d), 1e-2, 1e-2, "rel")
-    x = randn(300 * 768 + 1, dtype=bf16)[1:].view(300, 768)
-    r = randn(300, 768, dtype=bf16)
-    if norm_plan(768, bf16, x.data_ptr(), r.data_ptr())[2] != 0:
-        raise AssertionError("an offset view must take the element load mode")
-    norm_case("300x768_bf16_offset_view", x, r, randn(768), randn(768), 1e-2, 1e-2, "rel")
-    norm_case("1024x768_bf16_bf16_g_b", randn(1024, 768, dtype=bf16),
-              randn(1024, 768, dtype=bf16), randn(768, dtype=bf16),
-              randn(768, dtype=bf16), 1e-2, 1e-2, "rel")
-    # w8a16: ragged M, N, K, the multi-tile K loop, 3-D tokens; each shape
-    # in f32 (the f32 kernel) and in bf16 (the tensor-core kernel, whose
-    # element, 8-byte and 16-byte load modes these shapes cover).
-    for case, xshape, k, n in [
-            ("4x64@64x128", (4, 64), 64, 128),
-            ("5x100@100x70_padded", (5, 100), 100, 70),
-            ("2x9x48@48x200_tokens", (2, 9, 48), 48, 200),
-            ("1x700@700x10_multichunk", (1, 700), 700, 10),
-            ("64x768@768x3072", (64, 768), 768, 3072),
-            # beyond parity_checks: many tiles with unaligned loads
-            ("2100x100@100x4100_bigtile", (2100, 100), 100, 4100),
-            # the mixers' token MLPs: K or N the token count (element loads)
-            ("mixer_s16_token_fc1 4096x196@196x256", (B * MIXER_DIM, 196), 196, 256),
-            ("mixer_s16_token_fc2 4096x256@256x196", (B * MIXER_DIM, 256), 256, 196),
-            ("mixer_tiny_token_fc1 512x64@64x32", (8 * 64, 64), 64, 32)]:
-        for dt in (f32, bf16):
-            x = randn(*xshape, dtype=dt)
-            q, s = quantized(k, n)
-            want = w8a16_matmul_reference(x.float(), q, s)
-            variant = "w8a16_matmul_sm90" if dt == bf16 else "w8a16_matmul"
-            got = launched(lambda: w8a16_matmul(x, q, s), variant)
-            check(rows, variant, case + ("_bf16" if dt == bf16 else ""),
-                  rel_err(got, want), 2e-2 if dt == bf16 else 1e-5, "rel")
-
-    # Tensor parallelism's row-parallel partials (phase 18): the tensor-core
-    # kernel's f32 epilogue, at ViT-B/16's o and mlp_out shards (dp2 x tp2:
-    # 4 of the 8 rows, K / 2; tp4: every row, K / 4) and a ragged shape (an
-    # odd N: no f32 pairs), against the plain version's f32 output. The
-    # products are exact in f32 either way; only the sum's order differs.
-    for case, (m, k, n) in [("vit_b16 tp2 o", (4 * SEQ, DIM // 2, DIM)),
-                            ("vit_b16 tp2 mlp_out", (4 * SEQ, MLP // 2, DIM)),
-                            ("vit_b16 tp4 o", (M, DIM // 4, DIM)),
-                            ("vit_b16 tp4 mlp_out", (M, MLP // 4, DIM)),
-                            ("ragged", (5, 100, 71))]:
-        x = randn(m, k, dtype=bf16)
-        q, s = quantized(k, n)
-        want = w8a16_matmul_reference(x, q, s, f32)
-        got = launched(lambda: w8a16_matmul(x, q, s, out_dtype=f32), "w8a16_matmul_sm90")
-        if got.dtype != f32:
-            raise AssertionError(f"f32 out {case}: the kernel wrote {got.dtype}")
-        check(rows, "w8a16_matmul_sm90", f"f32 out {case} {m}x{k}@{k}x{n}",
-              rel_err(got, want), 1e-5, "rel")
-
-    # Phase 18's sharded shapes on the bf16 kernels: ViT-B/16's layers at
-    # the rows of one data rank (dp4: 2 records, dp2: 4; moe_vit_b16's
-    # dense layers at dp2 x ep2 too), its column-parallel q, k, v and
-    # mlp_in shards (N / tp), and longseq_encoder's layers at a sequence
-    # rank's S / sp rows (dp2 x sp2: 4 x 1024, sp4: 8 x 512; one launch
-    # shape) and its head; the fused norm with the model's bf16 g and b at
-    # a data rank's rows and at all 8 records (tp, ep4). Phase 18 holds
-    # every rank's launches to the signatures phase 3 checked.
-    for case, xshape, k, n in [
-            ("vit_b16 dp4 qkvo", (2 * SEQ, DIM), DIM, DIM),
-            ("vit_b16 dp4 mlp_in", (2 * SEQ, DIM), DIM, MLP),
-            ("vit_b16 dp4 mlp_out", (2 * SEQ, MLP), MLP, DIM),
-            ("vit_b16 dp4 head", (2, DIM), DIM, CLASSES),
-            ("vit_b16 dp2 qkvo", (4 * SEQ, DIM), DIM, DIM),
-            ("vit_b16 dp2 mlp_in", (4 * SEQ, DIM), DIM, MLP),
-            ("vit_b16 dp2 mlp_out", (4 * SEQ, MLP), MLP, DIM),
-            ("vit_b16 dp2 head", (4, DIM), DIM, CLASSES),
-            ("vit_b16 dp2xtp2 qkv", (4 * SEQ, DIM), DIM, DIM // 2),
-            ("vit_b16 dp2xtp2 mlp_in", (4 * SEQ, DIM), DIM, MLP // 2),
-            ("vit_b16 tp4 qkv", (M, DIM), DIM, DIM // 4),
-            ("vit_b16 tp4 mlp_in", (M, DIM), DIM, MLP // 4),
-            ("longseq sp embed", (4, LS_SEQ // 2, LS_FEAT), LS_FEAT, LS_DIM),
-            ("longseq sp qkvo", (8, LS_SEQ // 4, LS_DIM), LS_DIM, LS_DIM),
-            ("longseq sp mlp_in", (4, LS_SEQ // 2, LS_DIM), LS_DIM, LS_MLP),
-            ("longseq sp mlp_out", (8, LS_SEQ // 4, LS_MLP), LS_MLP, LS_DIM),
-            ("longseq dp2 head", (4, LS_DIM), LS_DIM, LS_CLASSES),
-            ("longseq head", (8, LS_DIM), LS_DIM, LS_CLASSES)]:
-        x = randn(*xshape, dtype=bf16)
-        q, s = quantized(k, n)
-        got = launched(lambda: w8a16_matmul(x, q, s), "w8a16_matmul_sm90")
-        check(rows, "w8a16_matmul_sm90", f"{case} {math.prod(xshape[:-1])}x{k}@{k}x{n}",
-              rel_err(got, w8a16_matmul_reference(x, q, s)), 2e-2, "rel")
-    for case, shape in [("vit_b16 dp4", (2, HEADS, SEQ, HDIM)),
-                        ("vit_b16 dp2xtp2", (4, HEADS // 2, SEQ, HDIM)),
-                        ("vit_b16 tp4", (B, HEADS // 4, SEQ, HDIM)),
-                        ("moe_vit_b16 dp2xep2", (4, HEADS, SEQ, HDIM))]:
-        q, k, v = (randn(*shape, dtype=bf16) for _ in range(3))
-        got = launched(lambda: flash_attention(q, k, v), "flash_attention_sm90")
-        check(rows, "flash_attention_sm90", f"{case} {'x'.join(map(str, shape))} bf16",
-              rel_err(got, flash_attention_reference(q, k, v)), 1e-2, "rel")
-    for case, rows_n in [("vit_b16 dp4", 2 * SEQ), ("vit_b16 dp2", 4 * SEQ),
-                         ("vit_b16 every row", M)]:
-        norm_case(f"{case} {rows_n}x{DIM} bf16_bf16_g_b", randn(rows_n, DIM, dtype=bf16),
-                  randn(rows_n, DIM, dtype=bf16), randn(DIM, dtype=bf16),
-                  randn(DIM, dtype=bf16), 1e-2, 1e-2, "rel")
-
-    # Phase 20's training shapes in float32 (the trainable leaves): the f32
-    # flash kernel at a rank's (rows, heads) of 197 x 64 (dp4 and a pipeline
-    # microbatch (2, 12), dp2 x tp2 (4, 6), tp4 (8, 3), the one-rank step
-    # (8, 12)), and the fused norm with f32 g and b at a rank's rows (dp4 and
-    # a microbatch 394, dp2 x tp2 788, tp4 and the one-rank step 1576).
-    for case, shape in [("dp4 and a microbatch", (2, HEADS, SEQ, HDIM)),
-                        ("dp2xtp2", (4, HEADS // 2, SEQ, HDIM)),
-                        ("tp4", (B, HEADS // 4, SEQ, HDIM)),
-                        ("one rank", (B, HEADS, SEQ, HDIM))]:
-        q, k, v = (randn(*shape) for _ in range(3))
-        got = launched(lambda: flash_attention(q, k, v), "flash_attention")
-        check(rows, "flash_attention", f"vit_b16 train {case} {'x'.join(map(str, shape))} f32",
-              rel_err(got, flash_attention_reference(q, k, v)), 1e-5, "rel")
-    for case, rows_n in [("dp4 and a microbatch", 2 * SEQ), ("dp2xtp2", 4 * SEQ),
-                         ("tp4 and one rank", M)]:
-        norm_case(f"vit_b16 train {case} {rows_n}x{DIM} f32", randn(rows_n, DIM),
-                  randn(rows_n, DIM), randn(DIM), randn(DIM), 1e-5, 1e-4, "abs")
-
-    # The mixer's token MLP reads a transposed, non-contiguous activation:
-    # the wrapper copies it once, then launches.
-    xt = randn(B, MIXER_TOKENS, MIXER_DIM, dtype=bf16).transpose(1, 2)
-    q, s = quantized(MIXER_TOKENS, 256)
-    got = launched(lambda: w8a16_matmul(xt, q, s), "w8a16_matmul_sm90")
-    check(rows, "w8a16_matmul_sm90", "mixer_s16 token fc1, transposed view",
-          rel_err(got, w8a16_matmul_reference(xt.contiguous().float(), q, s)), 2e-2, "rel")
-
-    # The ViT-B/16 shapes (bf16, batch 8), each variant against the plain
-    # version on the same bf16 inputs; bf16 tolerances: one rounding step
-    # of the output.
-    errs = {}
-    mm = {"w8a16_matmul_sm90": [], "w8a16_matmul": []}
-    for name, (m, k, n) in [("qkvo", (M, DIM, DIM)), ("mlp_in", (M, DIM, MLP)),
-                            ("mlp_out", (M, MLP, DIM)), ("head", (B, DIM, CLASSES))]:
-        x = randn(m, k, dtype=bf16)
-        q, s = quantized(k, n)
-        want = w8a16_matmul_reference(x, q, s)
-        for variant in mm:
-            got = launched(lambda: w8a16_matmul(x, q, s, variant=variant), variant)
-            check(rows, variant, f"vit_b16 {name} {m}x{k}@{k}x{n}",
-                  rel_err(got, want), 2e-2, "rel")
-            mm[variant].append(abs_err(got, want))
-    errs.update({v: max(e) for v, e in mm.items()})
-    x, r, gg, bb = randn(M, DIM, dtype=bf16), randn(M, DIM, dtype=bf16), randn(DIM), randn(DIM)
-    wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
-    for variant in ("residual_layernorm_sm90", "residual_layernorm"):
-        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb, variant=variant), variant)
-        check(rows, variant + ".y", f"vit_b16 {M}x{DIM} bf16", rel_err(y, wy), 1e-2, "rel")
-        check(rows, variant + ".ln", f"vit_b16 {M}x{DIM} bf16", rel_err(o, wo), 1e-2, "rel")
-        errs[variant] = max(abs_err(y, wy), abs_err(o, wo))
-    q, k, v = (randn(B, HEADS, SEQ, HDIM, dtype=bf16) for _ in range(3))
-    want = flash_attention_reference(q, k, v)
-    for variant in ("flash_attention_sm90", "flash_attention"):
-        got = launched(lambda: flash_attention(q, k, v, variant=variant), variant)
-        check(rows, variant, f"vit_b16 {B}x{HEADS}x{SEQ}x{HDIM} bf16",
-              rel_err(got, want), 1e-2, "rel")
-        errs[variant] = abs_err(got, want)
-    torch.cuda.synchronize()
-    return errs
-
-
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flops * 1e3
+    tb, tf = nbytes / PEAK_HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -886,7 +661,7 @@ def time_kernels(torch) -> dict:
         n = q.shape[1]
         b_ = m * k * 2 + k * n + n * 4 + m * n * 2
         f_ = 2.0 * m * n * k
-        bms += max(b_ / PEAK_BYTES_S, f_ / PEAK_BF16_FLOPS) * 1e3
+        bms += max(b_ / PEAK_HBM_BYTES_PER_S, f_ / PEAK_BF16_FLOPS) * 1e3
         nbytes += b_
         flops += f_
     # The tensor-core variant is what the wrapper picks for bf16; the f32
@@ -1035,69 +810,6 @@ LS_TINY_LAUNCHES = {"w8a16_matmul_sm90": 14, "flash_attention_sm90": 2,
                     "residual_layernorm_sm90": 2}
 
 
-def longseq_kernel_cases(torch, rows: list) -> None:
-    """The flash wrapper at head dims the kernels are not built for (D =
-    8, 24, 48, 96: zero-padded to the next one, the true D's scale, sliced
-    back; storm_tpu's kernel takes every D up to 128), in bf16 and f32,
-    and the fused norm's d = 256 plans, each against its plain version.
-    D > 128 must raise."""
-    from storm_tpu_torch.ops import _build
-    from storm_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
-    from storm_tpu_torch.ops.fused_norm import (
-        NORM_PLANS, fused_add_layernorm, fused_add_layernorm_reference, norm_plan)
-
-    g = torch.Generator(device="cuda").manual_seed(3)
-    f32, bf16 = torch.float32, torch.bfloat16
-
-    def randn(*shape, dtype=f32):
-        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
-
-    def launched(fn, variant):
-        before = _build.launch_counts()
-        out = fn()
-        diff = {k: v - before[k] for k, v in _build.launch_counts().items() if v != before[k]}
-        if diff != {variant: 1}:
-            raise AssertionError(f"expected one launch of {variant}, got {diff}")
-        return out
-
-    for d in (8, 24, 48, 96):
-        for dt in (bf16, f32):
-            shape = (2, 2, 300, d)
-            q, k, v = (randn(*shape, dtype=dt) for _ in range(3))
-            want = flash_attention_reference(q.float(), k.float(), v.float())
-            variant = "flash_attention_sm90" if dt == bf16 else "flash_attention"
-            got = launched(lambda: flash_attention(q, k, v), variant)
-            if got.shape != shape:
-                raise AssertionError(f"flash at D = {d}: output {tuple(got.shape)}")
-            check(rows, variant, f"2x2x300x{d}_padded" + ("_bf16" if dt == bf16 else ""),
-                  rel_err(got, want), 1e-2 if dt == bf16 else 1e-5, "rel")
-    t = torch.zeros(1, 1, 8, 160, device="cuda", dtype=bf16)
-    try:
-        flash_attention(t, t, t)
-    except ValueError as e:
-        log(f"  flash at D = 160 raises: {e}")
-    else:
-        raise AssertionError("flash attention at D = 160 must raise")
-    norm = "residual_layernorm_sm90"
-    m = 8 * LS_SEQ
-    for dt, tol, metric in ((bf16, 1e-2, "rel"), (f32, 1e-4, "abs")):
-        x, r = randn(m, LS_DIM, dtype=dt), randn(m, LS_DIM, dtype=dt)
-        gg, bb = randn(LS_DIM, dtype=dt), randn(LS_DIM, dtype=dt)
-        plan = norm_plan(LS_DIM, dt, x.data_ptr(), r.data_ptr())
-        if plan[:2] != NORM_PLANS[(dt, LS_DIM)] or plan[2] != 1:
-            raise AssertionError(f"d = 256 {dt}: plan {plan}")
-        wy, wo = fused_add_layernorm_reference(x, r, gg, bb, 1e-6)
-        y, o = launched(lambda: fused_add_layernorm(x, r, gg, bb), norm)
-        err = abs_err if metric == "abs" else rel_err
-        name = str(dt).replace("torch.", "")
-        check(rows, norm + ".y", f"longseq {m}x{LS_DIM} {name} plan {plan[:2]}",
-              err(y, wy), 1e-2 if dt == bf16 else 1e-5, metric)
-        check(rows, norm + ".ln", f"longseq {m}x{LS_DIM} {name} plan {plan[:2]}",
-              err(o, wo), tol, metric)
-    torch.cuda.synchronize()
-
-
 def longseq_times(torch) -> dict:
     """The three kernels over one longseq_encoder forward's worth of calls
     at B = 8 (bf16, CUDA-graph replay): flash attention 4 x (8, 2, 2048,
@@ -1202,6 +914,8 @@ def kernel_vs_plain(torch, model, x, tol: float, label: str):
     if a kernel moves its logits by ARGMAX_ULPS / 2 ulps or more, a fault
     well inside the relative bound. At least one row must be above the
     threshold. Returns (got, want) as float32."""
+    from storm_tpu_torch.ops.parity_checks import plain_kernels
+
     with torch.inference_mode():
         got = model(x).float()
         with plain_kernels():
@@ -1240,6 +954,7 @@ def forward_parity(torch) -> dict:
     path (``kernel_vs_plain``) in float32 (TF32 off) and bfloat16; then
     both paths timed eagerly in bfloat16."""
     from storm_tpu_torch.models import build_model
+    from storm_tpu_torch.ops.parity_checks import plain_kernels
 
     x_np = np.random.RandomState(7).rand(B, 224, 224, 3).astype(np.float32)
     fwd_ms = {}
@@ -1510,7 +1225,7 @@ def served_path(torch, model_cfg, per_forward: dict, label: str) -> dict:
         f"{match.max():.1e}); {forwards} forwards (warm-up included: one eager, the rest "
         f"graph replays), launch tally {launches}, eager launches by the wrappers "
         f"{wrapper_counts}")
-    log(f"  {label} on {nvidia_smi()}: e2e p50 {e2e['p50']:.3f} ms, p99 "
+    log(f"  {label} on {card_line()}: e2e p50 {e2e['p50']:.3f} ms, p99 "
         f"{e2e['p99']:.3f} ms, {res['records_per_s']:.3f} records/s over {r['wall']:.3f} s; "
         f"batch sizes {infer['batch_size']['mean']:.2f} mean; weights on card "
         f"{engine.param_bytes() / 1e6:.3f} MB")
@@ -5335,6 +5050,7 @@ def vit_train_steps(torch, card: str) -> dict:
     from storm_tpu_torch.models.convert import init_params, trainable_params, tree_leaves
     from storm_tpu_torch.models.registry import model_def
     from storm_tpu_torch.ops import _build
+    from storm_tpu_torch.ops.parity_checks import plain_kernels
     from storm_tpu_torch.parallel.train import make_train_step
 
     md = model_def("vit_b16")
@@ -8597,8 +8313,9 @@ P21_TRACE_SHA = {
     "flash_crowd": "2d2e30131c3b7ed196e0477b19b3d8775611f55ad6d02f3c9e7e5a3514c3849d",
     "decode_sessions": "e15d20c22e410f2ff15777ec6b5ae299a5ca024ec932c74e21710cd19fbdc7ec"}
 # The matrix's hold, cut from run_fleet's 24 s (storm_tpu's SCORECARD_r16
-# used 20 s) to keep the phase near 240 s: 13 cells x 8 s of traffic.
-P21_HOLD_S = 8.0
+# used 20 s), then from 8 s, to keep the whole script well inside its
+# limit: 13 cells x 6 s of traffic.
+P21_HOLD_S = 6.0
 P21_CELLS = 13  # 4 scenarios x 3 record patterns + decode x decode_sessions
 # vit_tiny's launches per forward as the cascade's bf16 float-weight tier
 # (phase 6's vit_tiny bf16 stream); its other tiers and every other
@@ -8830,6 +8547,283 @@ def fleet_on_the_card(torch, card: str) -> dict:
     return res
 
 
+# ---- phase 22: the compile cache and the root-script twins ----------------------------
+
+# 22 (a): an engine that builds exactly one kernel: lenet5 float32 int8_fused
+# runs its three dense layers on the f32 w8a16 kernel.
+P22_CACHE_MODEL = dict(name="lenet5", dtype="float32", num_classes=10, input_shape=(28, 28, 1),
+                       weights="int8_fused")
+P22_CACHE_KERNEL = "w8a16_matmul"
+P22_LIMIT_S = 120.0  # the phase's budget, held
+P22_DRYRUN_S = 240.0  # (e)'s ranks' deadline
+# (c)'s depth: replays a timed window (the bench's default 30) and the
+# sweep's lengths (the bench's default six): a finiteness check, the
+# readings PERF.md keeps come from the bench run alone.
+P22_BENCH_ITERS = 3
+P22_SWEEP_SEQS = "128,2048"
+# (d): entry()'s launches a forward, by its dtype.
+P22_ENTRY_LAUNCHES = {
+    "float32": {"flash_attention": 12, "residual_layernorm_sm90": 12},
+    "bfloat16": {"flash_attention_sm90": 12, "residual_layernorm_sm90": 12}}
+
+P22_CACHE_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import numpy as np
+from storm_tpu_torch.config import BatchConfig, ModelConfig
+from storm_tpu_torch.infer.engine import InferenceEngine
+from storm_tpu_torch.ops import _build
+if {no_nvcc!r}:
+    def unreachable():
+        raise RuntimeError("nvcc is unreachable in this process")
+    _build.find_nvcc = unreachable
+eng = InferenceEngine(ModelConfig(**{model!r}, compile_cache_dir={cache!r}),
+                      BatchConfig(max_batch=8, buckets=(8,)), device="cuda")
+x = np.random.RandomState(0).rand(8, 28, 28, 1).astype(np.float32)
+t1 = time.perf_counter()
+out = eng.predict(x)
+t2 = time.perf_counter()
+print(json.dumps({{"library_dir": str(_build.library_dir()),
+                  "library": str(_build.KERNELS[{kernel!r}].library_path()),
+                  "first_forward_ms": (t2 - t1) * 1e3, "process_s": t2 - t0,
+                  "tally": eng.launch_tally(), "preds": out.tolist()}}))
+"""
+
+P22_ENTRY_CHILD = r"""
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import __graft_entry_torch__ as graft
+from storm_tpu_torch.models.convert import _map
+from storm_tpu_torch.ops import _build
+res = {{}}
+fwd, (params, x) = graft.entry()
+for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    p = _map(lambda t, _path: t.to(dtype), params)
+    xx = torch.as_tensor(x, device="cuda").to(dtype)
+    fwd(p, xx)  # warm: the libraries loaded
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    probs = fwd(p, xx)
+    torch.cuda.synchronize()
+    sums = probs.sum(dim=-1)
+    res[name] = {{"shape": list(probs.shape), "dtype": str(probs.dtype),
+                 "device": str(probs.device), "finite": bool(torch.isfinite(probs).all()),
+                 "max_sum_err": float((sums - 1).abs().max()),
+                 "launches": {{k: v for k, v in _build.launch_counts().items() if v}}}}
+print("P22_ENTRY " + json.dumps(res))
+"""
+
+P22_DRYRUN_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, {root!r})
+import __graft_entry_torch__ as graft
+t = time.perf_counter()
+dry = graft.dryrun_multichip(4, timeout_s={dryrun_s!r})
+print("P22_DRYRUN " + json.dumps({{
+    "s": time.perf_counter() - t, "mesh": dry["mesh"], "train_losses": dry["train_losses"],
+    "pp_loss": dry["pp_loss"], "sp_loss": dry["sp_loss"], "ep_loss": dry["ep_loss"],
+    "serving": {{k: {{"mesh": v["mesh"], "led": v["led"], "ref_err": v["ref_err"],
+                      "tally": v["tally"], "records": len(v["preds"])}}
+                 for k, v in dry["serving"].items()}}}}))
+"""
+
+
+def p22_child(argv: list, label: str, timeout_s: float) -> subprocess.CompletedProcess:
+    """Run ``argv`` from the repository root; raise with its output's tail
+    when it fails."""
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=timeout_s,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"22 {label}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    return out
+
+
+def p22_compile_cache(tmp: str) -> dict:
+    """22 (a): one process builds the kernel into an empty cache directory;
+    a second, with nvcc made unreachable, loads it from there."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(tmp, "kernel-cache")
+    runs = []
+    for no_nvcc in (False, True):
+        code = P22_CACHE_CHILD.format(root=root, no_nvcc=no_nvcc, model=P22_CACHE_MODEL,
+                                      cache=cache, kernel=P22_CACHE_KERNEL)
+        out = p22_child([sys.executable, "-c", code], "(a)", 300)
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        runs[-1]["files"] = {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+                             for f in sorted(os.listdir(cache))}
+    built, loaded = runs
+    lib = os.path.basename(built["library"])
+    if built["library_dir"] != cache or os.path.dirname(built["library"]) != cache:
+        raise AssertionError(f"22 (a): the engine latched {built['library_dir']}, not {cache}")
+    if lib not in built["files"]:
+        raise AssertionError(f"22 (a): no {lib} in the cache: {sorted(built['files'])}")
+    if loaded["files"] != built["files"]:
+        raise AssertionError(f"22 (a): the second process changed the cache: "
+                             f"{built['files']} -> {loaded['files']}")
+    for r in runs:
+        if r["tally"] != {P22_CACHE_KERNEL: 6}:
+            raise AssertionError(f"22 (a): tally {r['tally']}, want {P22_CACHE_KERNEL} 6 "
+                                 f"times (the build's eager forward, the replay) and no other")
+    if loaded["preds"] != built["preds"]:
+        raise AssertionError("22 (a): the cached kernel's forward differs from the built one's")
+    return {"cache_files": sorted(built["files"]), "library": lib,
+            "build_first_forward_ms": built["first_forward_ms"],
+            "load_first_forward_ms": loaded["first_forward_ms"],
+            "build_process_s": built["process_s"], "load_process_s": loaded["process_s"],
+            "launches": built["tally"]}
+
+
+def p22_parity(tmp: str) -> dict:
+    """22 (b): ``cuda_kernel_parity.py`` writes its artifact, every case
+    passing."""
+    path = os.path.join(tmp, "kernel_parity.json")
+    p22_child([sys.executable, "cuda_kernel_parity.py", "--out", path], "(b)", 300)
+    with open(path) as f:
+        art = json.load(f)
+    bad = [r for r in art["results"] if not r["pass"]]
+    if not (art["all_pass"] and art["compiled"] and art["platform"] == "gpu") or bad:
+        raise AssertionError(f"22 (b): all_pass {art['all_pass']}, compiled "
+                             f"{art['compiled']}, failing {bad[:5]}")
+    return {"cases": len(art["results"]), "all_pass": art["all_pass"],
+            "device_kind": art["device_kind"], "power_limit": art["power_limit"],
+            "wall_s": art["wall_s"]}
+
+
+def p22_finite(rows: list, keys: tuple, label: str) -> None:
+    for r in rows:
+        for k in keys:
+            v = r.get(k)
+            if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+                raise AssertionError(f"22 (c) {label}: {k} = {v!r} in {r}")
+
+
+def p22_bench(card: str) -> dict:
+    """22 (c): ``bench_device_torch.py`` in one process: the measured
+    bandwidth, vit_b16 (the kernels and the plain route) and a short
+    attention sweep."""
+    out = p22_child([sys.executable, "bench_device_torch.py", "--config", "vit_b16", "--ab",
+                     "--hbm-bw", "--attn-sweep", "--seqs", P22_SWEEP_SEQS, "--iters",
+                     str(P22_BENCH_ITERS)], "(c)", 300)
+    rows = json.loads(out.stdout.strip().splitlines()[-1])
+    bw = [r for r in rows if r.get("metric") == "hbm_bandwidth"]
+    ab = [r for r in rows if "kernels" in r]
+    sweep = [r for r in rows if r.get("metric") == "attention_flash_vs_library"]
+    p22_finite(bw, ("bw_measured_gb_s",), "bandwidth")
+    p22_finite(ab, ("step_ms", "images_per_sec", "achieved_tflops", "mfu_pct",
+                    "roofline_ms", "pct_of_roofline"), "vit_b16")
+    p22_finite(sweep, ("flash_ms", "library_ms", "plain_ms", "bound_ms"), "sweep")
+    if len(bw) != 1 or len(sweep) != len(P22_SWEEP_SEQS.split(",")) or \
+            [r["kernels"] for r in ab] != ["kernels", "plain"] or \
+            ab[1]["launches_per_fwd"] or not ab[0]["launches_per_fwd"]:
+        raise AssertionError(f"22 (c): rows {rows}")
+    log(f"  22 (c) on {card}, beside (a), (b), (d), (e) (information): HBM "
+        f"{bw[0]['bw_measured_gb_s']} GB/s measured")
+    for r in ab:
+        log(f"  22 (c) on {card}: vit_b16 B={r['batch']} {r['kernels']}: {r['step_ms']} ms a "
+            f"step, {r['images_per_sec']} img/s, {r['achieved_tflops']} TFLOP/s, MFU "
+            f"{r['mfu_pct']} %, {r['pct_of_roofline']} % of its {r['roofline_ms']} ms "
+            f"compute roofline, launches {r['launches_per_fwd']}")
+    log(f"  22 (c) on {card}: kernels against plain {ab[0].get('vs_plain_speedup')}x")
+    for r in sweep:
+        log(f"  22 (c) on {card}: attention S={r['seq']}: flash {r['flash_ms']} ms, library "
+            f"{r['library_ms']} ms, plain {r['plain_ms']} ms, bound {r['bound_ms']} ms")
+    return {"bw_gb_s": bw[0]["bw_measured_gb_s"], "vit_b16": ab, "sweep": sweep}
+
+
+def p22_entry() -> dict:
+    """22 (d): ``entry()`` on the card in float32 and bfloat16."""
+    code = P22_ENTRY_CHILD.format(root=os.path.dirname(os.path.abspath(__file__)))
+    out = p22_child([sys.executable, "-c", code], "(d)", 300)
+    line = next(l for l in out.stdout.splitlines() if l.startswith("P22_ENTRY "))
+    res = json.loads(line[len("P22_ENTRY "):])
+    for name, want in P22_ENTRY_LAUNCHES.items():
+        r = res[name]
+        if r["shape"] != [8, 1000] or not r["finite"] or r["max_sum_err"] > 1e-5 or \
+                not r["device"].startswith("cuda"):
+            raise AssertionError(f"22 (d) {name}: {r}")
+        if r["launches"] != want:
+            raise AssertionError(f"22 (d) {name}: launches {r['launches']}, want {want}")
+    return res
+
+
+def p22_dryrun() -> dict:
+    """22 (e): ``dryrun_multichip(4)`` on the card."""
+    code = P22_DRYRUN_CHILD.format(root=os.path.dirname(os.path.abspath(__file__)),
+                                   dryrun_s=P22_DRYRUN_S)
+    # The child's own limit for its ranks comes first, so that the child
+    # kills them before this one kills it.
+    out = p22_child([sys.executable, "-c", code], "(e)", P22_DRYRUN_S + 120)
+    line = next(l for l in out.stdout.splitlines() if l.startswith("P22_DRYRUN "))
+    d = json.loads(line[len("P22_DRYRUN "):])
+    losses = [*d["train_losses"], d["pp_loss"], d["sp_loss"], d["ep_loss"]]
+    if not all(math.isfinite(v) for v in losses) or len(d["serving"]) != 4 or any(
+            s["records"] != 12 or s["led"] < 2 or (s["ref_err"] is None) != k.endswith("ep=4")
+            for k, s in d["serving"].items()):
+        raise AssertionError(f"22 (e): {d}")
+    d["stdout_lines"] = [l for l in out.stdout.splitlines() if l.startswith("dryrun")]
+    return d
+
+
+def compile_cache_and_twins(torch, card: str) -> dict:
+    """Phase 22 (see the module docstring)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from storm_tpu_torch.infer.engine import clear_engines
+
+    clear_engines()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-phase22-")
+    try:
+        # All five run side by side, to keep the script inside its limit:
+        # (c)'s device times then share the card with the others' short
+        # bursts, so they are information here, and PERF.md's readings come
+        # from the bench run alone.
+        with ThreadPoolExecutor(5) as pool:
+            futs = {"a": pool.submit(p22_compile_cache, tmp), "b": pool.submit(p22_parity, tmp),
+                    "c": pool.submit(p22_bench, card), "d": pool.submit(p22_entry),
+                    "e": pool.submit(p22_dryrun)}
+            res = {k: f.result() for k, f in futs.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b, d, e = res["a"], res["b"], res["d"], res["e"]
+    log(f"  22 (a) on {card}: the engine built {a['library']} into an empty cache "
+        f"({a['cache_files']}); first forward {a['build_first_forward_ms']:.1f} ms with the "
+        f"build, {a['load_first_forward_ms']:.1f} ms loaded from the cache by a second process "
+        f"with nvcc unreachable (processes {a['build_process_s']:.1f} s and "
+        f"{a['load_process_s']:.1f} s); predictions identical, the cache unchanged")
+    log(f"  22 (b) on {card}: cuda_kernel_parity.py, {b['cases']} cases, all_pass "
+        f"{b['all_pass']} on {b['device_kind']} ({b['power_limit']}), {b['wall_s']} s")
+    for name in P22_ENTRY_LAUNCHES:
+        r = d[name]
+        log(f"  22 (d) on {card}: entry() {name}: probabilities {r['shape']} on {r['device']}, "
+            f"rows sum to 1 within {r['max_sum_err']:.1e}, launches {r['launches']}")
+    for l in e["stdout_lines"]:
+        log(f"  22 (e) on {card}: {l}")
+    log(f"  22 (e) on {card}: dryrun_multichip(4) in {e['s']:.1f} s; serving tallies "
+        f"{({k: v['tally'] for k, v in e['serving'].items()})}, led batches "
+        f"{({k: v['led'] for k, v in e['serving'].items()})}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    if res["phase_s"] > P22_LIMIT_S:
+        raise AssertionError(f"22: the phase took {res['phase_s']:.1f} s, over its "
+                             f"{P22_LIMIT_S:g} s budget")
+    res["launches"] = {
+        "lenet5 float32 int8_fused, built into the compile cache (phase 22a)": a["launches"],
+        **{f"vit_b16 {n} entry(), one forward (phase 22d)": d[n]["launches"]
+           for n in P22_ENTRY_LAUNCHES},
+        **{f"{k} serving dry run, rank 0 of 4 (phase 22e)": v["tally"]
+           for k, v in e["serving"].items()}}
+    log(f"  22: the phase took {res['phase_s']:.1f} s on {card} (budget {P22_LIMIT_S:g} s; "
+        f"(a)-(e) side by side)")
+    return res
+
+
 def run() -> int:
     import torch
 
@@ -8837,16 +8831,10 @@ def run() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from storm_tpu_torch.ops import _build
-    except ImportError as e:
-        print(f"chip_smoke: the storm_tpu_torch package is not beside this "
-              f"script ({e})", file=sys.stderr)
-        return 3
     from storm_tpu_torch.device import resolve_device
+    from storm_tpu_torch.ops import _build
 
-    card = nvidia_smi()
+    card = card_line()
     phase(f"[1] environment: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     # The package resolves the card as every entry point does; that sets
@@ -8867,13 +8855,16 @@ def run() -> int:
                 log(f"  ptxas {k.name} {entry}: {line.strip()}")
 
     phase("[3] kernel parity on the card")
-    rows = []
+    from storm_tpu_torch.ops import parity_checks
+
     with launch_signatures(PARITY_LAUNCHES):
-        errs = parity_cases(torch, rows)
-        failed = [r for r in rows if not r["pass"]]
-        if failed:
-            raise AssertionError(f"kernel parity failed: {failed}")
-        longseq_kernel_cases(torch, rows)
+        rows = parity_checks.run_all("cuda")
+        errs = parity_checks.parity_cases(rows, "cuda")
+        parity_checks.longseq_kernel_cases(rows, "cuda")
+    for r in rows:
+        err = r["max_rel_err"] if r["metric"] == "rel" else r["max_abs_err"]
+        log(f"  parity {r['kernel']:26s} {r['case']:44s} {r['dtype']:8s} {r['metric']} "
+            f"{err:.3e} <= {r['tol']:.0e} {'ok' if r['pass'] else 'FAIL'}")
     failed = [r for r in rows if not r["pass"]]
     if failed:
         raise AssertionError(f"kernel parity failed: {failed}")
@@ -8980,7 +8971,16 @@ def run() -> int:
     log(json.dumps({"fleet": {k: v for k, v in phase21.items() if k != "launches"},
                     "card": card}, default=float))
 
-    phase("[22] the kernels")
+    phase("[22] the compile cache and the root-script twins: a kernel built into "
+          "compile_cache_dir and loaded by a second process without nvcc, "
+          "cuda_kernel_parity.py, bench_device_torch.py, __graft_entry_torch__.py's entry() "
+          "and dryrun_multichip(4)")
+    phase22 = compile_cache_and_twins(torch, card)
+    log(json.dumps({"compile_cache_and_twins": {k: v for k, v in phase22.items()
+                                                if k != "launches"}, "card": card},
+                   default=float))
+
+    phase("[23] the kernels")
 
     replaces = {
         "w8a16_matmul_sm90": ("storm_tpu_torch/csrc/w8a16_matmul_sm90.cu",
@@ -9062,6 +9062,7 @@ def run() -> int:
             phase20["resnet_converge"]["launches"][name]
         paths["vit_tiny bf16, the cascade's tier 0 under fleet traffic (phase 21)"] = \
             phase21["launches"][name]
+        paths.update({p: c.get(name, 0) for p, c in phase22["launches"].items()})
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "variant": variant, "parity": "pass", "launches": served["launches"][name],

@@ -36,8 +36,9 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
+
+from storm_tpu_torch.device import PEAK_HBM_BYTES_PER_S, card_line
 
 SHAPES = [("qkvo", 768, 768, 48), ("mlp_in", 768, 3072, 12), ("mlp_out", 3072, 768, 12)]
 M = 8 * 197
@@ -48,7 +49,6 @@ DIM, DEPTH = 768, 12
 NORM_SWEEP = ([(32, 3, rpb) for rpb in (1, 2, 4, 8)]
               + [(16, 6, rpb) for rpb in (2, 4, 8, 16)]
               + [(lanes, 6, 1) for lanes in (32, 96, 192)])
-PEAK_BYTES_S = 3.35e12  # H100 SXM, published, at 700 W
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
@@ -143,7 +143,7 @@ def norm_sweep(torch, card: str) -> dict:
 
     def bound_ms(rows):
         """x and r read, y and out written, bf16 g and b read, per forward."""
-        return DEPTH * (4 * rows * DIM * 2 + 2 * DIM * 2) / PEAK_BYTES_S * 1e3
+        return DEPTH * (4 * rows * DIM * 2 + 2 * DIM * 2) / PEAK_HBM_BYTES_PER_S * 1e3
 
     calls = forward_calls(M)
     times = {}
@@ -190,9 +190,7 @@ def main() -> int:
         print(f"kernel_sweep: unknown sweep {which}; choose w8a16, norm", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    card = card_line()
     result = {"card": card}
     if "w8a16" in which:
         result.update(w8a16_sweep(torch, card))

@@ -133,6 +133,14 @@ class ModelConfig:
     # Wire dtype of the host->device transfer; None ships the compute
     # dtype, 'uint8' affine-quantized bytes with a per-batch range.
     transfer_dtype: Optional[str] = None
+    # Persistent directory of the CUDA kernels' shared libraries. A
+    # restarted daemon loads the kernels built by an earlier process
+    # instead of running nvcc again (the reference pays model load on every
+    # worker start, InferenceBolt.java:44-62; here kernel builds are the
+    # analogous cold-start cost). A CUDA graph lives for one process, so
+    # bucket captures are not cached. "" keeps the default directory
+    # (storm_tpu_torch/ops/_build.py).
+    compile_cache_dir: str = ""
 
     def __post_init__(self) -> None:
         if self.transfer_dtype not in (None, "uint8"):

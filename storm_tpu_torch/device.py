@@ -8,9 +8,27 @@ device also fixes the process's matmul arithmetic (:func:`set_numeric_flags`).
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the root scripts' bounds are stated against these, beside the card's
+# name and power limit (card_line).
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+PEAK_HBM_BYTES_PER_S = 3.35e12
+
+
+def card_line() -> str:
+    """``name, power limit`` of the card, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else "unknown"
 
 
 def set_numeric_flags() -> None:

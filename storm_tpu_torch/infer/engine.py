@@ -38,16 +38,32 @@ tensor parallelism (``tp``), ring-attention sequence parallelism (``sp``,
 a family with ``apply_sp``) and expert parallelism (``ep``, a MoE
 family). Its weights are quantized first, then sharded
 (``parallel/sharding.py``), and the module's row-parallel layers or MoE
-blocks get their collectives. storm_tpu's multi-process contract holds
-(``engine.py:437-454``, ``:965-980``): every rank feeds the same batches
-in the same order; the engine runs the serialized predict (pipeline depth
-0), each rank its rows (and its shard of the sequence) of the padded
-batch, and gathers the data axis's rows with one all-gather under its
-lock, so every rank returns the whole batch. gloo's collectives are host
-calls a CUDA graph cannot capture, so a multi-rank engine runs its forward
-eagerly and captures no graph; its tally counts the eager launches. A mesh
-of one rank (the default ``ShardingConfig()``) makes no process group and
-keeps the split-phase engine and its graphs.
+blocks get their collectives. The engine runs the serialized predict
+(pipeline depth 0), each rank its rows (and its shard of the sequence) of
+the padded batch, and gathers the data axis's rows with one all-gather
+under its lock, so every rank returns the whole batch. Every rank must
+run the same batches in the same order, which the engine holds in one of
+two ways:
+
+- lockstep (the default, storm_tpu's multi-process contract,
+  ``engine.py:437-454``, ``:965-980``): every rank's caller feeds the
+  same batches in the same order itself;
+- led (:meth:`InferenceEngine.lead` on the mesh's leader,
+  :meth:`InferenceEngine.follow` on every other rank): the leader alone is
+  fed, from any number of threads, and under its lock broadcasts each
+  batch to the followers before its forward, so their forwards run in the
+  order the leader's lock took the batches. A topology serves a
+  multi-rank engine this way only: its batches form on timers and its
+  tasks and in-flight dispatches race for the engine's lock, in an order
+  that differs from rank to rank (with each rank's topology fed the same
+  records, ranks combined one batch's shards with another's), so
+  ``InferenceBolt`` refuses a multi-rank engine that is not led.
+
+gloo's collectives are host calls a CUDA graph cannot capture, so a
+multi-rank engine runs its forward eagerly and captures no graph; its
+tally counts the eager launches. A mesh of one rank (the default
+``ShardingConfig()``) makes no process group and keeps the split-phase
+engine and its graphs.
 """
 
 from __future__ import annotations
@@ -73,6 +89,8 @@ from storm_tpu_torch.models.convert import (
     from_jax_params, init_params, prepared_nbytes, tree_leaves)
 from storm_tpu_torch.models.registry import check_checkpoint, load_checkpoint, model_def
 from storm_tpu_torch.obs import copyledger as _copyledger
+from storm_tpu_torch.ops import _build
+from storm_tpu_torch.parallel.collectives import broadcast
 from storm_tpu_torch.parallel.mesh import make_mesh
 from storm_tpu_torch.resilience.chaos import get_injector
 from storm_tpu_torch.runtime.tracing import DEVICE_SUBSTAGES
@@ -376,6 +394,38 @@ def _report_compile(key: str, padded: int, ms: float) -> None:
             pass  # an observability hook must never fail a batch
 
 
+# ---- the compile cache ---------------------------------------------------------
+
+_COMPILE_CACHE_DIR: Optional[str] = None
+_COMPILE_CACHE_LOCK = threading.Lock()
+
+
+def enable_compile_cache(cache_dir: str, min_compile_secs: float = 0.1) -> None:
+    """Keep the CUDA kernels' shared libraries in ``cache_dir``: the
+    port's persistent compile cache, storm_tpu's ``enable_compile_cache``
+    (``storm_tpu/infer/engine.py:353-376``). Process-global and set once:
+    a second, different directory is warned about and ignored. A
+    restarted daemon then loads the libraries an earlier process built
+    there instead of running ``nvcc`` (several processes may share the
+    directory: each builds under a private name and renames). What
+    persists is the libraries only: a CUDA graph dies with its process, so
+    each bucket's capture runs again. Kernels already loaded in this
+    process keep their libraries. ``min_compile_secs`` is storm_tpu's
+    signature; every kernel library is kept whatever its build time.
+    Called from engine init when ``ModelConfig.compile_cache_dir`` is set;
+    callable directly at daemon startup."""
+    global _COMPILE_CACHE_DIR
+    with _COMPILE_CACHE_LOCK:
+        if _COMPILE_CACHE_DIR is not None:
+            if _COMPILE_CACHE_DIR != cache_dir:
+                logger.warning("compile cache already latched at %s; ignoring %s "
+                               "(one kernel library directory per process)",
+                               _COMPILE_CACHE_DIR, cache_dir)
+            return
+        _COMPILE_CACHE_DIR = cache_dir
+        _build.set_library_dir(cache_dir)
+
+
 # ---- the wire ------------------------------------------------------------------
 
 
@@ -448,6 +498,10 @@ def _sharded_forward_fn(model: torch.nn.Module, dtype: torch.dtype, mesh, data_a
     return forward
 
 
+# A led engine's header: a batch follows, or the followers stop.
+_RUN, _STOP = 1.0, 0.0
+
+
 class InferenceEngine:
     """``params`` and ``state``: numpy trees in the JAX layout (e.g.
     carried from storm_tpu). With ``params`` None the engine loads
@@ -468,6 +522,8 @@ class InferenceEngine:
         self.model_cfg = model_cfg
         self.batch_cfg = batch_cfg or BatchConfig()
         self.sharding_cfg = sharding_cfg or ShardingConfig()
+        if model_cfg.compile_cache_dir:
+            enable_compile_cache(model_cfg.compile_cache_dir)
         self.device = resolve_device(device)
         self.dtype = DTYPES[model_cfg.dtype]
         self.num_classes = int(model_cfg.num_classes)
@@ -515,6 +571,10 @@ class InferenceEngine:
         # Dispatch slots: the ring's depth, or the one serialized predict.
         self.ring_capacity = max(1, self.pipeline_depth)
         self._next_slot = 0
+        # A multi-rank engine's role (module docstring): led from this rank
+        # (its batches broadcast under the lock), and the batches led.
+        self._leading = False
+        self.led = 0
         # Watchdog / quarantine state (batch.watchdog_ms, watchdog_trips).
         self.quarantined = False
         self.on_quarantine = None
@@ -747,7 +807,12 @@ class InferenceEngine:
 
     def _launch(self, padded: int, host_in: torch.Tensor, host_out: torch.Tensor,
                 scale=None, offset=None, eager: bool = False) -> _DeviceResult:
-        """Under the lock: the batch through the bucket's next ring slot."""
+        """Under the lock: the batch through the bucket's next ring slot
+        (on a led engine, sent to the followers first)."""
+        if self._leading:
+            self._send(_RUN, padded, scale, offset, eager)
+            broadcast(host_in.reshape(-1).view(torch.uint8), self.mesh)
+            self.led += 1
         bucket = self._bucket(padded)
         slot = self._next_slot
         self._next_slot = (slot + 1) % self.ring_capacity
@@ -756,6 +821,70 @@ class InferenceEngine:
             None if offset is None else float(offset), eager=eager)
         self._note_forward(counts if eager or bucket.graph is None else bucket.launches)
         return _DeviceResult(host_out, computed, done)
+
+    # ---- a led multi-rank engine ---------------------------------------------
+
+    @property
+    def leading(self) -> bool:
+        return self._leading
+
+    def lead(self) -> None:
+        """Make this rank, the mesh's leader, the one that is fed: from now
+        on each batch goes to the followers (:meth:`follow`) under the
+        lock, before its forward. Every other rank of the mesh must be in
+        :meth:`follow` until :meth:`release_followers`."""
+        if not self.multirank:
+            raise ValueError("lead(): a one-rank engine has no followers")
+        if self.mesh.rank != self.mesh.leader:
+            raise ValueError(f"lead(): rank {self.mesh.rank} is not the mesh's leader "
+                             f"(rank {self.mesh.leader}); it follows: call follow()")
+        with self._lock:
+            self._leading = True
+
+    def release_followers(self) -> None:
+        """End the followers' :meth:`follow`; this engine is lockstep
+        again."""
+        with self._lock:
+            if self._leading:
+                self._send(_STOP)
+                self._leading = False
+
+    def follow(self) -> int:
+        """On every rank of the mesh but its leader: run each batch the
+        leader sends, in the order it sends them, until the leader
+        releases its followers; returns the batches run. The leader's
+        callers get the results (every rank computes the whole batch)."""
+        if not self.multirank or self.mesh.rank == self.mesh.leader:
+            raise ValueError("follow(): only a multi-rank engine's other ranks follow "
+                             "its leader")
+        pin = self._streams is not None
+        n = 0
+        while True:
+            head = broadcast(torch.zeros(5, dtype=torch.float64), self.mesh)
+            op, padded, eager, scale, offset = head.tolist()
+            if op == _STOP:
+                return n
+            padded = int(padded)
+            host_in = torch.empty((padded, *self.input_shape), dtype=self.wire_dtype)
+            broadcast(host_in.reshape(-1).view(torch.uint8), self.mesh)
+            host_out = torch.empty((padded, self.num_classes), dtype=torch.float32,
+                                   pin_memory=pin)
+            with self._lock:
+                result = self._launch(padded, host_in, host_out,
+                                      None if np.isnan(scale) else scale,
+                                      None if np.isnan(offset) else offset, eager=bool(eager))
+            self._report_cold()
+            np.asarray(result)  # this batch's forward done before the next
+            n += 1
+
+    def _send(self, op: float, padded: int = 0, scale=None, offset=None,
+              eager: bool = False) -> None:
+        """Under the lock, on the leader: one batch's header (or the stop)."""
+        nan = float("nan")
+        head = torch.tensor([op, padded, float(eager),
+                             nan if scale is None else float(scale),
+                             nan if offset is None else float(offset)], dtype=torch.float64)
+        broadcast(head, self.mesh)
 
     # ---- the hot call --------------------------------------------------------
 
@@ -1034,7 +1163,7 @@ def shared_engine(model_cfg: ModelConfig, batch_cfg: Optional[BatchConfig] = Non
     key = (model_cfg.name, model_cfg.dtype, model_cfg.transfer_dtype,
            tuple(model_cfg.input_shape), model_cfg.num_classes,
            model_cfg.checkpoint, model_cfg.seed, model_cfg.weights,
-           _freeze(model_cfg.extra),
+           model_cfg.compile_cache_dir, _freeze(model_cfg.extra),
            (sh.data_parallel, sh.tensor_parallel, sh.sequence_parallel,
             sh.expert_parallel),
            # the batch policy is part of the identity: buckets, ring and

@@ -209,6 +209,17 @@ def _listen_for_quarantine(engine, task: "InferenceBolt") -> None:
     hook.add(task)
 
 
+def _led(engine):
+    """``engine``, unless it is a multi-rank engine that is not led (the
+    class docstring)."""
+    if getattr(engine, "multirank", False) and not engine.leading:
+        raise ValueError(
+            f"engine {engine.model_cfg.name!r} spans {engine.mesh.size} ranks and is not "
+            f"led: a topology serves it from the mesh's leader (engine.lead() there, "
+            f"engine.follow() on the other ranks)")
+    return engine
+
+
 class InferenceBolt(Bolt):
     """``device``: where the shared engines run (default ``cuda``; pass
     ``"cpu"`` for the CPU). ``engine``: an engine to use instead of the
@@ -218,9 +229,11 @@ class InferenceBolt(Bolt):
     ``cascade``: a ``CascadeConfig`` (on when enabled). ``sharding``: the
     ``ShardingConfig`` of every engine the task takes from
     ``shared_engine`` (storm_tpu's ``sharding``; the default is one rank).
-    A sharded engine's ranks each run one such task, fed the same records
-    in the same order (the multi-process contract of
-    ``infer/engine.py``)."""
+    A multi-rank engine is served from its leader's topology alone: the
+    leader's engine is led (``engine.lead()``) before the task prepares,
+    and every other rank follows it (``engine.follow()``; the module
+    docstring of ``infer/engine.py`` says why); the task refuses a
+    multi-rank engine that is not led."""
 
     def __init__(self, model: Optional[ModelConfig] = None,
                  batch: Optional[BatchConfig] = None, device=None,
@@ -252,8 +265,8 @@ class InferenceBolt(Bolt):
         return [t.get(f, None) for f in self.passthrough]
 
     def _shared_engine(self, model_cfg: Optional[ModelConfig] = None):
-        return shared_engine(model_cfg or self.model_cfg, self.batch_cfg, device=self.device,
-                             sharding_cfg=self.sharding_cfg)
+        return _led(shared_engine(model_cfg or self.model_cfg, self.batch_cfg,
+                                  device=self.device, sharding_cfg=self.sharding_cfg))
 
     def prewarm(self) -> None:
         """Build and warm the engine (and a cascade's tier engines), and
@@ -310,7 +323,7 @@ class InferenceBolt(Bolt):
                     "graph_capture", component=cid, batch_shape=padded,
                     compile_ms=round(ms, 1)))
         # One engine per model per process: the tasks share its weights.
-        self.engine = self._engine or self._shared_engine()
+        self.engine = _led(self._engine or self._shared_engine())
         self._hook_compile(self.engine)
         prewarmed = getattr(self, "_prewarmed", False)
         if self._warmup and not prewarmed:
@@ -498,8 +511,8 @@ class InferenceBolt(Bolt):
         and replay records still in this task's batcher."""
 
         def build():
-            eng = shared_engine(model_cfg, self.batch_cfg, device=self.device,
-                                sharding_cfg=self.sharding_cfg)
+            eng = _led(shared_engine(model_cfg, self.batch_cfg, device=self.device,
+                                     sharding_cfg=self.sharding_cfg))
             self._hook_compile(eng)
             if self._warmup:
                 eng.warmup()

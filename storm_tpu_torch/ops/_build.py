@@ -1,11 +1,14 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library under ``build/storm_tpu_torch/``
-at the repository root, then loaded with :mod:`ctypes`. Nothing is built
-when a module is imported: the first launch of a kernel builds it (cached
-by a hash of its sources and flags), and :func:`build_all` builds every
-kernel at once, one ``nvcc`` process per source, all started together.
+for ``sm_90a`` into its own shared library in the library directory
+(:func:`library_dir`: ``build/storm_tpu_torch/`` at the repository root,
+unless :func:`set_library_dir` moved it), then loaded with :mod:`ctypes`.
+Nothing is built when a module is imported: the first launch of a kernel
+builds it (cached by a hash of its sources and flags), and
+:func:`build_all` builds every kernel at once, one ``nvcc`` process per
+source, all started together. A library already in the directory is
+loaded as it is: ``nvcc`` is looked for only when one is missing.
 
 Every pointer and the stream cross as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` after its launch, and :meth:`Kernel.launch` raises
@@ -38,7 +41,9 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# The default library directory; set_library_dir moves it.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "storm_tpu_torch"
+_LIBRARY_DIR: Optional[Path] = None
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +53,20 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The calling thread's launch recorder (record_launches).
 _RECORDER = threading.local()
+
+
+def library_dir() -> Path:
+    """Where the kernels' libraries are built and looked for, read at each
+    build and load."""
+    return _LIBRARY_DIR or BUILD_DIR
+
+
+def set_library_dir(path) -> None:
+    """Build and load the kernels' libraries in ``path`` from now on (the
+    compile cache, ``infer.engine.enable_compile_cache``). A kernel whose
+    library is already loaded keeps it."""
+    global _LIBRARY_DIR
+    _LIBRARY_DIR = Path(path)
 
 
 @contextlib.contextmanager
@@ -110,35 +129,36 @@ class Kernel:
         for p in self._sources():
             h.update(p.read_bytes())
         h.update(" ".join([*NVCC_FLAGS, *self.libs]).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return library_dir() / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
-    def start_build(self, nvcc: str) -> Optional[subprocess.Popen]:
-        """Start ``nvcc`` for this source unless its library is built;
-        returns the process (or None when nothing is to be done). Its
-        output goes to the ``.log`` beside the library."""
-        lib = self.library_path()
+    def start_build(self, lib: Optional[Path] = None):
+        """Start ``nvcc`` for this source unless its library ``lib`` (default
+        :meth:`library_path`) is built; returns what :meth:`finish_build`
+        takes, or None when nothing is to be done. Its output goes to the
+        ``.log`` beside the library."""
+        lib = lib or self.library_path()
         if lib.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        # Build into a private name, then rename: a concurrent build of the
+        # same source (another process sharing the directory) never loads
+        # a half-written library.
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         with open(lib.with_suffix(".log"), "w") as log:
-            return subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(self._tmp_path()),
-                 str(self.source), *self.libs],
-                stdout=log, stderr=subprocess.STDOUT)
+            proc = subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source),
+                 *self.libs], stdout=log, stderr=subprocess.STDOUT)
+        return proc, lib, tmp
 
-    def _tmp_path(self) -> Path:
-        # Build into a private name, then rename: a concurrent build of
-        # the same source never loads a half-written library.
-        return self.library_path().with_suffix(f".{os.getpid()}.tmp")
-
-    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
-        if proc is None:
+    def finish_build(self, started) -> None:
+        if started is None:
             return
+        proc, lib, tmp = started
         rc = proc.wait()
         if rc != 0:
             raise RuntimeError(f"nvcc failed for {self.source.name} "
-                               f"(exit {rc}):\n{self.build_log()}")
-        os.replace(self._tmp_path(), self.library_path())
+                               f"(exit {rc}):\n{lib.with_suffix('.log').read_text()}")
+        os.replace(tmp, lib)
 
     def build_log(self) -> str:
         """The compiler's output of the last build (``-Xptxas -v``
@@ -149,8 +169,9 @@ class Kernel:
     def function(self):
         with self._lock:
             if self._fn is None:
-                self.finish_build(self.start_build(find_nvcc()))
-                lib = ctypes.CDLL(str(self.library_path()))
+                path = self.library_path()
+                self.finish_build(self.start_build(path))
+                lib = ctypes.CDLL(str(path))
                 fn = getattr(lib, self.name)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
@@ -213,14 +234,13 @@ KERNELS: Dict[str, Kernel] = {
 def build_all() -> Dict[str, Path]:
     """Build every kernel from source, one ``nvcc`` per file in parallel,
     and load each. Returns name -> library path."""
-    nvcc = find_nvcc()
     errors = []
     with contextlib.ExitStack() as held:
         # Hold every kernel's lock, so no launch builds the same source
         # beside this build.
         for k in KERNELS.values():
             held.enter_context(k._lock)
-        procs = [(k, k.start_build(nvcc)) for k in KERNELS.values()]
+        procs = [(k, k.start_build()) for k in KERNELS.values()]
         for k, proc in procs:
             try:
                 k.finish_build(proc)

@@ -43,9 +43,10 @@ other). Two conventions of the gradient, by what the loss is on an axis:
 
 Every rank of an axis must call its collectives in one order; a backward
 runs its collectives in autograd's order, which is the same on ranks that
-built the same graph. The in-place :func:`all_reduce`, :func:`all_gather`
-and :func:`ppermute` are not differentiable; serving calls them where it
-needs no gradient.
+built the same graph. The in-place :func:`all_reduce`, :func:`all_gather`,
+:func:`ppermute` and :func:`broadcast` (over every rank of the mesh, from
+its leader: a led engine's batches) are not differentiable; serving calls
+them where it needs no gradient.
 """
 
 from __future__ import annotations
@@ -168,6 +169,23 @@ def ppermute(t: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
         if stage:
             out = out.to(t.device)
     return out
+
+
+def broadcast(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mesh leader's ``t`` on every rank of the mesh, in place (over
+    ``mesh.whole``); returns ``t``. A host tensor under NCCL goes through
+    the mesh's device."""
+    group = mesh.whole
+    if group is None:
+        return t
+    via_device = not t.is_cuda and dist.get_backend(group) == "nccl"
+    stage = staged("broadcast", t, group)
+    with _Timed(t, stage):
+        buf = t.to(mesh.device) if via_device else (_host(t) if stage else t)
+        dist.broadcast(buf, src=mesh.leader, group=group)
+        if buf is not t:
+            t.copy_(buf)
+    return t
 
 
 # ---- differentiable collectives -------------------------------------------------

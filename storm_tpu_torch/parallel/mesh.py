@@ -41,11 +41,13 @@ class Mesh:
     process group of this rank's line along it (None for an axis of size
     1, whose collectives are the identity); a mesh built without them
     (tests, describing another rank's shard) places parameters but runs no
-    collective."""
+    collective. ``whole``: the process group of every rank of the mesh
+    (None for a mesh of one), over which its ``leader``, the rank at
+    ``ranks[0, 0]``, broadcasts."""
 
     def __init__(self, ranks, axis_names: Sequence[str] = ("data", "model"), *,
                  rank: Optional[int] = None, device=None,
-                 groups: Optional[Dict[str, object]] = None) -> None:
+                 groups: Optional[Dict[str, object]] = None, whole=None) -> None:
         self.ranks = np.asarray(ranks, dtype=np.int64).reshape(len(ranks), -1)
         if len(axis_names) != 2:
             raise ValueError(f"a mesh has two axes, got names {tuple(axis_names)}")
@@ -61,6 +63,8 @@ class Mesh:
         self._coords = dict(zip(self.axis_names, (int(c) for c in where[0])))
         self.device = torch.device(device) if device is not None else None
         self._groups = dict(groups or {})
+        self.whole = whole
+        self.leader = int(self.ranks.flat[0])
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis``."""
@@ -134,7 +138,7 @@ def make_mesh(data_parallel: int = 0, tensor_parallel: int = 1,
         raise ValueError(f"dp*tp = {data_parallel}*{tensor_parallel} exceeds {n} ranks")
     grid = np.array(ranks[:data_parallel * tensor_parallel]).reshape(
         data_parallel, tensor_parallel)
-    groups = {}
+    groups, whole = {}, None
     if grid.size > 1:
         if not dist.is_initialized():
             raise RuntimeError(_NO_GROUP.format(data_parallel, tensor_parallel))
@@ -147,10 +151,11 @@ def make_mesh(data_parallel: int = 0, tensor_parallel: int = 1,
                 g = dist.new_group([int(r) for r in line])
                 if me in line:
                     groups[axis] = g
+        whole = dist.new_group([int(r) for r in grid.flat])
         if me not in grid:
             raise ValueError(f"rank {me} is not in the {data_parallel} x "
                              f"{tensor_parallel} mesh of ranks {grid.tolist()}")
-    return Mesh(grid, axis_names, device=dev, groups=groups)
+    return Mesh(grid, axis_names, device=dev, groups=groups, whole=whole)
 
 
 def default_mesh(device=None) -> Mesh:

@@ -94,12 +94,7 @@ inference_parallelism = 2
 
 
 def _as_dict(cfg) -> dict:
-    d = dataclasses.asdict(cfg)
-    # storm_tpu's XLA compile cache has no counterpart in the port
-    d["model"].pop("compile_cache_dir", None)
-    for p in d["pipelines"]:
-        p["model"].pop("compile_cache_dir", None)
-    return d
+    return dataclasses.asdict(cfg)
 
 
 def _load_both(tmp_path, name, text):
@@ -114,6 +109,61 @@ def test_load_toml_equals_storm_tpu(tmp_path):
     assert got.pipelines[1].model.input_shape == (32, 32, 3)
     assert got.chaos.kill_worker_s == 5.0 and got.plan.hot_steps == 3
     assert got.topology._scheme_pinned
+
+
+def test_compile_cache_dir_loads_alike(tmp_path):
+    """ROADMAP C27: a file that sets ``model.compile_cache_dir`` (and a
+    pipeline's) loads in both packages to equal configs, nothing popped."""
+    text = TOML.replace('weights = "int8_fused"\n',
+                        'weights = "int8_fused"\ncompile_cache_dir = "/tmp/x"\n', 1)
+    text = text.replace('num_classes = 10 }\ninference_parallelism',
+                        'num_classes = 10, compile_cache_dir = "/tmp/y" }\n'
+                        'inference_parallelism', 1)
+    got, want = _load_both(tmp_path, "cfg.toml", text)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.model.compile_cache_dir == "/tmp/x"
+    assert got.pipelines[1].model.compile_cache_dir == "/tmp/y"
+
+
+def test_compile_cache_latch(tmp_path, caplog):
+    """``enable_compile_cache`` latches as storm_tpu's does: the first
+    directory wins, a second is warned about and kept out, and the
+    kernels' libraries are built and looked for under the latched one.
+    ``shared_engine`` keys on the field. The latch is undone afterwards,
+    as ``tests/test_infer.py`` undoes storm_tpu's."""
+    import logging
+
+    from storm_tpu_torch.infer import engine as eng_mod
+    from storm_tpu_torch.ops import _build
+
+    first, second = tmp_path / "first", tmp_path / "second"
+    saved = eng_mod._COMPILE_CACHE_DIR, _build._LIBRARY_DIR
+    eng_mod._COMPILE_CACHE_DIR, _build._LIBRARY_DIR = None, None
+    default = {name: k.library_path() for name, k in _build.KERNELS.items()}
+    batch = port_config.BatchConfig(max_batch=4, buckets=(4,))
+    engines = []
+    try:
+        cfg = port_config.ModelConfig(name="lenet5", dtype="float32", num_classes=10,
+                                      input_shape=(28, 28, 1), compile_cache_dir=str(first))
+        engines.append(eng_mod.shared_engine(cfg, batch, device="cpu"))
+        assert eng_mod._COMPILE_CACHE_DIR == str(first)
+        assert _build.library_dir() == first
+        for name, k in _build.KERNELS.items():
+            assert k.library_path() == first / default[name].name
+        with caplog.at_level(logging.WARNING, logger=eng_mod.__name__):
+            engines.append(eng_mod.shared_engine(
+                dataclasses.replace(cfg, compile_cache_dir=str(second)), batch, device="cpu"))
+            eng_mod.enable_compile_cache(str(first))
+        warned = [r.getMessage() for r in caplog.records if r.name == eng_mod.__name__]
+        assert len(warned) == 1 and str(second) in warned[0] and str(first) in warned[0]
+        assert _build.library_dir() == first and eng_mod._COMPILE_CACHE_DIR == str(first)
+        assert engines[0] is not engines[1]  # the field is part of the engine's identity
+        assert not second.exists()
+    finally:
+        for e in engines:
+            eng_mod.unload_engine(e)
+        eng_mod._COMPILE_CACHE_DIR, _build._LIBRARY_DIR = saved
+    assert {n: k.library_path() for n, k in _build.KERNELS.items()} == default
 
 
 def test_load_json_equals_storm_tpu(tmp_path):

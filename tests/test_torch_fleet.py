@@ -100,10 +100,10 @@ def _served(capacity: float, overdriven: float = 1.0, first: float = 1.0):
 
 
 @pytest.mark.parametrize("capacity, overdriven, first, want, steps", [
-    (600.0, 1.0, 1.0, 600.0, 3),    # kept up, then behind twice
-    (300.0, 1.0, 1.0, 300.0, 2),    # 0.9x the burst bound saturates: storm_tpu's step, checked
-    (560.0, 0.8, 1.0, 560.0, 3),    # the raised step collapses; 1.25x the first's 500 saturates
-    (1400.0, 1.0, 0.9, 1400.0, 4),  # a stalled first step read as behind
+    (600.0, 1.0, 1.0, 600.0, 5),    # kept up, then behind at every step
+    (300.0, 1.0, 1.0, 300.0, 5),    # 0.9x the burst bound saturates: storm_tpu's step, checked
+    (560.0, 0.8, 1.0, 560.0, 5),    # the raised step collapses; 1.25x the first's 500 saturates
+    (1400.0, 1.0, 0.9, 1400.0, 5),  # a stalled first step read as behind
     (1e6, 1.0, 1.0, 8000.0, 5),     # never saturated: the last offered rate
 ])
 def test_probe_keeps_the_best_delivery(capacity, overdriven, first, want, steps):

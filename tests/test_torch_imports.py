@@ -13,8 +13,10 @@ parallelism, expert-parallel MoE, the rank launcher and the sharded
 engine, and the control plane: the UI server and the dist UI, the
 autoscaler, the planner, the inference worker, its client, the
 cross-caller batcher, the remote bolt and the CLI, and the fleet load
-generator: its traces, scorecard and scenario-matrix runner), and neither
-chip_smoke.py nor kernel_sweep.py,
+generator: its traces, scorecard and scenario-matrix runner, and the
+compile cache and the kernel parity cases), and neither chip_smoke.py,
+kernel_sweep.py nor the root-script twins (cuda_kernel_parity.py,
+bench_device_torch.py, __graft_entry_torch__.py) nor fleet_probe_ab.py,
 imports JAX, orbax, scikit-learn, pyarrow, gRPC or anything of the JAX
 package storm_tpu (the machine with the card has none of them; the
 port's dist RPCs run over the standard library's sockets)."""
@@ -34,8 +36,9 @@ def _port_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "kernel_sweep.py")
+    for script in ("chip_smoke.py", "kernel_sweep.py", "cuda_kernel_parity.py",
+                   "bench_device_torch.py", "__graft_entry_torch__.py", "fleet_probe_ab.py"):
+        yield os.path.join(ROOT, script)
 
 
 def _forbidden(name: str) -> bool:
@@ -50,7 +53,9 @@ def test_no_jax_or_storm_tpu_imports_in_source():
     assert {"storm_tpu_torch/dist/journal.py", "storm_tpu_torch/dist/worker.py",
             "storm_tpu_torch/dist/controller.py", "storm_tpu_torch/loadgen/__init__.py",
             "storm_tpu_torch/loadgen/trace.py", "storm_tpu_torch/loadgen/scorecard.py",
-            "storm_tpu_torch/loadgen/fleet.py"} <= scanned
+            "storm_tpu_torch/loadgen/fleet.py", "storm_tpu_torch/ops/parity_checks.py",
+            "cuda_kernel_parity.py", "bench_device_torch.py",
+            "__graft_entry_torch__.py", "fleet_probe_ab.py"} <= scanned
     for path in _port_files():
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
         for node in ast.walk(tree):
@@ -184,6 +189,15 @@ def test_importing_the_port_loads_no_jax():
         import torch.distributed as tdist
         print("PARALLEL", dict(eng.mesh.shape), eng.pipeline_depth, tdist.is_initialized(),
               sorted(GLOO_CUDA), ring_attention.__name__)
+        import torch
+        import __graft_entry_torch__, bench_device_torch, cuda_kernel_parity, fleet_probe_ab
+        from storm_tpu_torch.ops import parity_checks
+        m = build_model("lenet5", device="cpu", dtype=torch.float32, num_classes=10,
+                        input_shape=(28, 28, 1))
+        cost = bench_device_torch.plain_route_cost(m, torch.float32, 8, (28, 28, 1))
+        print("TWINS", len(parity_checks.check_fused_norm("cpu")), cost["flops"] > 0,
+              len(__graft_entry_torch__.serving_meshes(4)),
+              cuda_kernel_parity.DEFAULT_OUT, sorted(fleet_probe_ab.VARIANTS))
         loaded = sorted(n for n in sys.modules
                         if n.split(".")[0] in ("jax", "jaxlib", "orbax", "sklearn",
                                                "storm_tpu", "pyarrow", "grpc"))
@@ -198,6 +212,8 @@ def test_importing_the_port_loads_no_jax():
     assert "TENSOR (1, 2, 3) True True" in out.stdout, out.stdout
     assert "EOS TransactionalBrokerSink ChaosMonkey True True" in out.stdout, out.stdout
     assert "CONTROL {0: '127.0.0.1:1'} 0 0 True True -3 range" in out.stdout, out.stdout
+    assert ("TWINS 6 True 4 build/KERNEL_CUDA.json ['climb', 'probe']"
+            in out.stdout), out.stdout
     assert ("PARALLEL {'data': 1, 'model': 1} 2 False ['all_gather', 'all_reduce'] "
             "ring_attention") in out.stdout, out.stdout
     # the split-phase engine's modules, the native codec, the MoE layer

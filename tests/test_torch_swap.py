@@ -374,7 +374,9 @@ def test_budget_keeps_an_engine_with_a_batch_in_flight():
     try:
         a = shared_engine(cfgs[0], batch, device="cpu")
         a.warmup()
-        inj.configure(engine_hang_ms=800, engine_hang_next=1)
+        # The batch must still be in flight when the next engine's build
+        # (seconds under a loaded test run) evicts: a hang of 3 s.
+        inj.configure(engine_hang_ms=3000, engine_hang_next=1)
         h = a.dispatch((np.zeros((4, *SHAPE), np.float32),))
         a_id = id(a)
         del a
